@@ -24,7 +24,9 @@
 //
 // Bound on the H100: memory.  The function reads six int64 map components
 // and writes one int64 per item: 56 B per item at least.  This design moves
-// about 104 B per item (phases A and C both read the maps).  At K = 268,800
+// about 104 B per item: phases A and C each read the maps once (C keeps a
+// thread's 8 maps in registers from its aggregate to its apply loop), and C
+// writes the output.  At K = 268,800
 // that is 15 to 28 MB, about 5 to 8 us at 3.35 TB/s; with three dependent
 // launches and one block per SM at that size the kernel is bound by latency
 // instead (28 us of device time on an H100 SXM at 700 W, chip_smoke.py).
@@ -108,13 +110,22 @@ __device__ __forceinline__ State apply_map(const Map& m, const State& v) {
   return r;
 }
 
+// This thread's items, read once into registers (entries past k unset).
+__device__ __forceinline__ void load_items(const Maps& in, long long first,
+                                           long long k, Map* m) {
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    if (first + j < k) m[j] = load_map(in, first + j);
+  }
+}
+
 // Composition of this thread's items, in order.
-__device__ __forceinline__ Map thread_aggregate(const Maps& in, long long first,
+__device__ __forceinline__ Map thread_aggregate(const Map* m, long long first,
                                                 long long k) {
   Map a = identity_map();
+#pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
-    const long long i = first + j;
-    if (i < k) a = compose(load_map(in, i), a);
+    if (first + j < k) a = compose(m[j], a);
   }
   return a;
 }
@@ -137,7 +148,9 @@ aggregate_kernel(Maps in, long long k, long long* agg) {
   const int t = threadIdx.x;
   const long long first =
       (static_cast<long long>(blockIdx.x) * THREADS + t) * ITEMS;
-  sm[t] = thread_aggregate(in, first, k);
+  Map m[ITEMS];
+  load_items(in, first, k, m);
+  sm[t] = thread_aggregate(m, first, k);
   __syncthreads();
   for (int stride = 1; stride < THREADS; stride <<= 1) {
     if (t % (2 * stride) == 0) sm[t] = compose(sm[t + stride], sm[t]);
@@ -197,18 +210,20 @@ apply_kernel(Maps in, long long k, const long long* state, long long* out) {
   const int t = threadIdx.x;
   const long long first =
       (static_cast<long long>(blockIdx.x) * THREADS + t) * ITEMS;
-  sm[t] = thread_aggregate(in, first, k);
+  Map m[ITEMS];
+  load_items(in, first, k, m);
+  sm[t] = thread_aggregate(m, first, k);
   __syncthreads();
   block_inclusive_scan(sm);
   State v;
   v.d = state[2 * static_cast<long long>(blockIdx.x)];
   v.w = state[2 * static_cast<long long>(blockIdx.x) + 1];
   if (t > 0) v = apply_map(sm[t - 1], v);
+#pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
-    const long long i = first + j;
-    if (i < k) {
-      v = apply_map(load_map(in, i), v);
-      out[i] = v.d;
+    if (first + j < k) {
+      v = apply_map(m[j], v);
+      out[first + j] = v.d;
     }
   }
 }

@@ -24,8 +24,9 @@ is exact on the well-formed maps `ops.serve_maps` emits (see `ref`).
 
 Bound on the H100: memory.  The function must read six int64 components and
 write one per item, 56 B; at K = 268,800 that is 15 MB, about 4.5 µs at
-3.35 TB/s.  The three-phase design moves about 104 B per item (A and C both
-read the maps) in three dependent launches, with one 256-thread block per
+3.35 TB/s.  The three-phase design moves about 104 B per item (A and C
+each read the maps once, C holding a thread's maps in registers between
+its aggregate and its apply loop) in three dependent launches, with one 256-thread block per
 SM at that size, so it is bound by latency, not bandwidth: on an H100 SXM
 (700 W) it takes 28 µs of device time at K = 268,800 (`chip_smoke.py`).
 The design does nothing about that yet: a single-pass decoupled look-back
