@@ -6,11 +6,23 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, drives the port's main
-path (`build_workload` -> `simulate` -> `request_stats`) on the paper's
-topology study at scale 16 and on two long traces, checks every schedule
-against the port's event-driven oracle, and prints one JSON object per
-result line.  The last line is ``{"ok": true, "device": {...}}``; any failed
+each against its plain PyTorch version on the card, and drives the port's
+paths through them:
+
+  * the main path (`build_workload` -> `simulate` -> `request_stats`) on the
+    paper's topology study at scale 16 and on two long traces (serve-scan
+    kernel);
+  * the link-layer studies (`studies.link_layer`, `studies.link_reliability`)
+    at the reference benchmarks' full sizes, their sweeps stacked
+    (`simulate_stacked`: one serve-scan launch per round for all members);
+  * `depart_times` (segmented depart kernel) on the converged rounds of the
+    paper fabrics and of every expected-mode sweep member, against the
+    serve-scan kernel's departures;
+  * the link explorer's flit-efficiency grid (`flit_sweep`, flit-pack
+    kernel).
+
+Every schedule is checked against the port's event-driven oracle, and the
+script prints one JSON object per result line.  The last line is ``{"ok": true, "device": {...}}``; any failed
 check raises, so the script exits non-zero and never prints it.  It imports
 nothing of JAX and nothing of the ``repro`` package.
 """
@@ -34,6 +46,14 @@ SCALAR_OPS_PER_S = 67e12
 # applying one map to the state is 4 adds + 4 max + 2 saturations
 SCAN_BYTES_PER_ITEM = 7 * 8
 SCAN_OPS_PER_ITEM = 10
+# segmented depart, per item: int64 channel, arrive and ser read, depart
+# written (28 B with an int32 channel); a head test, an add and a max
+DEPART_BYTES_PER_ITEM = 4 * 8
+DEPART_OPS_PER_ITEM = 3
+# flit pack, per point: four int32 reads, an int32 and a float32 write;
+# ceil division, multiply, select, three float multiply/adds, max, divide
+FLIT_BYTES_PER_ITEM = 6 * 4
+FLIT_OPS_PER_ITEM = 8
 
 # Rounds the JAX reference needs where the computed `round_bound` falls
 # short of them: the ring at scale 16 with 120 requests per pair takes 83
@@ -105,11 +125,16 @@ def time_cuda(torch, fn, iters):
     return t0.elapsed_time(t1) / iters, host_ms
 
 
-def scan_bound_ms(k):
-    bytes_ms = SCAN_BYTES_PER_ITEM * k / HBM_BYTES_PER_S * 1e3
-    ops_ms = SCAN_OPS_PER_ITEM * k / SCALAR_OPS_PER_S * 1e3
+def bound_ms(k, bytes_per_item, ops_per_item):
+    """(least time on the card in ms, what bounds it) for k items."""
+    bytes_ms = bytes_per_item * k / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_per_item * k / SCALAR_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
+
+
+def scan_bound_ms(k):
+    return bound_ms(k, SCAN_BYTES_PER_ITEM, SCAN_OPS_PER_ITEM)
 
 
 def round_breakdown(torch, P, ops, K, wl, sched, repeats=5):
@@ -287,6 +312,199 @@ def run_path(np, torch, P, name, wl):
                                  stats["steady_bandwidth_MBps"]), **row)
 
 
+def phase_depart_vs_plain(torch, LK, LR):
+    """The segmented depart kernel against its plain version (block edges,
+    one segment over many blocks, one-item segments, a leading channel -1
+    run, int32 channels, K to 2**20 + 7), then its time at the main path's
+    sizes."""
+    blk = LK.block_items()
+    cases = [dict(k=k) for k in (1, 2, blk - 1, blk, blk + 1, 3 * blk + 5,
+                                 (1 << 20) + 7)]
+    cases += [dict(k=5 * blk + 3, one_segment=True),
+              dict(k=4 * blk + 9, singletons=True),
+              dict(k=3 * blk + 1, lead_minus_one=blk + 17),
+              dict(k=2 * blk + 11, offset=7 << 40)]
+    worst = 0
+    for i, case in enumerate(cases):
+        kw = dict(case)
+        cols = [torch.from_numpy(x).cuda()
+                for x in LR.random_stream(kw.pop("k"), 2000 + i, **kw)]
+        want = LR.segmented_depart_ref(*cols)
+        for chan in (cols[0], cols[0].int()):
+            got = LK.segmented_depart(chan, *cols[1:])
+            torch.cuda.synchronize()
+            worst = max(worst, int((got - want).abs().max()))
+            check(torch.equal(got, want),
+                  f"segmented_depart != plain for {case} ({chan.dtype})")
+    emit(phase="kernel_vs_plain", kernel="segmented_depart", block_items=blk,
+         cases=2 * len(cases), max_abs_err=worst)
+
+    timings = {}
+    for k in (268_800, 688_128):
+        cols = [torch.from_numpy(x).cuda()
+                for x in LR.random_stream(k, k, n_chan=600)]
+        chan32 = cols[0].int()
+        ms, host_ms = time_cuda(torch, lambda: LK.segmented_depart(*cols), 50)
+        ms32, _ = time_cuda(torch, lambda: LK.segmented_depart(
+            chan32, *cols[1:]), 50)
+        plain_ms, _ = time_cuda(torch,
+                                lambda: LR.segmented_depart_ref(*cols), 5)
+        bound, by = bound_ms(k, DEPART_BYTES_PER_ITEM, DEPART_OPS_PER_ITEM)
+        timings[k] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by=by)
+        emit(phase="kernel_timing", kernel="segmented_depart", K=k, ms=ms,
+             ms_int32_channel=ms32, host_ms_per_call=host_ms,
+             plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+             library_ms=None)
+    return worst, timings
+
+
+def phase_flit_vs_plain(np, torch, FK, FR, max_payload, max_ppm):
+    """The flit-pack kernel against its plain version (block edges, every
+    flit mode, ppm over its whole range, payloads up to MAX_PAYLOAD_B),
+    then its time on 2**20 and 2**24 points."""
+    def points(k, seed):
+        rng = np.random.default_rng(seed)
+        pay = rng.integers(0, max_payload + 1, k)
+        pay[: k // 2] = rng.integers(0, 1 << 16, k // 2)
+        pay[:4] = (0, 1, 236, max_payload)[:k]
+        # byte-exact, flit68 and flit256 points
+        fsize = rng.choice([0, 68, 256], k)
+        fpay = np.where(fsize == 68, 64, np.where(fsize == 256, 236, 0))
+        ppm = rng.integers(0, max_ppm + 1, k)
+        ppm[:2] = (0, max_ppm)[:k]
+        return [torch.from_numpy(x.astype(np.int32)).cuda()
+                for x in (pay, fsize, fpay, ppm)]
+
+    worst = 0.0
+    sizes = (1, 2, 255, 256, 257, 256 * 132 * 32 + 1, (1 << 20) + 3)
+    for i, k in enumerate(sizes):
+        cols = points(k, 3000 + i)
+        wire, eff = FK.flit_pack_kernel(*cols)
+        w_ref, e_ref = FR.flit_pack_ref(*cols)
+        torch.cuda.synchronize()
+        worst = max(worst, float((wire - w_ref).abs().max()),
+                    float((eff - e_ref).abs().max()))
+        check(torch.equal(wire, w_ref) and torch.equal(eff, e_ref),
+              f"flit_pack != plain at K={k}")
+    emit(phase="kernel_vs_plain", kernel="flit_pack", cases=len(sizes),
+         max_abs_err=worst)
+
+    timings = {}
+    for k in (1 << 20, 1 << 24):
+        cols = points(k, k)
+        ms, host_ms = time_cuda(torch, lambda: FK.flit_pack_kernel(*cols),
+                                50)
+        plain_ms, _ = time_cuda(torch, lambda: FR.flit_pack_ref(*cols), 5)
+        bound, by = bound_ms(k, FLIT_BYTES_PER_ITEM, FLIT_OPS_PER_ITEM)
+        timings[k] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by=by)
+        emit(phase="kernel_timing", kernel="flit_pack", K=k, ms=ms,
+             host_ms_per_call=host_ms, plain_ms=plain_ms, bound_ms=bound,
+             bound_by=by, library_ms=None)
+    return worst, timings
+
+
+def check_study_runs(np, P, name, log):
+    """Every schedule a study resolved — each member of a stacked sweep —
+    against the port's oracle; a stacked sweep launches the serve scan once
+    per round for all its members."""
+    members = 0
+    for run in log.runs:
+        rounds = run.schedule.rounds
+        if run.stacked:
+            check(run.launches == max(rounds),
+                  f"{name}/{run.label}: {run.launches} serve_scan launches "
+                  f"for {max(rounds)} stacked rounds")
+            tables = [(P.member(run.hops, i), P.member(run.channels, i),
+                       P.member(run.issue_ps, i), P.member(run.schedule, i))
+                      for i in range(len(rounds))]
+        else:
+            check(run.launches == rounds,
+                  f"{name}/{run.label}: {run.launches} serve_scan launches "
+                  f"for {rounds} rounds")
+            tables = [(run.hops, run.channels, run.issue_ps, run.schedule)]
+        for i, (hops, ch, issue, sched) in enumerate(tables):
+            check(sched.converged, f"{name}/{run.label}[{i}] not converged")
+            oracle = P.simulate_ref(hops, ch, issue)
+            for f in ("start", "depart", "arrive", "complete"):
+                check(np.array_equal(getattr(sched, f).cpu().numpy(),
+                                     oracle[f]),
+                      f"{name}/{run.label}[{i}]: {f} differs from the "
+                      f"oracle")
+            members += 1
+    return members
+
+
+def run_study(np, torch, P, K, module, name):
+    """One study at the reference's full size on the card: rows, host time
+    by phase, every schedule against the oracle."""
+    from repro_torch.studies.common import StudyLog
+
+    log = StudyLog(sync=torch.cuda.synchronize,
+                   launches=lambda: K.LAUNCHES["serve_scan"])
+    t0 = time.perf_counter()
+    rows = module.run(quick=False, device="cuda", log=log)
+    total_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    members = check_study_runs(np, P, name, log)
+    for row in rows:
+        emit(phase="study_row", study=name, name=row.name,
+             us_per_call=row.us_per_call, derived=row.derived)
+    emit(phase="study", study=name, host_s=total_s,
+         lower_s=log.seconds.get("lower", 0.0),
+         verify_s=log.seconds.get("verify", 0.0),
+         simulate_s=log.seconds.get("simulate", 0.0),
+         rounds={r.label: r.schedule.rounds for r in log.runs},
+         members_checked=members, oracle_s=time.perf_counter() - t0)
+    return rows, log
+
+
+def stacked_vs_loop(torch, P, run):
+    """Host ms of one stacked sweep against its members run one by one
+    (each call ends in a host readback), three times in turns."""
+    m = len(run.schedule.rounds)
+    stacked, loop = [], []
+    for _ in range(3):
+        for out, fn in ((stacked, lambda: P.simulate_stacked(
+                run.hops, run.channels, run.issue_ps)),
+                (loop, lambda: [P.simulate(P.member(run.hops, i),
+                                           P.member(run.channels, i),
+                                           P.member(run.issue_ps, i))
+                                for i in range(m)])):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+    return dict(members=m, rounds=list(run.schedule.rounds),
+                stacked_ms=stacked, one_by_one_ms=loop)
+
+
+def depart_on_round(torch, P, LO, name, hops, channels, sched):
+    """`depart_times` over one replayed converged round's serving items
+    against the serve-scan kernel's departures for those items."""
+    from repro_torch.core.engine import _round_inputs
+    from repro_torch.kernels.serve_round.ops import serve_round
+
+    check(int(channels.turnaround_ps.abs().max()) == 0
+          and int(channels.row_hit_ps.abs().max()) == 0
+          and int(channels.row_miss_ps.abs().max()) == 0,
+          f"{name}: channels with turnaround or DRAM row timing")
+    _, args = _round_inputs(hops, channels, sched.arrive)
+    serving, marker = args[1], args[2]
+    check(not bool(marker.any()), f"{name}: link-down markers in the round")
+    _, depart, _ = serve_round(*args)
+    got = LO.depart_times(args[0][serving], args[3][serving],
+                          args[6][serving])
+    want = depart[serving]
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max()) if got.numel() else 0
+    check(torch.equal(got, want),
+          f"{name}: depart_times != serve-scan depart (max abs err {err})")
+    return int(serving.sum()), err
+
+
 def main() -> int:
     import torch
 
@@ -303,7 +521,13 @@ def main() -> int:
 
     import repro_torch.core as P
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flit_pack import kernel as FK, ref as FR
+    from repro_torch.kernels.flit_pack.ops import MAX_PAYLOAD_B
+    from repro_torch.kernels.link_contention import kernel as LK, ref as LR
+    from repro_torch.kernels.link_contention import ops as LO
     from repro_torch.kernels.serve_round import kernel as K, ops, ref
+    from repro_torch.studies import (link_explorer, link_layer,
+                                     link_reliability)
 
     # phase 0: the card
     smi = subprocess.run(
@@ -316,14 +540,20 @@ def main() -> int:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     # phase 1: build every kernel of the path from this checkout's sources
+    # (one nvcc process per source, all started together)
     t0 = time.perf_counter()
-    _build.build_all([K._SOURCE])
-    K._lib()
-    emit(phase="build", sources=[str(K._SOURCE.relative_to(ROOT))],
+    sources = [K._SOURCE, LK._SOURCE, FK._SOURCE]
+    _build.build_all(sources)
+    for mod in (K, LK, FK):
+        mod._lib()
+    emit(phase="build", sources=[str(x.relative_to(ROOT)) for x in sources],
          seconds=time.perf_counter() - t0)
 
     # phase 2: each kernel against its plain version, and its time
     worst, timings = phase_kernel_vs_plain(torch, K, ref)
+    worst_depart, depart_timings = phase_depart_vs_plain(torch, LK, LR)
+    worst_flit, flit_timings = phase_flit_vs_plain(
+        np, torch, FK, FR, MAX_PAYLOAD_B, P.link_layer.MAX_REPLAY_PPM)
 
     # warm up the CUDA libraries on a tiny workload (not part of the run)
     tiny = paper_workload(np, P, build_topo(P, "chain", 2), 2, 500, "cuda")
@@ -388,15 +618,85 @@ def main() -> int:
             emit(phase="device_profile", workload=name,
                  **device_profile(torch, P, wl))
 
+    # phase 5: the link-layer studies at the reference's full sizes, with
+    # the serve-scan count read around them
+    K.LAUNCHES["serve_scan"] = 0
+    logs = {}
+    for name, module in (("link_layer", link_layer),
+                         ("link_reliability", link_reliability)):
+        rows, logs[name] = run_study(np, torch, P, K, module, name)
+        derived = ";".join(r.derived for r in rows)
+        # link_reliability asserts its three gates itself
+        check("pass=False" not in derived and "=False" not in derived,
+              f"{name}: an acceptance gate failed: {derived}")
+    study_launches = K.LAUNCHES["serve_scan"]
+    check(study_launches > 0, "the studies never launched serve_scan")
+    launches += study_launches
+    # each stacked sweep against its members run one by one (after the
+    # count is read: these are timing runs)
+    for name, log in logs.items():
+        for run in log.runs:
+            if run.stacked:
+                emit(phase="stacked_vs_loop", study=name, sweep=run.label,
+                     **stacked_vs_loop(torch, P, run))
+
+    # phase 6: depart_times on real converged rounds (its path), against
+    # the serve-scan kernel's departures
+    cases = [(n, wl.hops, wl.channels, sched) for n, wl, sched in runs
+             if n != "markers"]
+    for study, label in (("link_layer", "ber_sweep"),
+                         ("link_reliability", "tail/expected")):
+        (run,) = [r for r in logs[study].runs if r.label == label]
+        cases += [(f"{label}[{i}]", P.member(run.hops, i),
+                   P.member(run.channels, i), P.member(run.schedule, i))
+                  for i in range(len(run.schedule.rounds))]
+    LK.LAUNCHES["segmented_depart"] = 0
+    for name, hops, channels, sched in cases:
+        n_items, err = depart_on_round(torch, P, LO, name, hops, channels,
+                                       sched)
+        emit(phase="depart_on_round", workload=name, serving_items=n_items,
+             max_abs_err=err)
+    depart_launches = LK.LAUNCHES["segmented_depart"]
+    check(depart_launches == len(cases),
+          f"{depart_launches} segmented_depart launches for {len(cases)} "
+          f"rounds")
+
+    # phase 7: the link explorer's flit-efficiency grid (flit_pack's path)
+    FK.LAUNCHES["flit_pack"] = 0
+    grid = link_explorer.kernel_grid(device="cuda")
+    flit_launches = FK.LAUNCHES["flit_pack"]
+    check(flit_launches > 0, "the kernel grid never launched flit_pack")
+    cpu_grid = link_explorer.kernel_grid(device="cpu")
+    check(np.allclose(grid, cpu_grid, rtol=1e-6, atol=0)
+          and bool((np.diff(grid, axis=1) <= 0).all()),
+          f"flit grid: card {grid.tolist()} vs CPU {cpu_grid.tolist()}")
+    emit(phase="link_explorer", grid=grid.tolist(),
+         max_abs_diff_vs_cpu=float(np.abs(grid - cpu_grid).max()))
+
     main_k = 268_800
     t = timings[main_k]
-    emit(kernels=[dict(
-        name="serve_scan", route="cuda",
-        source="src/repro_torch/kernels/serve_round/csrc/serve_round.cu",
-        replaces="src/repro/kernels/serve_round/kernel.py:104",
-        launches=launches, max_abs_err=worst, ms=t["ms"],
-        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-        bound_by=t["bound_by"], library_ms=None, K=main_k)])
+    td = depart_timings[main_k]
+    tf = flit_timings[1 << 24]
+    emit(kernels=[
+        dict(name="serve_scan", route="cuda",
+             source="src/repro_torch/kernels/serve_round/csrc/serve_round.cu",
+             replaces="src/repro/kernels/serve_round/kernel.py:104",
+             launches=launches, max_abs_err=worst, ms=t["ms"],
+             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+             bound_by=t["bound_by"], library_ms=None, K=main_k),
+        dict(name="segmented_depart", route="cuda",
+             source="src/repro_torch/kernels/link_contention/csrc/"
+                    "link_contention.cu",
+             replaces="src/repro/kernels/link_contention/kernel.py:94",
+             launches=depart_launches, max_abs_err=worst_depart,
+             ms=td["ms"], plain_ms=td["plain_ms"], bound_ms=td["bound_ms"],
+             bound_by=td["bound_by"], library_ms=None, K=main_k),
+        dict(name="flit_pack", route="cuda",
+             source="src/repro_torch/kernels/flit_pack/csrc/flit_pack.cu",
+             replaces="src/repro/kernels/flit_pack/kernel.py:59",
+             launches=flit_launches, max_abs_err=worst_flit, ms=tf["ms"],
+             plain_ms=tf["plain_ms"], bound_ms=tf["bound_ms"],
+             bound_by=tf["bound_by"], library_ms=None, K=1 << 24)])
 
     leaked = sorted(m for m in sys.modules if m in ("jax", "repro")
                     or m.startswith(("jax.", "jaxlib", "repro.")))

@@ -20,10 +20,14 @@ from .link_layer import (  # noqa: F401
 from .engine import (  # noqa: F401
     Channels, Hops, Schedule, SimOptions, StreamCarry, simulate,
     simulate_auto, channel_stats, request_stats, make_channels, ser_ps,
-    empty_carry, round_bound, replay_round,
+    empty_carry, round_bound, replay_round, simulate_stacked, stack_members,
+    member, stacked_request_stats, stacked_channel_stats,
 )
 from .devices import RequesterSpec, Workload, build_workload  # noqa: F401
-from .verify import join_depth  # noqa: F401
+from .verify import (  # noqa: F401
+    Finding, VerifyError, VerifyReport, assert_valid, join_depth,
+    verify_built, verify_workload,
+)
 from .ref_des import ref_schedule, simulate_ref  # noqa: F401
 from .convert import (  # noqa: F401
     carry_from_arrays, channels_from_arrays, hops_from_arrays,
@@ -41,10 +45,14 @@ __all__ = [
     "Channels", "Hops", "Schedule", "SimOptions", "StreamCarry", "simulate",
     "simulate_auto", "round_bound", "channel_stats", "request_stats",
     "make_channels", "ser_ps", "empty_carry", "replay_round",
+    # stacked sweeps (the counterpart of jax.vmap(simulate))
+    "simulate_stacked", "stack_members", "member", "stacked_request_stats",
+    "stacked_channel_stats",
     # device layer
     "RequesterSpec", "Workload", "build_workload",
     # oracle / verification
-    "join_depth", "simulate_ref", "ref_schedule",
+    "join_depth", "simulate_ref", "ref_schedule", "Finding", "VerifyError",
+    "VerifyReport", "verify_workload", "assert_valid", "verify_built",
     # moving lowered state between the reference and the port
     "hops_from_arrays", "channels_from_arrays", "carry_from_arrays",
     "issue_from_array", "schedule_to_numpy",

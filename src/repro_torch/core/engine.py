@@ -33,9 +33,12 @@ Not ported from the reference, by design:
     ``_one_round`` with ``impl="scan"``) — the kernel formulation, which the
     reference pins bit-equal to it, is the port's only serve path;
   * ``SimOptions.use_kernel`` — the device of the tensors picks the path;
-  * the deprecated per-call kwargs (``max_rounds=``, ``check=True``, ...);
-  * ``check="static"``, which needs the fabric-IR verifier (ROADMAP Queue 1
-    item 4): `simulate_auto` raises `NotImplementedError` for it.
+  * the deprecated per-call kwargs (``max_rounds=``, ``check=True``, ...).
+
+Sweeps: the reference ``jax.vmap``s `simulate` over stacked tables.  The
+port's counterpart is `simulate_stacked`, which lays the members side by
+side on disjoint channel and row ids and resolves them all with one sort,
+one serve-scan launch and one scatter per round.
 """
 
 from __future__ import annotations
@@ -219,8 +222,9 @@ class SimOptions:
     check       "off"    — no oracle fallback in `simulate_auto`;
                 "oracle" — fall back to the event-driven `ref_des` oracle
                            when the fixpoint reports non-convergence;
-                "static" — the fabric-IR verifier, not ported yet
-                           (`simulate_auto` raises NotImplementedError).
+                "static" — also run the fabric-IR verifier (`verify`) on
+                           the lowered triple first and raise
+                           `verify.VerifyError` on any finding.
     damping     damped Picard iteration of the coupled coherence fixpoint
                 (no entry point of this slice reads it).
     """
@@ -238,14 +242,18 @@ class SimOptions:
 
 def round_bound(hops: Hops) -> int:
     """Join-depth-aware fixpoint round budget for a lowered `Hops` table —
-    ``(join_depth + 1) * (3*H + 8)`` (see `verify.round_bound`)."""
+    ``(join_depth + 1) * (3*H + 8)`` (see `verify.round_bound`).  On
+    stacked tables (a leading member axis, `simulate_stacked`) it is the
+    maximum over the members."""
     from . import verify  # host-side helper module
 
     h = int(hops.channel.shape[-1])
     if hops.join_id is None or hops.join_wait is None:
         return verify.round_bound(h)
-    return verify.round_bound(h, hops.join_id.cpu().numpy(),
-                              hops.join_wait.cpu().numpy())
+    jid, jw = to_host(hops.join_id), to_host(hops.join_wait)
+    return max(verify.round_bound(h, j, w)
+               for j, w in zip(jid.reshape(-1, jid.shape[-1]),
+                               jw.reshape(-1, jw.shape[-1])))
 
 
 def _round_inputs(hops: Hops, ch: Channels, arrive,
@@ -408,6 +416,120 @@ def simulate(hops: Hops, channels: Channels, issue_ps: torch.Tensor,
                     converged=resid == 0, residual_ps=max(resid, 0))
 
 
+def stack_members(tables):
+    """Stack per-member `Hops` (or `Channels`) along a new leading member
+    axis M, field by field; an optional field is present in every member or
+    in none."""
+    tables = list(tables)
+    out = {}
+    for name in tables[0]._fields:
+        vals = [getattr(t, name) for t in tables]
+        if all(v is None for v in vals):
+            out[name] = None
+        elif any(v is None for v in vals):
+            raise ValueError(f"{name} is present in some members only")
+        else:
+            out[name] = torch.stack(vals)
+    return type(tables[0])(**out)
+
+
+def member(stacked, i: int):
+    """Member ``i`` of a stacked `Hops` / `Channels` / `Schedule` (or of a
+    stacked tensor): the tables and per-member diagnostics one member of
+    `simulate_stacked` would have had on its own."""
+    if isinstance(stacked, torch.Tensor):
+        return stacked[i]
+    if isinstance(stacked, Schedule):
+        return stacked._replace(
+            arrive=stacked.arrive[i], start=stacked.start[i],
+            depart=stacked.depart[i], complete=stacked.complete[i],
+            rounds=stacked.rounds[i], converged=stacked.converged[i],
+            residual_ps=stacked.residual_ps[i])
+    return stacked._replace(**{
+        name: None if val is None else val[i]
+        for name, val in zip(stacked._fields, stacked)})
+
+
+def _flatten_members(hops: Hops, channels: Channels, issue_ps):
+    """Lay M stacked members side by side as one workload: member ``m``
+    gets channel ids ``m*C .. m*C+C-1`` and row ids ``m*N .. m*N+N-1``.
+    Members are contiguous in flat item order and share no channel, so one
+    sort by (channel, arrival, flat index) orders each member's items
+    exactly as a run of that member alone would."""
+    m, n, h = hops.channel.shape
+    c = channels.bw_MBps.shape[1]
+    dev = hops.channel.device
+    ids = torch.arange(m, device=dev, dtype=torch.int32)
+
+    def offset(tab, stride, shape):
+        off = (ids * stride).view(shape)
+        return torch.where(tab >= 0, tab + off, tab).reshape(
+            (m * n,) + tuple(tab.shape[2:]))
+
+    flat = {}
+    for name, val in zip(Hops._fields, hops):
+        if val is None:
+            flat[name] = None
+        elif name == "channel":
+            flat[name] = offset(val, c, (m, 1, 1))
+        elif name in ("join_id", "join_wait"):
+            flat[name] = offset(val, n, (m, 1))
+        else:
+            flat[name] = val.reshape((m * n,) + tuple(val.shape[2:]))
+    ch = Channels(*(None if v is None else v.reshape(m * c)
+                    for v in channels))
+    return Hops(**flat), ch, issue_ps.reshape(m * n)
+
+
+def simulate_stacked(hops: Hops, channels: Channels, issue_ps: torch.Tensor,
+                     options: SimOptions | None = None) -> Schedule:
+    """Resolve M independent workloads in one fixpoint — the counterpart of
+    the reference's ``jax.vmap(simulate)`` over stacked tables.
+
+    Every field carries a leading member axis: `Hops` tables (M, N, H) (join
+    tables (M, N)), `Channels` tables (M, C), ``issue_ps`` (M, N); build
+    them with `stack_members`.  Each round is one sort, one serve-scan
+    launch and one scatter over all members (`_flatten_members`).  The
+    budget is `round_bound` over the members (the chain term without joins,
+    the maximum over members with them).  Each member stops at its own
+    first zero residual, as a member of the vmapped ``lax.while_loop`` does:
+    once converged, its arrivals are a fixed point, so the rounds the
+    others still need leave its schedule unchanged.
+
+    Returns a `Schedule` whose tensors carry the leading M axis and whose
+    ``rounds`` / ``converged`` / ``residual_ps`` are per-member tuples;
+    `member` slices out one member's schedule.
+    """
+    opts = options if options is not None else SimOptions()
+    m, n, h = hops.channel.shape
+    fh, fc, fi = _flatten_members(hops, channels, issue_ps)
+    budget = opts.max_rounds if opts.max_rounds > 0 else round_bound(hops)
+    has_join = fh.join_id is not None
+
+    arrive = _initial_arrive(fh, fc, fi)
+    start = depart = torch.zeros((m * n, h), dtype=torch.int64,
+                                 device=arrive.device)
+    rounds, resid = [0] * m, [-1] * m
+    it = 0
+    while it < budget and any(r != 0 for r in resid):
+        eff_issue = _join_gate(fh, fi, arrive) if has_join else fi
+        new_arrive, start, depart = _one_round(fh, fc, eff_issue, arrive)
+        # one readback per round: every member's max |delta arrive|
+        delta = (new_arrive - arrive).abs().view(m, -1).amax(dim=1).tolist()
+        for i, d in enumerate(delta):
+            if resid[i] != 0:
+                rounds[i] += 1
+                resid[i] = d
+        arrive = new_arrive
+        it += 1
+    arrive = arrive.view(m, n, h + 1)
+    return Schedule(arrive=arrive, start=start.view(m, n, h),
+                    depart=depart.view(m, n, h), complete=arrive[..., h],
+                    rounds=tuple(rounds),
+                    converged=tuple(r == 0 for r in resid),
+                    residual_ps=tuple(max(r, 0) for r in resid))
+
+
 def replay_round(hops: Hops, channels: Channels, sched: Schedule,
                  carry: StreamCarry | None = None):
     """Re-run one FCFS round from a resolved schedule (telemetry replay).
@@ -429,14 +551,18 @@ def simulate_auto(hops: Hops, channels: Channels, issue_ps: torch.Tensor,
 
     ``SimOptions.check``: "oracle" (default) falls back to the event-driven
     `ref_des` oracle when the fixpoint does not converge within its budget;
-    "off" returns the fixpoint's schedule as it is; "static" needs the
-    fabric-IR verifier, which is not ported yet.
+    "off" returns the fixpoint's schedule as it is; "static" first runs the
+    fabric-IR verifier over the lowered triple (and the carry) and raises
+    `verify.VerifyError` on any finding — an explicit ``max_rounds`` below
+    the computed bound is one (``join.depth``) — then falls back as
+    "oracle" does.
     """
     opts = options if options is not None else SimOptions()
     if opts.check == "static":
-        raise NotImplementedError(
-            "check='static' needs the fabric-IR verifier (core.verify), "
-            "which the port does not have yet (ROADMAP Queue 1 item 4)")
+        from . import verify  # host-side checker
+
+        verify.assert_valid(hops, channels, issue_ps, carry=carry,
+                            max_rounds=opts.max_rounds or None)
     sched = simulate(hops, channels, issue_ps, opts, carry=carry)
     if opts.check == "off" or sched.converged:
         return sched, False
@@ -527,6 +653,23 @@ def request_stats(hops: Hops, sched: Schedule, issue_ps: torch.Tensor,
         "mean_latency_ps": torch.where(measured, latency, 0).sum()
         // torch.clamp_min(measured.sum(), 1),
     }
+
+
+def stacked_request_stats(hops: Hops, sched: Schedule, issue_ps, payload_bytes,
+                          measured) -> list[dict]:
+    """`request_stats` of each member of a `simulate_stacked` result (every
+    argument carries the leading member axis)."""
+    return [request_stats(member(hops, i), member(sched, i), issue_ps[i],
+                          payload_bytes[i], measured[i])
+            for i in range(len(sched.rounds))]
+
+
+def stacked_channel_stats(hops: Hops, sched: Schedule, channels: Channels,
+                          window: tuple | None = None) -> list[dict]:
+    """`channel_stats` of each member of a `simulate_stacked` result."""
+    return [channel_stats(member(hops, i), member(sched, i),
+                          member(channels, i), window)
+            for i in range(len(sched.rounds))]
 
 
 def make_channels(graph, row_hit_ps: int = 0, row_miss_ps: int = 0,

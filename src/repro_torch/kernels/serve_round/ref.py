@@ -15,6 +15,11 @@ finite in exact (max,+) arithmetic is computed exactly, and every -inf entry
 stays within a few times the round's span of ``NEG = -2**62``, far below
 any real time.  The CPU path and the tests use it; on the card it is only
 the yardstick the kernel is held against.
+
+`serve_scan_blocked` runs the CUDA kernel's own three-phase block
+decomposition (`kernels._three_phase`) on the CPU, with the kernel's block
+shape by default, so the tests hold the cross-block structure against the
+plain version here and not only on the card.
 """
 
 from __future__ import annotations
@@ -22,7 +27,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._three_phase import three_phase_scan
+
 NEG = -(2 ** 62)
+# block shape of csrc/serve_round.cu: THREADS threads of ITEMS items each
+THREADS = 256
+ITEMS = 8
+# identity map: M = [[0, NEG], [NEG, 0]], c = NEG
+IDENTITY = (0, NEG, NEG, 0, NEG, NEG)
 
 
 def _compose(m, p):
@@ -39,13 +51,24 @@ def _compose(m, p):
             mx(mx(m00 + q0, m01 + q1), c0), mx(mx(m10 + q0, m11 + q1), c1))
 
 
+def _apply(m, v):
+    """Map ``m`` applied to the state ``v = (depart, down)``."""
+    m00, m01, m10, m11, c0, c1 = m
+    d, w = v
+
+    def mx(a, b):
+        return torch.clamp_min(torch.maximum(a, b), NEG)
+
+    return mx(mx(m00 + d, m01 + w), c0), mx(mx(m10 + d, m11 + w), c1)
+
+
 def serve_scan_ref(m00, m01, m10, m11, c0, c1):
     """Six (K,) int64 map components -> (K,) int64 depart state per item,
     starting from the state ``(NEG, NEG)``."""
     maps = (m00, m01, m10, m11, c0, c1)
     k = m00.shape[0]
-    # identity map fills the shifted-in slots: M = [[0, NEG], [NEG, 0]], c = NEG
-    ident = (0, NEG, NEG, 0, NEG, NEG)
+    # the identity map fills the shifted-in slots
+    ident = IDENTITY
     shift = 1
     while shift < k:
         prev = tuple(torch.cat([torch.full((shift,), f, dtype=x.dtype,
@@ -56,6 +79,16 @@ def serve_scan_ref(m00, m01, m10, m11, c0, c1):
     a00, a01, _, _, b0, _ = maps
     return torch.clamp_min(torch.maximum(torch.maximum(a00 + NEG, a01 + NEG),
                                          b0), NEG)
+
+
+def serve_scan_blocked(m00, m01, m10, m11, c0, c1, *, threads=THREADS,
+                       items=ITEMS):
+    """`serve_scan_ref`'s function computed as the CUDA kernel computes it:
+    block aggregates, one pass over them, a re-scan of each block
+    (`kernels._three_phase.three_phase_scan`)."""
+    return three_phase_scan((m00, m01, m10, m11, c0, c1), IDENTITY, _compose,
+                            _apply, (NEG, NEG), lambda v: v[0],
+                            threads=threads, items=items)
 
 
 def random_maps(k, seed, *, neg=NEG, prefix=0, one_segment=False):

@@ -216,8 +216,19 @@ def test_simulate_auto_converged_and_static_mode():
     h, c, i = _port(hops, ch, issue)
     sched, used_oracle = P.simulate_auto(h, c, i)
     assert sched.converged and not used_oracle
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        P.simulate_auto(h, c, i, P.SimOptions(check="static"))
+    # static mode verifies the clean tables, then resolves them as the
+    # reference's static mode does; a corrupted table raises VerifyError
+    static, used_oracle = P.simulate_auto(h, c, i,
+                                          P.SimOptions(check="static"))
+    ref, ref_oracle = RE.simulate_auto(hops, ch, jnp.asarray(issue),
+                                       RE.SimOptions(check="static"))
+    assert used_oracle == bool(ref_oracle)
+    assert torch.equal(static.complete, sched.complete)
+    assert np.array_equal(static.complete.numpy(), np.asarray(ref.complete))
+    bad = h._replace(channel=torch.where(h.valid, c.bw_MBps.shape[0],
+                                         h.channel).int())
+    with pytest.raises(P.VerifyError, match="chan.bounds"):
+        P.simulate_auto(bad, c, i, P.SimOptions(check="static"))
     with pytest.raises(ValueError):
         P.SimOptions(check="strict")
 

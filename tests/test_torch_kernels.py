@@ -7,6 +7,10 @@
 * `ops.serve_round` on CPU tensors equals the reference's
   ``ops.serve_round`` (impl "ref" and "interpret") on sorted round inputs
   from the engine suite's families, cold and warm-seeded, exactly.
+* `serve_scan_blocked`, the CPU emulation of the CUDA kernel's three-phase
+  block decomposition (block aggregates, one pass over them, a re-scan of
+  each block), equals the plain version at small block shapes and at the
+  kernel's own.
 * The CUDA wrapper refuses CPU tensors (the kernel itself is held against
   the plain version in ``test_torch_cuda.py``, on a card).
 
@@ -30,6 +34,7 @@ from repro_torch.kernels.serve_round import kernel as pkernel  # noqa: E402
 from repro_torch.kernels.serve_round import ops as pops  # noqa: E402
 from repro_torch.kernels.serve_round.ref import NEG as NEG_T  # noqa: E402
 from repro_torch.kernels.serve_round.ref import (random_maps,  # noqa: E402
+                                                 serve_scan_blocked,
                                                  serve_scan_ref)
 from test_engine import _join_case, _random_case  # noqa: E402
 from test_torch_engine import _carry_np, _stochastic  # noqa: E402
@@ -79,6 +84,25 @@ def test_plain_scan_equals_sequential_loop(k):
     maps = random_maps(k, 100 + k, prefix=min(3, k - 1))
     assert np.array_equal(serve_scan_ref(*_t(maps)).numpy(),
                           numpy_scan(maps, NEG_T))
+
+
+@pytest.mark.parametrize("threads,items", [(1, 1), (2, 1), (4, 2), (8, 4)])
+@pytest.mark.parametrize("k,kw", [
+    (1, {}), (7, {}), (8, {}), (9, {}), (77, {}), (300, dict(prefix=40)),
+    (150, dict(one_segment=True)), (333, dict(prefix=100, one_segment=True)),
+])
+def test_blocked_emulation_equals_plain(k, kw, threads, items):
+    """Block and thread edges everywhere relative to segment heads and to a
+    pass-through prefix, and more blocks than one carry chunk."""
+    maps = _t(random_maps(k, 50 + k, **kw))
+    assert torch.equal(serve_scan_blocked(*maps, threads=threads,
+                                          items=items),
+                       serve_scan_ref(*maps))
+
+
+def test_blocked_emulation_at_kernel_block_shape():
+    maps = _t(random_maps(3 * 2048 + 5, 9, prefix=2100))
+    assert torch.equal(serve_scan_blocked(*maps), serve_scan_ref(*maps))
 
 
 # ---------------------------------------------------------------------------

@@ -237,6 +237,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
     code = (
         "import sys\n"
         "import repro_torch.core, repro_torch.kernels.serve_round.ops\n"
+        "import repro_torch.kernels.link_contention.ops\n"
+        "import repro_torch.kernels.flit_pack.ops\n"
+        "import repro_torch.studies.link_layer\n"
+        "import repro_torch.studies.link_reliability\n"
+        "import repro_torch.studies.link_explorer\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or\n"
         "             m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
         "assert not bad, bad\n")
