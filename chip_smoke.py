@@ -19,10 +19,15 @@ paths through them:
     paper fabrics and of every expected-mode sweep member, against the
     serve-scan kernel's departures;
   * the link explorer's flit-efficiency grid (`flit_sweep`, flit-pack
-    kernel).
+    kernel);
+  * the model stack's serving path: recurrentgemma-2b at its published
+    width (26 layers, d_model 2560, weights drawn from a seeded generator)
+    behind the slot server (`runtime.server.Server`), whose prefills run the
+    flash-attention and RG-LRU scan kernels.
 
-Every schedule is checked against the port's event-driven oracle, and the
-script prints one JSON object per result line.  The last line is ``{"ok": true, "device": {...}}``; any failed
+Every schedule is checked against the port's event-driven oracle, every
+served request against a manual prefill/decode loop, and the script prints
+one JSON object per result line.  The last line is ``{"ok": true, "device": {...}}``; any failed
 check raises, so the script exits non-zero and never prints it.  It imports
 nothing of JAX and nothing of the ``repro`` package.
 """
@@ -54,6 +59,25 @@ DEPART_OPS_PER_ITEM = 3
 # ceil division, multiply, select, three float multiply/adds, max, divide
 FLIT_BYTES_PER_ITEM = 6 * 4
 FLIT_OPS_PER_ITEM = 8
+
+# bf16 dense tensor-core rate of the H100 SXM (NVIDIA data sheet): the rate
+# attention's products could run at
+TENSOR_BF16_FLOPS_PER_S = 989e12
+# flash attention: a score and a PV product per unmasked (query, key) pair,
+# 2 * D flops each
+FLASH_FLOPS_PER_PAIR_PER_D = 4
+# RG-LRU scan, per element: a and b read, h written (float32); a multiply
+# and an add
+RGLRU_BYTES_PER_ITEM = 3 * 4
+RGLRU_OPS_PER_ITEM = 2
+MODEL_ARCH = "recurrentgemma-2b"
+SERVE_PROMPTS = (64, 300, 1024, 2047, 2048, 2049, 3000, 4096)
+SERVE_NEW = 32
+SERVE_SLOTS = 4
+SERVE_MAX_LEN = 4608
+# the bf16 tolerance the port's CPU tests hold the model to (against the
+# JAX reference, and the card against the CPU)
+MODEL_TOL = 5e-2
 
 # Rounds the JAX reference needs where the computed `round_bound` falls
 # short of them: the ring at scale 16 with 120 requests per pair takes 83
@@ -181,8 +205,8 @@ def round_breakdown(torch, P, ops, K, wl, sched, repeats=5):
     return out, int(maps[0].shape[0]), err
 
 
-def device_profile(torch, P, wl):
-    """Device busy share of one `simulate`: kernel time summed by
+def profile_device(torch, fn):
+    """Device busy share of one call of ``fn``: kernel time summed by
     `torch.profiler` over the wall time of the same call, plus the kernels
     that took the most device time."""
     from torch.autograd import DeviceType
@@ -192,7 +216,7 @@ def device_profile(torch, P, wl):
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        P.simulate(wl.hops, wl.channels, wl.issue_ps)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -208,6 +232,12 @@ def device_profile(torch, P, wl):
                 device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
                 top_kernels=[dict(name=e.key[:60], ms=dev_us(e) / 1e3,
                                   calls=e.count) for e in top])
+
+
+def device_profile(torch, P, wl):
+    """`profile_device` of one `simulate`."""
+    return profile_device(
+        torch, lambda: P.simulate(wl.hops, wl.channels, wl.issue_ps))
 
 
 # ---------------------------------------------------------------------------
@@ -505,6 +535,333 @@ def depart_on_round(torch, P, LO, name, hops, channels, sched):
     return int(serving.sum()), err
 
 
+def bf16_within_ulps(torch, got, want, n):
+    """|got - want| <= n bf16 spacings at the larger magnitude of the two,
+    that magnitude taken as at least 2**-6 (spacing 2**-13, about the
+    float32 tolerance of 1e-4): an output near zero is a difference of terms
+    of order one, whose float32 sums in another order differ by about 1e-6
+    of them.  Returns (ok, largest difference in spacings)."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -6)
+    spacing = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    ulps = float(((g - w).abs() / spacing).max())
+    return ulps <= n, ulps
+
+
+def attn_pairs(s, window, causal=True):
+    """Unmasked (query, key) pairs of one head over S = T = s: the work the
+    masks leave (what this run's inputs need)."""
+    q = list(range(s))
+    if not causal:
+        return s * s if window <= 0 else sum(
+            s - max(0, i - window + 1) for i in q)
+    return sum(i + 1 - (max(0, i - window + 1) if window > 0 else 0)
+               for i in q)
+
+
+def flash_bound_ms(b, s, h, kvh, d, window, elem_bytes):
+    """(least time on the card in ms, what bounds it) for one flash call:
+    4 * D flops per unmasked pair at the bf16 tensor-core rate, against q,
+    k, v read and the output written once at the HBM rate."""
+    flops = FLASH_FLOPS_PER_PAIR_PER_D * d * attn_pairs(s, window) * b * h
+    nbytes = elem_bytes * d * s * b * (2 * h + 2 * kvh)
+    ops_ms = flops / TENSOR_BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def phase_flash_vs_plain(torch, FA, FAR):
+    """The flash-attention kernel against its plain version: G in {1, 4,
+    10}, D in {64, 128, 256}, S = T across the 64-row tiles and the 2048
+    window, causal with and without the window, one non-causal case, in
+    float32 (atol 1e-4) and bf16 (2 ulps); then its time at one 4096-token
+    prefill of the model's attention layer."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    cases = [dict(b=1, kvh=1, g=g, d=d, s=s, window=w, causal=True)
+             for g in (1, 4, 10) for d in (64, 128, 256)
+             for s in (1, 63, 64, 65, 2047, 2048, 2049, 4096)
+             for w in (0, 2048)]
+    cases += [dict(b=2, kvh=2, g=3, d=128, s=1000, window=0, causal=False),
+              dict(b=1, kvh=1, g=10, d=256, s=2049, window=2048,
+                   causal=False)]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_ulps = 0.0
+    for c in cases:
+        b, s, h, kvh, d = c["b"], c["s"], c["kvh"] * c["g"], c["kvh"], c["d"]
+        q32, k32, v32 = (torch.randn(shape, generator=gen, device="cuda")
+                         for shape in ((b, s, h, d), (b, s, kvh, d),
+                                       (b, s, kvh, d)))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (x.to(dtype) for x in (q32, k32, v32))
+            kw = dict(causal=c["causal"], window=c["window"])
+            got = FA.flash_attention_kernel(q, k, v, **kw)
+            want = FAR.flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            worst[dtype] = max(worst[dtype], err)
+            if dtype == torch.float32:
+                check(torch.allclose(got, want, atol=1e-4, rtol=0),
+                      f"flash_attention != plain (float32) for {c}: {err}")
+            else:
+                ok, ulps = bf16_within_ulps(torch, got, want, 2)
+                worst_ulps = max(worst_ulps, ulps)
+                check(ok, f"flash_attention != plain (bf16) for {c}: "
+                          f"{ulps} ulps")
+    emit(phase="kernel_vs_plain", kernel="flash_attention",
+         cases=2 * len(cases), max_abs_err_f32=worst[torch.float32],
+         max_abs_err_bf16=worst[torch.bfloat16], max_ulps_bf16=worst_ulps)
+
+    # one prefill of a 4096-token prompt in an attention layer of the model
+    b, s, g, kvh, d, w = 1, 4096, 10, 1, 256, 2048
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for shape in ((b, s, g * kvh, d), (b, s, kvh, d),
+                                      (b, s, kvh, d)))
+    ms, host_ms = time_cuda(torch, lambda: FA.flash_attention_kernel(
+        q, k, v, causal=True, window=w), 20)
+    plain_ms, _ = time_cuda(torch, lambda: FAR.flash_attention_ref(
+        q, k, v, causal=True, window=w), 3)
+    # the one PyTorch call computing the same function: SDPA with the same
+    # causal window mask (a yardstick only; the port never calls it)
+    pos = torch.arange(s, device="cuda")
+    mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - w)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    lib_ms, _ = time_cuda(torch, sdpa, 20)
+    lib_err = float((sdpa().transpose(1, 2).float() - FA.flash_attention_kernel(
+        q, k, v, causal=True, window=w).float()).abs().max())
+    bound, by = flash_bound_ms(b, s, g * kvh, kvh, d, w, 2)
+    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                  library_ms=lib_ms)
+    emit(phase="kernel_timing", kernel="flash_attention", B=b, S=s, H=g,
+         KV=kvh, D=d, window=w, dtype="bf16", host_ms_per_call=host_ms,
+         unmasked_pairs=attn_pairs(s, w) * g, library="scaled_dot_product_"
+         "attention (bool window mask, enable_gqa)",
+         library_max_abs_diff=lib_err, **timing)
+    return worst[torch.float32], timing
+
+
+def rglru_gates(torch, gen, b, s, d):
+    """(a, b) as the model draws them: a = exp(8 r log sigmoid(lam)) with
+    lam over [2.2, 6.9], in (0, 1) and near 1; b = sqrt(1 - a^2) * i * x."""
+    lam = torch.linspace(2.2, 6.9, d, device="cuda")
+    r = torch.rand(b, s, d, generator=gen, device="cuda")
+    a = torch.exp(8.0 * r * torch.nn.functional.logsigmoid(lam))
+    x = torch.randn(b, s, d, generator=gen, device="cuda") * torch.rand(
+        b, s, d, generator=gen, device="cuda")
+    return a, torch.sqrt(torch.clamp_min(1 - a * a, 1e-8)) * x
+
+
+def phase_rglru_vs_plain(torch, RK, RR):
+    """The RG-LRU scan kernel against its plain version (B in {1, 4}, D in
+    {1, 31, 2560}, S across the chunk edges to 4096; atol 1e-5), then its
+    time at one 4096-token prefill of the model's recurrent layer."""
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    worst = 0.0
+    n = 0
+    for b in (1, 4):
+        for d in (1, 31, 2560):
+            for s in (1, 255, 256, 257, 4096):
+                a, bb = rglru_gates(torch, gen, b, s, d)
+                got = RK.rglru_scan_kernel(a, bb)
+                want = RR.rglru_scan_ref(a, bb)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                worst = max(worst, err)
+                n += 1
+                check(torch.allclose(got, want, atol=1e-5, rtol=0),
+                      f"rglru_scan != plain at {(b, s, d)}: {err}")
+    emit(phase="kernel_vs_plain", kernel="rglru_scan", chunk=RK.chunk(),
+         cases=n, max_abs_err=worst)
+
+    b, s, d = 1, 4096, 2560
+    a, bb = rglru_gates(torch, gen, b, s, d)
+    ms, host_ms = time_cuda(torch, lambda: RK.rglru_scan_kernel(a, bb), 50)
+    plain_ms, _ = time_cuda(torch, lambda: RR.rglru_scan_ref(a, bb), 3)
+    bound, by = bound_ms(b * s * d, RGLRU_BYTES_PER_ITEM, RGLRU_OPS_PER_ITEM)
+    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                  library_ms=None)
+    emit(phase="kernel_timing", kernel="rglru_scan", B=b, S=s, D=d,
+         host_ms_per_call=host_ms, library="none: no PyTorch call computes "
+         "a linear recurrence", **timing)
+    return worst, timing
+
+
+def manual_greedy(torch, TF, model, prompt, n_new, max_len, rows=1):
+    """Greedy tokens of one request by a manual prefill + decode_step loop,
+    with the logits of every step.  With ``rows`` > 1 the prompt's cache is
+    copied into that many batch rows and all decode together (the tokens
+    are row 0's): every matrix product then has the shape it has in a
+    server of ``rows`` slots, and each row's result does not depend on the
+    other rows."""
+    logits, cache = TF.prefill(
+        model, torch.as_tensor(prompt[None], device="cuda"), max_len)
+    cache = [{name: {leaf: x.repeat_interleave(rows, dim=0)
+                     for leaf, x in d.items()} for name, d in layer.items()}
+             for layer in cache]
+    out = [logits[0, -1].float()]
+    toks = [int(torch.argmax(logits[0, -1]))]
+    pos = len(prompt)
+    for _ in range(n_new - 1):
+        logits, cache = TF.decode_step(
+            model, cache,
+            torch.full((rows, 1), toks[-1], dtype=torch.int32, device="cuda"),
+            torch.full((rows, 1), pos, dtype=torch.int32, device="cuda"))
+        out.append(logits[0, -1].float())
+        toks.append(int(torch.argmax(logits[0, -1])))
+        pos += 1
+    return toks, out
+
+
+def phase_model_serve(np, torch, FA, RK):
+    """recurrentgemma-2b at its published width on the card, weights from a
+    seeded generator, behind the slot server: 8 requests of 64 to 4,096
+    prompt tokens, 32 new tokens each, 4 slots.  The kernels' launch counts
+    are set to 0 just before the run and read just after."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.runtime.server import Request, Server
+
+    class CheckedServer(Server):
+        """The server, noting any NaN among the logits it samples from."""
+        nan = False
+
+        def _sample(self, logits):
+            self.nan = self.nan or bool(torch.isnan(logits).any())
+            return super()._sample(logits)
+
+    cfg = get_config(MODEL_ARCH)
+    # the reference multiplies the float32 gate matrices in float32: PyTorch
+    # keeps TF32 off for matrix products unless told otherwise
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matrix products would run in TF32")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = TF.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())
+    kinds = [key.split("_", 1)[1] for key, _ in model.keys]
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in SERVE_PROMPTS]
+    # warm up (not part of the run): the first prefills of a new length
+    # load the libraries' GEMM kernels and grow the allocator's pool
+    CheckedServer(model, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN).run(
+        [Request(rid=-1 - j, prompt=prompts[j], max_new=2)
+         for j in (0, 2, len(prompts) - 1)])
+    torch.cuda.synchronize()
+
+    reqs = [Request(rid=i, prompt=p, max_new=SERVE_NEW)
+            for i, p in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
+    srv = CheckedServer(model, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                        temperature=0.0)
+    FA.LAUNCHES["flash_attention"] = 0
+    RK.LAUNCHES["rglru_scan"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = srv.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    flash_launches = FA.LAUNCHES["flash_attention"]
+    rglru_launches = RK.LAUNCHES["rglru_scan"]
+    peak = torch.cuda.max_memory_allocated()
+
+    prefills = len(stats["prefill_ms"])
+    check(prefills == len(reqs), f"{prefills} prefills for {len(reqs)} "
+                                 f"requests")
+    for r in reqs:
+        check(r.done and len(r.out) == SERVE_NEW
+              and all(0 <= t < cfg.vocab for t in r.out),
+              f"request {r.rid} ({len(r.prompt)} tokens) did not finish "
+              f"with {SERVE_NEW} tokens: {len(r.out)}")
+    check(not srv.nan, "NaN among the served logits")
+    check(flash_launches == kinds.count("attn_local") * prefills,
+          f"{flash_launches} flash_attention launches for {prefills} "
+          f"prefills of {kinds.count('attn_local')} attention layers")
+    check(rglru_launches == kinds.count("rglru") * prefills,
+          f"{rglru_launches} rglru_scan launches for {prefills} prefills of "
+          f"{kinds.count('rglru')} recurrent layers")
+    dec = sorted(stats["decode_ms"])
+    tokens = stats["generated"] + len(reqs)
+    emit(phase="model_serve", arch=cfg.name, layers=len(kinds),
+         d_model=cfg.d_model, params=n_params, init_s=init_s,
+         slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+         prompt_tokens=list(SERVE_PROMPTS), new_tokens=SERVE_NEW,
+         prefill_ms=stats["prefill_ms"], ticks=stats["ticks"],
+         decode_ms_per_tick_mean=sum(dec) / len(dec),
+         decode_ms_per_tick_median=dec[len(dec) // 2],
+         decode_ms_per_tick_min=dec[0], decode_ms_per_tick_max=dec[-1],
+         run_s=run_s, generated_tokens=tokens,
+         generated_tokens_per_s=tokens / run_s,
+         max_memory_allocated_bytes=peak, init_peak_bytes=init_peak,
+         weight_bytes=sum(p.numel() * p.element_size()
+                          for p in model.parameters()),
+         flash_attention_launches=flash_launches,
+         rglru_scan_launches=rglru_launches)
+
+    # the server's greedy tokens against a manual loop on the port: at the
+    # server's batch width, token for token; with one row, equal up to a
+    # near tie (a 1-row decode rounds through other matrix shapes)
+    for n in (2049, 4096):
+        i = SERVE_PROMPTS.index(n)
+        toks, _ = manual_greedy(torch, TF, model, prompts[i], SERVE_NEW,
+                                SERVE_MAX_LEN, rows=SERVE_SLOTS)
+        check(toks == reqs[i].out,
+              f"prompt {n}: server tokens {reqs[i].out} != manual loop "
+              f"{toks} at the server's batch width")
+        toks1, rows1 = manual_greedy(torch, TF, model, prompts[i],
+                                     SERVE_NEW, SERVE_MAX_LEN)
+        diff = [j for j, (x, y) in enumerate(zip(toks1, reqs[i].out))
+                if x != y]
+        gap = None
+        if diff:
+            row = rows1[diff[0]]
+            top = float(row.max())
+            gap = top - float(row[reqs[i].out[diff[0]]])
+            check(gap <= 2 * (MODEL_TOL + MODEL_TOL * abs(top)),
+                  f"prompt {n}: server and 1-row loop differ at token "
+                  f"{diff[0]} beyond a near tie (gap {gap})")
+        emit(phase="serve_vs_manual", prompt_tokens=n,
+             equal_at_server_width=True, equal_one_row=not diff,
+             one_row_first_difference=diff[0] if diff else None,
+             one_row_logit_gap=gap)
+
+    # prefill's last logits against forward's at that position
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 2304)),
+                           device="cuda")
+    pre, _ = TF.prefill(model, toks, SERVE_MAX_LEN)
+    full = TF.forward(model, toks)
+    err = float((pre[0, 0].float() - full[0, -1].float()).abs().max())
+    check(torch.allclose(pre[0, 0].float(), full[0, -1].float(),
+                         atol=MODEL_TOL, rtol=MODEL_TOL)
+          and not bool(torch.isnan(full).any()),
+          f"prefill vs forward at 2304 tokens: max abs err {err}")
+    emit(phase="prefill_vs_forward", tokens=2304, max_abs_err=err)
+    del full
+
+    # where a prefill's and a tick's device time goes (after the counts
+    # are read: these are timing runs)
+    long_prompt = torch.as_tensor(prompts[-1][None], device="cuda")
+    emit(phase="device_profile", workload="prefill_4096",
+         **profile_device(torch, lambda: TF.prefill(model, long_prompt,
+                                                    SERVE_MAX_LEN)))
+    cache = TF.init_cache(cfg, SERVE_SLOTS, SERVE_MAX_LEN, device="cuda")
+    tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32, device="cuda")
+    emit(phase="device_profile", workload="decode_tick_4_slots",
+         **profile_device(torch, lambda: TF.decode_step(model, cache, tok,
+                                                        tok)))
+    return flash_launches, rglru_launches
+
+
 def main() -> int:
     import torch
 
@@ -521,6 +878,8 @@ def main() -> int:
 
     import repro_torch.core as P
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as FA, ref as FAR
+    from repro_torch.kernels.rglru_scan import kernel as RK, ref as RR
     from repro_torch.kernels.flit_pack import kernel as FK, ref as FR
     from repro_torch.kernels.flit_pack.ops import MAX_PAYLOAD_B
     from repro_torch.kernels.link_contention import kernel as LK, ref as LR
@@ -542,9 +901,9 @@ def main() -> int:
     # phase 1: build every kernel of the path from this checkout's sources
     # (one nvcc process per source, all started together)
     t0 = time.perf_counter()
-    sources = [K._SOURCE, LK._SOURCE, FK._SOURCE]
+    sources = [K._SOURCE, LK._SOURCE, FK._SOURCE, FA._SOURCE, RK._SOURCE]
     _build.build_all(sources)
-    for mod in (K, LK, FK):
+    for mod in (K, LK, FK, FA, RK):
         mod._lib()
     emit(phase="build", sources=[str(x.relative_to(ROOT)) for x in sources],
          seconds=time.perf_counter() - t0)
@@ -554,6 +913,8 @@ def main() -> int:
     worst_depart, depart_timings = phase_depart_vs_plain(torch, LK, LR)
     worst_flit, flit_timings = phase_flit_vs_plain(
         np, torch, FK, FR, MAX_PAYLOAD_B, P.link_layer.MAX_REPLAY_PPM)
+    worst_flash, flash_timing = phase_flash_vs_plain(torch, FA, FAR)
+    worst_rglru, rglru_timing = phase_rglru_vs_plain(torch, RK, RR)
 
     # warm up the CUDA libraries on a tiny workload (not part of the run)
     tiny = paper_workload(np, P, build_topo(P, "chain", 2), 2, 500, "cuda")
@@ -673,6 +1034,12 @@ def main() -> int:
     emit(phase="link_explorer", grid=grid.tolist(),
          max_abs_diff_vs_cpu=float(np.abs(grid - cpu_grid).max()))
 
+    # phase 8: the model stack's serving path at full width (the flash
+    # attention and RG-LRU scan kernels' path)
+    flash_launches, rglru_launches = phase_model_serve(np, torch, FA, RK)
+    check(flash_launches > 0 and rglru_launches > 0,
+          "the served model never launched its kernels")
+
     main_k = 268_800
     t = timings[main_k]
     td = depart_timings[main_k]
@@ -696,7 +1063,18 @@ def main() -> int:
              replaces="src/repro/kernels/flit_pack/kernel.py:59",
              launches=flit_launches, max_abs_err=worst_flit, ms=tf["ms"],
              plain_ms=tf["plain_ms"], bound_ms=tf["bound_ms"],
-             bound_by=tf["bound_by"], library_ms=None, K=1 << 24)])
+             bound_by=tf["bound_by"], library_ms=None, K=1 << 24),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:93",
+             launches=flash_launches, max_abs_err=worst_flash,
+             **flash_timing, shape="B1 S4096 H10 KV1 D256 window 2048 bf16"),
+        dict(name="rglru_scan", route="cuda",
+             source="src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+             replaces="src/repro/kernels/rglru_scan/kernel.py:62",
+             launches=rglru_launches, max_abs_err=worst_rglru,
+             **rglru_timing, shape="(1, 4096, 2560) float32")])
 
     leaked = sorted(m for m in sys.modules if m in ("jax", "repro")
                     or m.startswith(("jax.", "jaxlib", "repro.")))

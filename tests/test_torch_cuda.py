@@ -1,6 +1,7 @@
 """PyTorch port on a CUDA card: the hand-written kernels against their plain
-versions, and the engine (one run and a stacked sweep) on the card against
-the engine on the CPU.
+versions, the engine (one run and a stacked sweep) on the card against the
+engine on the CPU, and recurrentgemma-2b's smoke model (prefill and decode)
+on the card against the same model on the CPU.
 
 Every test here is marked ``cuda`` and skips without a card (the CUDA
 kernel has no CPU mode).  The file imports neither JAX nor the reference
@@ -8,7 +9,13 @@ package, so it runs on a machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: exact (int64 picoseconds).
+Tolerances: the engine's kernels exact (int64 picoseconds); `rglru_scan`
+bit-equal to its plain version while one chunk covers the sequence, else
+``1e-5`` (the chunk carries round differently); `flash_attention` ``1e-4``
+in float32 and 2 bf16 ulps in bf16 (float32 sums in another order; see
+`bf16_within_ulps` for outputs near zero); the
+model on the card against the CPU ``5e-2``, the bf16 tolerance of the CPU
+tests against the reference.
 """
 
 import numpy as np
@@ -17,14 +24,21 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch.core as P  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as FA  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref)
 from repro_torch.kernels.flit_pack import kernel as FK  # noqa: E402
 from repro_torch.kernels.flit_pack.ref import flit_pack_ref  # noqa: E402
 from repro_torch.kernels.link_contention import kernel as LK  # noqa: E402
 from repro_torch.kernels.link_contention.ref import (  # noqa: E402
     random_stream, segmented_depart_ref)
+from repro_torch.kernels.rglru_scan import kernel as RK  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.serve_round import kernel as K  # noqa: E402
 from repro_torch.kernels.serve_round.ref import (random_maps,  # noqa: E402
                                                  serve_scan_ref)
+from repro_torch.models import transformer as TF  # noqa: E402
 
 
 @pytest.fixture
@@ -130,3 +144,92 @@ def test_cuda_stacked_sweep_equals_cpu(card):
     assert gpu.rounds == cpu.rounds and all(gpu.converged)
     for f in ("start", "depart", "arrive", "complete"):
         assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+
+
+@pytest.mark.cuda
+def test_cuda_rglru_kernel_equals_plain(card):
+    """Around the chunk edge and the block width, with a near 1 as the
+    model draws it."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    ch = RK.chunk()
+    for b, s, d in [(1, 1, 1), (3, ch - 1, 255), (1, ch, 256),
+                    (2, ch + 1, 257), (1, 5 * ch + 3, 31), (1, 300, 2560)]:
+        r = torch.rand(b, s, d, generator=gen, device=card)
+        a = torch.exp(-8.0 * r * torch.rand(d, generator=gen, device=card)
+                      * 0.1)
+        x = torch.randn(b, s, d, generator=gen, device=card)
+        bb = torch.sqrt(1 - a * a) * x
+        got = RK.rglru_scan_kernel(a, bb)
+        want = rglru_scan_ref(a, bb)
+        torch.cuda.synchronize()
+        if s <= ch:
+            assert torch.equal(got, want), (b, s, d)
+        else:
+            assert torch.allclose(got, want, atol=1e-5, rtol=1e-5), (b, s, d)
+
+
+def bf16_within_ulps(got, want, n):
+    """|got - want| <= n bf16 spacings at the larger magnitude of the two,
+    that magnitude taken as at least 2**-6 (spacing 2**-13, about the
+    float32 comparison's 1e-4): an output near zero is a difference of
+    terms of order one, and float32 sums of those taken in another order
+    differ by about 1e-6 of them, many spacings of a value near zero."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -6)
+    spacing = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return bool(((g - w).abs() <= n * spacing).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_kernel_equals_plain(card, dtype):
+    """Around the 64-row and 64-key tile edges: GQA, MQA, a window,
+    non-causal, head dims 16 to 256, fewer queries than keys."""
+    gen = torch.Generator(device=card).manual_seed(1)
+    for b, kv, g, s, t, d, causal, window in [
+            (1, 1, 1, 1, 1, 16, True, 0), (2, 2, 3, 63, 63, 64, True, 0),
+            (1, 1, 10, 65, 65, 256, True, 32),
+            (1, 2, 1, 130, 130, 128, False, 0),
+            (1, 1, 4, 200, 200, 32, True, 64),
+            (1, 1, 2, 129, 129, 64, False, 50),
+            (1, 1, 3, 65, 200, 64, True, 0), (1, 2, 2, 70, 131, 32, False, 40)]:
+        q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
+                   for shape in ((b, s, kv * g, d), (b, t, kv, d),
+                                 (b, t, kv, d)))
+        got = FA.flash_attention_kernel(q, k, v, causal=causal,
+                                        window=window)
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            assert torch.allclose(got, want, atol=1e-4, rtol=1e-4), (s, d)
+        else:
+            assert bf16_within_ulps(got, want, 2), (s, d)
+
+
+@pytest.mark.cuda
+def test_cuda_model_equals_cpu(card):
+    """recurrentgemma-2b's smoke model: prefill (prompt longer than the
+    window) and three decode steps on the card against the CPU; the card's
+    prefill launches each kernel once per layer of its kind."""
+    cfg = get_smoke_config("recurrentgemma-2b")
+    cpu = TF.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = TF.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu.to(card)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 48)))
+    kinds = [k.split("_", 1)[1] for k, _ in gpu.keys]
+    before = (FA.LAUNCHES["flash_attention"], RK.LAUNCHES["rglru_scan"])
+    gl, gc = TF.prefill(gpu, toks.to(card), 64)
+    assert FA.LAUNCHES["flash_attention"] - before[0] == kinds.count(
+        "attn_local")
+    assert RK.LAUNCHES["rglru_scan"] - before[1] == kinds.count("rglru")
+    cl, cc = TF.prefill(cpu, toks, 64)
+    assert torch.allclose(gl.cpu().float(), cl.float(), atol=5e-2,
+                          rtol=5e-2)
+    for i in range(3):
+        tok = toks[:, i:i + 1]
+        pos = torch.full((2, 1), 48 + i, dtype=torch.int32)
+        gl, gc = TF.decode_step(gpu, gc, tok.to(card), pos.to(card))
+        cl, cc = TF.decode_step(cpu, cc, tok, pos)
+        assert torch.allclose(gl.cpu().float(), cl.float(), atol=5e-2,
+                              rtol=5e-2), i

@@ -242,6 +242,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.studies.link_layer\n"
         "import repro_torch.studies.link_reliability\n"
         "import repro_torch.studies.link_explorer\n"
+        "import repro_torch.configs, repro_torch.configs.recurrentgemma_2b\n"
+        "import repro_torch.kernels.rglru_scan.ops\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.models.transformer, repro_torch.models.convert\n"
+        "import repro_torch.runtime.server, repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or\n"
         "             m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
         "assert not bad, bad\n")
