@@ -23,7 +23,10 @@ paths through them:
   * the model stack's serving path: recurrentgemma-2b at its published
     width (26 layers, d_model 2560, weights drawn from a seeded generator)
     behind the slot server (`runtime.server.Server`), whose prefills run the
-    flash-attention and RG-LRU scan kernels.
+    flash-attention and RG-LRU scan kernels;
+  * mamba2-1.3b at its published width (48 SSD layers, d_model 2048,
+    1.344 B parameters) behind the same server, prompts of 1 to 16,384
+    tokens, whose prefills run the SSD chunk kernel.
 
 Every schedule is checked against the port's event-driven oracle, every
 served request against a manual prefill/decode loop, and the script prints
@@ -34,6 +37,7 @@ nothing of JAX and nothing of the ``repro`` package.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -78,6 +82,17 @@ SERVE_MAX_LEN = 4608
 # the bf16 tolerance the port's CPU tests hold the model to (against the
 # JAX reference, and the card against the CPU)
 MODEL_TOL = 5e-2
+MAMBA_ARCH = "mamba2-1.3b"
+MAMBA_PROMPTS = (1, 100, 128, 129, 1000, 2048, 4096, 16_384)
+MAMBA_MAX_LEN = 16_448
+# SSD chunk scan: x (B, S, H, P) and y in bf16, b and c (B, S, N) bf16, dt
+# (B, S, H) and the final state (B, H, P, N) float32
+SSD_SHAPE = (1, 4096, 64, 64, 128)
+# the reference suite's kernel-vs-oracle tolerance (test_kernels.py:
+# 119-120), on its own input family and on model-like inputs alike (tighter
+# than its chunk-invariance bound, atol 2e-4 / rtol 2e-3): the kernel and
+# the plain version take the chunk cumsum in one order
+SSD_TOL = (3e-5, 3e-4)
 
 # Rounds the JAX reference needs where the computed `round_bound` falls
 # short of them: the ring at scale 16 with 120 requests per pair takes 83
@@ -691,6 +706,129 @@ def phase_rglru_vs_plain(torch, RK, RR):
     return worst, timing
 
 
+def ssd_inputs(torch, gen, b, s, h, p, n, model_like):
+    """(x, dt, a_log, b, c) float32 on the card: the reference suite's input
+    family (dt in [0.001, 0.1], A = exp(a_log) in [1, 8]) or the model's
+    (dt = softplus of a normal draw, about 0.3 to 2, A = linspace(1, 16), so
+    that the chunk cumsums reach -10^3)."""
+    x = torch.randn(b, s, h, p, generator=gen, device="cuda")
+    if model_like:
+        dt = torch.nn.functional.softplus(
+            torch.randn(b, s, h, generator=gen, device="cuda"))
+        a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+    else:
+        dt = 0.001 + 0.099 * torch.rand(b, s, h, generator=gen,
+                                        device="cuda")
+        a_log = torch.log(1 + 7 * torch.rand(h, generator=gen,
+                                             device="cuda"))
+    bm, cm = (torch.randn(b, s, n, generator=gen, device="cuda")
+              for _ in range(2))
+    return x, dt, a_log, bm, cm
+
+
+def ssd_bound_ms(b, s, h, p, n, elem_bytes, chunk=128):
+    """(least time on the card in ms, what bounds it, bytes, flops) for one
+    SSD chunk scan: x read and y written in ``elem_bytes``, b and c read in
+    ``elem_bytes``, dt read and the final state written in float32, at the
+    HBM rate; against the products the chunked algorithm needs on these
+    shapes (C B^T once per chunk and batch row, shared by the heads; y_diag
+    and the chunk states on every step; y_off on every step past the first
+    chunk) at the bf16 tensor-core rate."""
+    nbytes = (2 * b * s * h * p * elem_bytes + 2 * b * s * n * elem_bytes
+              + 4 * b * s * h + 4 * b * h * p * n + 4 * h)
+    lens = [min(chunk, s - t) for t in range(0, s, chunk)]
+    sq = sum(x * x for x in lens)
+    flops = (2 * b * n * sq + 2 * b * h * p * sq + 2 * b * h * p * n * s
+             + 2 * b * h * p * n * (s - lens[0]))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / TENSOR_BF16_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations"), nbytes, flops
+
+
+def phase_ssd_vs_plain(torch, SK, SR):
+    """The SSD chunk kernel against its plain version, y and the final
+    state: S in {1, 5, 127, 128, 129, 300, 4096}, B in {1, 2}, the model's
+    heads (H 64, P 64, N 128) plus the smoke config's (4, 16, 16) and a
+    ragged one (3, 24, 40), float32 and bf16 inputs, both input families,
+    all held to SSD_TOL (a bf16 y to one bf16 spacing more).  Every case
+    is reported before any is checked.  Then its time at one 4,096-token
+    prefill of a model layer."""
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    shapes = [(b, s, 64, 64, 128) for s in (1, 5, 127, 128, 129, 300, 4096)
+              for b in (1, 2)]
+    shapes += [(2, s, 4, 16, 16) for s in (1, 128, 300)]
+    shapes += [(2, s, 3, 24, 40) for s in (5, 129, 300)]
+    atol, rtol = SSD_TOL
+    worst = {}
+    failed = []
+    for b, s, h, p, n in shapes:
+        for model_like in (False, True):
+            args = ssd_inputs(torch, gen, b, s, h, p, n, model_like)
+            for dtype in (torch.float32, torch.bfloat16):
+                x, dt, a_log, bm, cm = (
+                    t.to(dtype) if i in (0, 3, 4) else t
+                    for i, t in enumerate(args))
+                y, state = SK.ssd_chunk_kernel(x, dt, a_log, bm, cm)
+                want = SR.ssd_chunk_ref(x, dt, a_log, bm, cm)
+                want_state = SR.ssd_final_state(x, dt, a_log, bm)
+                torch.cuda.synchronize()
+                extra = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+                gy, wy = y.float(), want.float()
+                err_y = float((gy - wy).abs().max())
+                err_s = float((state - want_state).abs().max())
+                # worst ratio of the difference to what the tolerance
+                # allows (<= 1 passes)
+                ratio_y = float(((gy - wy).abs() / (
+                    atol + (rtol + extra) * wy.abs())).max())
+                ratio_s = float(((state - want_state).abs() / (
+                    atol + rtol * want_state.abs())).max())
+                key = ("model" if model_like else "reference",
+                       str(dtype).split(".")[1])
+                w = worst.setdefault(key, [0.0, 0.0, 0.0])
+                w[0] = max(w[0], err_y)
+                w[1] = max(w[1], err_s)
+                w[2] = max(w[2], ratio_y, ratio_s)
+                if not (y.dtype == dtype and ratio_y <= 1 and ratio_s <= 1
+                        and bool(torch.isfinite(gy).all())):
+                    failed.append(dict(shape=(b, s, h, p, n), family=key[0],
+                                       dtype=key[1], max_abs_err_y=err_y,
+                                       max_abs_err_state=err_s,
+                                       ratio_y=ratio_y, ratio_state=ratio_s))
+    for (family, dtype), (ey, es, r) in sorted(worst.items()):
+        emit(phase="kernel_vs_plain", kernel="ssd_chunk", family=family,
+             dtype=dtype, max_abs_err_y=ey, max_abs_err_state=es,
+             worst_ratio_to_tolerance=r)
+    for f in failed:
+        emit(phase="kernel_vs_plain_failed", kernel="ssd_chunk", **f)
+    check(not failed, f"ssd_chunk != plain in {len(failed)} of "
+                      f"{4 * len(shapes)} cases")
+
+    # one prefill of a 4096-token prompt in an SSD layer of the model
+    b, s, h, p, n = SSD_SHAPE
+    x, dt, a_log, bm, cm = (t.to(torch.bfloat16) if i in (0, 3, 4) else t
+                            for i, t in enumerate(ssd_inputs(
+                                torch, gen, b, s, h, p, n, True)))
+    ms, host_ms = time_cuda(torch, lambda: SK.ssd_chunk_kernel(
+        x, dt, a_log, bm, cm), 20)
+    plain_ms, _ = time_cuda(torch, lambda: (
+        SR.ssd_chunk_ref(x, dt, a_log, bm, cm),
+        SR.ssd_final_state(x, dt, a_log, bm)), 5)
+    bound, by, nbytes, flops = ssd_bound_ms(b, s, h, p, n, 2)
+    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                  library_ms=None)
+    emit(phase="kernel_timing", kernel="ssd_chunk", B=b, S=s, H=h, P=p, N=n,
+         dtype="bf16 x, b, c; float32 dt, state", host_ms_per_call=host_ms,
+         bytes=nbytes, flops=flops, library="none: no PyTorch call computes "
+         "an SSD chunk scan", **timing)
+    # the time of each of the kernel's three launches (chunk states, the
+    # walk, chunk outputs), over ten calls
+    emit(phase="device_profile", workload="ssd_chunk_x10",
+         **profile_device(torch, lambda: [SK.ssd_chunk_kernel(
+             x, dt, a_log, bm, cm) for _ in range(10)]))
+    return max(w[0] for k, w in worst.items() if k[1] == "float32"), timing
+
+
 def manual_greedy(torch, TF, model, prompt, n_new, max_len, rows=1):
     """Greedy tokens of one request by a manual prefill + decode_step loop,
     with the logits of every step.  With ``rows`` > 1 the prompt's cache is
@@ -717,11 +855,17 @@ def manual_greedy(torch, TF, model, prompt, n_new, max_len, rows=1):
     return toks, out
 
 
-def phase_model_serve(np, torch, FA, RK):
-    """recurrentgemma-2b at its published width on the card, weights from a
-    seeded generator, behind the slot server: 8 requests of 64 to 4,096
-    prompt tokens, 32 new tokens each, 4 slots.  The kernels' launch counts
-    are set to 0 just before the run and read just after."""
+def serve_model(np, torch, arch, prompts_len, max_len, kernels,
+                manual_prompts, forward_tokens, seed):
+    """One model of the repo at its published width on the card, weights
+    from a seeded generator, behind the slot server: one greedy request per
+    prompt length, SERVE_NEW new tokens each, SERVE_SLOTS slots.
+    ``kernels`` maps each kernel of the model's prefill to (its launch
+    counter, the block kind that launches it once per prefill); the counts
+    are set to 0 just before the run and read just after.  Then the server
+    against a manual prefill + decode loop, prefill against forward, and a
+    device profile of the longest prefill and of one tick.  Returns the
+    launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as TF
     from repro_torch.runtime.server import Request, Server
@@ -734,9 +878,9 @@ def phase_model_serve(np, torch, FA, RK):
             self.nan = self.nan or bool(torch.isnan(logits).any())
             return super()._sample(logits)
 
-    cfg = get_config(MODEL_ARCH)
-    # the reference multiplies the float32 gate matrices in float32: PyTorch
-    # keeps TF32 off for matrix products unless told otherwise
+    cfg = get_config(arch)
+    # the reference's float32 matrix products (RG-LRU gates) stay float32:
+    # PyTorch keeps TF32 off for matrix products unless told otherwise
     check(not torch.backends.cuda.matmul.allow_tf32
           and torch.get_float32_matmul_precision() == "highest",
           "float32 matrix products would run in TF32")
@@ -749,12 +893,12 @@ def phase_model_serve(np, torch, FA, RK):
     init_peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in model.parameters())
     kinds = [key.split("_", 1)[1] for key, _ in model.keys]
-    rng = np.random.default_rng(13)
+    rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
-               for n in SERVE_PROMPTS]
+               for n in prompts_len]
     # warm up (not part of the run): the first prefills of a new length
     # load the libraries' GEMM kernels and grow the allocator's pool
-    CheckedServer(model, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN).run(
+    CheckedServer(model, slots=SERVE_SLOTS, max_len=max_len).run(
         [Request(rid=-1 - j, prompt=prompts[j], max_new=2)
          for j in (0, 2, len(prompts) - 1)])
     torch.cuda.synchronize()
@@ -762,17 +906,17 @@ def phase_model_serve(np, torch, FA, RK):
     reqs = [Request(rid=i, prompt=p, max_new=SERVE_NEW)
             for i, p in enumerate(prompts)]
     torch.cuda.reset_peak_memory_stats()
-    srv = CheckedServer(model, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+    srv = CheckedServer(model, slots=SERVE_SLOTS, max_len=max_len,
                         temperature=0.0)
-    FA.LAUNCHES["flash_attention"] = 0
-    RK.LAUNCHES["rglru_scan"] = 0
+    for counter, _ in kernels.values():
+        for name in counter:
+            counter[name] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stats = srv.run(reqs)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    flash_launches = FA.LAUNCHES["flash_attention"]
-    rglru_launches = RK.LAUNCHES["rglru_scan"]
+    launches = {name: counter[name] for name, (counter, _) in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
 
     prefills = len(stats["prefill_ms"])
@@ -783,19 +927,17 @@ def phase_model_serve(np, torch, FA, RK):
               and all(0 <= t < cfg.vocab for t in r.out),
               f"request {r.rid} ({len(r.prompt)} tokens) did not finish "
               f"with {SERVE_NEW} tokens: {len(r.out)}")
-    check(not srv.nan, "NaN among the served logits")
-    check(flash_launches == kinds.count("attn_local") * prefills,
-          f"{flash_launches} flash_attention launches for {prefills} "
-          f"prefills of {kinds.count('attn_local')} attention layers")
-    check(rglru_launches == kinds.count("rglru") * prefills,
-          f"{rglru_launches} rglru_scan launches for {prefills} prefills of "
-          f"{kinds.count('rglru')} recurrent layers")
+    check(not srv.nan, f"{arch}: NaN among the served logits")
+    for name, (_, kind) in kernels.items():
+        check(launches[name] == kinds.count(kind) * prefills,
+              f"{launches[name]} {name} launches for {prefills} prefills of "
+              f"{kinds.count(kind)} {kind} layers")
     dec = sorted(stats["decode_ms"])
     tokens = stats["generated"] + len(reqs)
     emit(phase="model_serve", arch=cfg.name, layers=len(kinds),
          d_model=cfg.d_model, params=n_params, init_s=init_s,
-         slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
-         prompt_tokens=list(SERVE_PROMPTS), new_tokens=SERVE_NEW,
+         slots=SERVE_SLOTS, max_len=max_len,
+         prompt_tokens=list(prompts_len), new_tokens=SERVE_NEW,
          prefill_ms=stats["prefill_ms"], ticks=stats["ticks"],
          decode_ms_per_tick_mean=sum(dec) / len(dec),
          decode_ms_per_tick_median=dec[len(dec) // 2],
@@ -805,21 +947,20 @@ def phase_model_serve(np, torch, FA, RK):
          max_memory_allocated_bytes=peak, init_peak_bytes=init_peak,
          weight_bytes=sum(p.numel() * p.element_size()
                           for p in model.parameters()),
-         flash_attention_launches=flash_launches,
-         rglru_scan_launches=rglru_launches)
+         **{f"{name}_launches": n for name, n in launches.items()})
 
     # the server's greedy tokens against a manual loop on the port: at the
     # server's batch width, token for token; with one row, equal up to a
     # near tie (a 1-row decode rounds through other matrix shapes)
-    for n in (2049, 4096):
-        i = SERVE_PROMPTS.index(n)
+    for n in manual_prompts:
+        i = prompts_len.index(n)
         toks, _ = manual_greedy(torch, TF, model, prompts[i], SERVE_NEW,
-                                SERVE_MAX_LEN, rows=SERVE_SLOTS)
+                                max_len, rows=SERVE_SLOTS)
         check(toks == reqs[i].out,
-              f"prompt {n}: server tokens {reqs[i].out} != manual loop "
-              f"{toks} at the server's batch width")
+              f"{arch} prompt {n}: server tokens {reqs[i].out} != manual "
+              f"loop {toks} at the server's batch width")
         toks1, rows1 = manual_greedy(torch, TF, model, prompts[i],
-                                     SERVE_NEW, SERVE_MAX_LEN)
+                                     SERVE_NEW, max_len)
         diff = [j for j, (x, y) in enumerate(zip(toks1, reqs[i].out))
                 if x != y]
         gap = None
@@ -828,38 +969,66 @@ def phase_model_serve(np, torch, FA, RK):
             top = float(row.max())
             gap = top - float(row[reqs[i].out[diff[0]]])
             check(gap <= 2 * (MODEL_TOL + MODEL_TOL * abs(top)),
-                  f"prompt {n}: server and 1-row loop differ at token "
-                  f"{diff[0]} beyond a near tie (gap {gap})")
-        emit(phase="serve_vs_manual", prompt_tokens=n,
+                  f"{arch} prompt {n}: server and 1-row loop differ at "
+                  f"token {diff[0]} beyond a near tie (gap {gap})")
+        emit(phase="serve_vs_manual", arch=cfg.name, prompt_tokens=n,
              equal_at_server_width=True, equal_one_row=not diff,
              one_row_first_difference=diff[0] if diff else None,
              one_row_logit_gap=gap)
 
     # prefill's last logits against forward's at that position
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 2304)),
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, forward_tokens)),
                            device="cuda")
-    pre, _ = TF.prefill(model, toks, SERVE_MAX_LEN)
+    pre, _ = TF.prefill(model, toks, max_len)
     full = TF.forward(model, toks)
     err = float((pre[0, 0].float() - full[0, -1].float()).abs().max())
     check(torch.allclose(pre[0, 0].float(), full[0, -1].float(),
                          atol=MODEL_TOL, rtol=MODEL_TOL)
           and not bool(torch.isnan(full).any()),
-          f"prefill vs forward at 2304 tokens: max abs err {err}")
-    emit(phase="prefill_vs_forward", tokens=2304, max_abs_err=err)
+          f"{arch}: prefill vs forward at {forward_tokens} tokens: max abs "
+          f"err {err}")
+    emit(phase="prefill_vs_forward", arch=cfg.name, tokens=forward_tokens,
+         max_abs_err=err)
     del full
 
     # where a prefill's and a tick's device time goes (after the counts
     # are read: these are timing runs)
-    long_prompt = torch.as_tensor(prompts[-1][None], device="cuda")
-    emit(phase="device_profile", workload="prefill_4096",
+    n_long = max(n for n in prompts_len if n <= 4096)
+    long_prompt = torch.as_tensor(prompts[prompts_len.index(n_long)][None],
+                                  device="cuda")
+    emit(phase="device_profile", arch=cfg.name, workload=f"prefill_{n_long}",
          **profile_device(torch, lambda: TF.prefill(model, long_prompt,
-                                                    SERVE_MAX_LEN)))
-    cache = TF.init_cache(cfg, SERVE_SLOTS, SERVE_MAX_LEN, device="cuda")
+                                                    max_len)))
+    cache = TF.init_cache(cfg, SERVE_SLOTS, max_len, device="cuda")
     tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32, device="cuda")
-    emit(phase="device_profile", workload="decode_tick_4_slots",
+    emit(phase="device_profile", arch=cfg.name,
+         workload="decode_tick_4_slots",
          **profile_device(torch, lambda: TF.decode_step(model, cache, tok,
                                                         tok)))
-    return flash_launches, rglru_launches
+    return launches
+
+
+def phase_model_serve(np, torch, FA, RK):
+    """recurrentgemma-2b at its published width: 8 requests of 64 to 4,096
+    prompt tokens, every prefill through the flash-attention and RG-LRU
+    scan kernels."""
+    launches = serve_model(
+        np, torch, MODEL_ARCH, SERVE_PROMPTS, SERVE_MAX_LEN,
+        {"flash_attention": (FA.LAUNCHES, "attn_local"),
+         "rglru_scan": (RK.LAUNCHES, "rglru")},
+        manual_prompts=(2049, 4096), forward_tokens=2304, seed=13)
+    return launches["flash_attention"], launches["rglru_scan"]
+
+
+def phase_model_serve_mamba2(np, torch, SK):
+    """mamba2-1.3b at its published width: 8 requests of 1 to 16,384 prompt
+    tokens (one chunk, a ragged tail, many chunks, the long prompt that
+    ``sub_quadratic`` is for), every prefill through the SSD kernel."""
+    launches = serve_model(
+        np, torch, MAMBA_ARCH, MAMBA_PROMPTS, MAMBA_MAX_LEN,
+        {"ssd_chunk": (SK.LAUNCHES, "ssd")},
+        manual_prompts=(129, 4096), forward_tokens=2304, seed=17)
+    return launches["ssd_chunk"]
 
 
 def main() -> int:
@@ -885,6 +1054,7 @@ def main() -> int:
     from repro_torch.kernels.link_contention import kernel as LK, ref as LR
     from repro_torch.kernels.link_contention import ops as LO
     from repro_torch.kernels.serve_round import kernel as K, ops, ref
+    from repro_torch.kernels.ssd_chunk import kernel as SK, ref as SR
     from repro_torch.studies import (link_explorer, link_layer,
                                      link_reliability)
 
@@ -901,9 +1071,10 @@ def main() -> int:
     # phase 1: build every kernel of the path from this checkout's sources
     # (one nvcc process per source, all started together)
     t0 = time.perf_counter()
-    sources = [K._SOURCE, LK._SOURCE, FK._SOURCE, FA._SOURCE, RK._SOURCE]
+    sources = [K._SOURCE, LK._SOURCE, FK._SOURCE, FA._SOURCE, RK._SOURCE,
+               SK._SOURCE]
     _build.build_all(sources)
-    for mod in (K, LK, FK, FA, RK):
+    for mod in (K, LK, FK, FA, RK, SK):
         mod._lib()
     emit(phase="build", sources=[str(x.relative_to(ROOT)) for x in sources],
          seconds=time.perf_counter() - t0)
@@ -915,6 +1086,7 @@ def main() -> int:
         np, torch, FK, FR, MAX_PAYLOAD_B, P.link_layer.MAX_REPLAY_PPM)
     worst_flash, flash_timing = phase_flash_vs_plain(torch, FA, FAR)
     worst_rglru, rglru_timing = phase_rglru_vs_plain(torch, RK, RR)
+    worst_ssd, ssd_timing = phase_ssd_vs_plain(torch, SK, SR)
 
     # warm up the CUDA libraries on a tiny workload (not part of the run)
     tiny = paper_workload(np, P, build_topo(P, "chain", 2), 2, 500, "cuda")
@@ -1039,6 +1211,13 @@ def main() -> int:
     flash_launches, rglru_launches = phase_model_serve(np, torch, FA, RK)
     check(flash_launches > 0 and rglru_launches > 0,
           "the served model never launched its kernels")
+    # free recurrentgemma-2b's weights and caches before the next model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 9: mamba2-1.3b at full width (the SSD chunk kernel's path)
+    ssd_launches = phase_model_serve_mamba2(np, torch, SK)
+    check(ssd_launches > 0, "the served model never launched ssd_chunk")
 
     main_k = 268_800
     t = timings[main_k]
@@ -1074,7 +1253,13 @@ def main() -> int:
              source="src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
              replaces="src/repro/kernels/rglru_scan/kernel.py:62",
              launches=rglru_launches, max_abs_err=worst_rglru,
-             **rglru_timing, shape="(1, 4096, 2560) float32")])
+             **rglru_timing, shape="(1, 4096, 2560) float32"),
+        dict(name="ssd_chunk", route="cuda",
+             source="src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu",
+             replaces="src/repro/kernels/ssd_chunk/kernel.py:82",
+             launches=ssd_launches, max_abs_err=worst_ssd, **ssd_timing,
+             shape="x (1, 4096, 64, 64) bf16, b and c (1, 4096, 128) bf16, "
+                   "dt (1, 4096, 64) float32")])
 
     leaked = sorted(m for m in sys.modules if m in ("jax", "repro")
                     or m.startswith(("jax.", "jaxlib", "repro.")))

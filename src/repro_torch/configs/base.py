@@ -5,7 +5,7 @@ nothing of the JAX package: every architecture is a module in
 `repro_torch.configs` exposing ``CONFIG`` (an ArchConfig with the exact
 published dimensions) and ``SMOKE`` (the reduced same-family config the CPU
 tests use).  The port's model stack builds the block kinds ``attn``,
-``attn_local`` and ``rglru``; building any other raises
+``attn_local``, ``rglru`` and ``ssd``; building any other raises
 ``NotImplementedError`` (`repro_torch.models.transformer`).
 """
 

@@ -8,6 +8,7 @@ from a seeded generator, on the card by default:
         --arch recurrentgemma-2b --requests 8 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-2b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
 """
 
 from __future__ import annotations

@@ -1,13 +1,14 @@
 """Model assembly: the block stack, inference forward, prefill and decode.
 
 The counterpart of ``repro/models/transformer.py`` for the serving path of
-the block kinds ``attn``, ``attn_local`` and ``rglru`` (recurrentgemma-2b,
-and the dense attention models).  The reference stacks each period's
-parameters on a leading stage axis for ``lax.scan``; the port keeps one
-``nn.Module`` per layer in a ``ModuleList``, in the reference's order
-(periods first, then the ``tail`` blocks), and its caches are one dict per
-layer in the same order.  `models.convert` maps both layouts onto each
-other.
+the block kinds ``attn``, ``attn_local``, ``rglru`` and ``ssd``
+(recurrentgemma-2b, mamba2-1.3b, and the dense attention models).  An
+``ssd`` block is ``x + ssd(norm1(x))`` with no MLP, as in the reference.
+The reference stacks each period's parameters on a leading stage axis for
+``lax.scan``; the port keeps one ``nn.Module`` per layer in a
+``ModuleList``, in the reference's order (periods first, then the ``tail``
+blocks), and its caches are one dict per layer in the same order.
+`models.convert` maps both layouts onto each other.
 
 Entry points (all inference; nothing here trains):
   init_params(cfg, generator, device)     the model, weights drawn from gen
@@ -28,13 +29,12 @@ from torch import nn
 from ..core.engine import resolve_device
 from . import attention as A
 from . import rglru as RG
+from . import ssd as SSD
 from .layers import Embed, MLP, RMSNorm, embed, mlp, unembed
 
-SUPPORTED_KINDS = ("attn", "attn_local", "rglru")
+SUPPORTED_KINDS = ("attn", "attn_local", "rglru", "ssd")
 
 _WAITING = {
-    "ssd": "the ssd block and its ssd_chunk kernel (ROADMAP Queue 1 item "
-           "11, the next slice: mamba2-1.3b)",
     "attn_moe": "the moe block (ROADMAP Queue 1 item 11)",
     "cross": "cross attention and the encoder (ROADMAP Queue 1 item 11)",
 }
@@ -89,6 +89,12 @@ class Block(nn.Module):
                                     cfg.head_dim, gen, device=device)
         elif kind == "rglru":
             self.rglru = RG.RGLRU(cfg.d_model, gen, device=device)
+        elif kind == "ssd":
+            # norm1 and the SSD only: the reference gives it no MLP
+            self.ssd = SSD.SSD(cfg.d_model, gen, n_heads=cfg.ssm_heads,
+                               head_dim=cfg.ssm_head_dim,
+                               state=cfg.ssm_state, device=device)
+            return
         else:  # pragma: no cover - check_supported refuses it first
             raise NotImplementedError(kind)
         self.norm2 = RMSNorm(cfg.d_model, device=device)
@@ -141,6 +147,13 @@ def _apply_block(blk: Block, x, positions, cfg, *, mode, cache=None,
         x = x + a_out
         if a_cache is not None:
             new_cache["attn"] = a_cache
+    elif blk.kind == "ssd":
+        s_out, s_cache = SSD.ssd_block(
+            blk.ssd, h, cfg, mode=mode,
+            cache=None if cache is None else cache.get("ssd"))
+        if s_cache is not None:
+            new_cache["ssd"] = s_cache
+        return x + s_out, new_cache
     else:
         r_out, r_cache = RG.rglru_block(
             blk.rglru, h, mode=mode,
@@ -209,6 +222,9 @@ def init_cache(cfg, batch: int, max_len: int, *, device="cuda"):
             caches.append(kv(min(max_len, cfg.max_seq)))
         elif kind == "attn_local":
             caches.append(kv(min(max_len, cfg.window)))
+        elif kind == "ssd":
+            caches.append({"ssd": SSD.init_ssd_cache(batch, cfg,
+                                                     device=dev)})
         else:
             caches.append({"rglru": RG.init_rglru_cache(batch, cfg.d_model,
                                                         device=dev)})

@@ -1,7 +1,8 @@
 """PyTorch port on a CUDA card: the hand-written kernels against their plain
 versions, the engine (one run and a stacked sweep) on the card against the
-engine on the CPU, and recurrentgemma-2b's smoke model (prefill and decode)
-on the card against the same model on the CPU.
+engine on the CPU, and the smoke models of recurrentgemma-2b and
+mamba2-1.3b (prefill and decode) on the card against the same models on the
+CPU.
 
 Every test here is marked ``cuda`` and skips without a card (the CUDA
 kernel has no CPU mode).  The file imports neither JAX nor the reference
@@ -13,9 +14,13 @@ Tolerances: the engine's kernels exact (int64 picoseconds); `rglru_scan`
 bit-equal to its plain version while one chunk covers the sequence, else
 ``1e-5`` (the chunk carries round differently); `flash_attention` ``1e-4``
 in float32 and 2 bf16 ulps in bf16 (float32 sums in another order; see
-`bf16_within_ulps` for outputs near zero); the
-model on the card against the CPU ``5e-2``, the bf16 tolerance of the CPU
-tests against the reference.
+`bf16_within_ulps` for outputs near zero); `ssd_chunk` ``atol 3e-5, rtol
+3e-4`` (the reference suite's kernel-vs-oracle tolerance) on its input
+family and on model-like inputs alike, whose chunk cumsums reach -10^3
+(the kernel and the plain version take that cumsum in one order), plus
+one bf16 spacing for a bf16 output; the models
+on the card against the CPU ``5e-2``, the bf16 tolerance of the CPU tests
+against the reference.
 """
 
 import numpy as np
@@ -36,6 +41,9 @@ from repro_torch.kernels.link_contention.ref import (  # noqa: E402
 from repro_torch.kernels.rglru_scan import kernel as RK  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.serve_round import kernel as K  # noqa: E402
+from repro_torch.kernels.ssd_chunk import kernel as SK  # noqa: E402
+from repro_torch.kernels.ssd_chunk.ref import (  # noqa: E402
+    ssd_chunk_ref, ssd_final_state)
 from repro_torch.kernels.serve_round.ref import (random_maps,  # noqa: E402
                                                  serve_scan_ref)
 from repro_torch.models import transformer as TF  # noqa: E402
@@ -229,6 +237,79 @@ def test_cuda_model_equals_cpu(card):
     for i in range(3):
         tok = toks[:, i:i + 1]
         pos = torch.full((2, 1), 48 + i, dtype=torch.int32)
+        gl, gc = TF.decode_step(gpu, gc, tok.to(card), pos.to(card))
+        cl, cc = TF.decode_step(cpu, cc, tok, pos)
+        assert torch.allclose(gl.cpu().float(), cl.float(), atol=5e-2,
+                              rtol=5e-2), i
+
+
+def ssd_inputs(gen, card, b, s, h, p, n, model_like):
+    """(x, dt, a_log, b, c) float32 on the card: the reference suite's
+    family (dt in [0.001, 0.1], A in [1, 8]) or the model's (dt a softplus
+    of a normal draw, A = linspace(1, 16))."""
+    x = torch.randn(b, s, h, p, generator=gen, device=card)
+    if model_like:
+        dt = torch.nn.functional.softplus(
+            torch.randn(b, s, h, generator=gen, device=card))
+        a_log = torch.log(torch.linspace(1.0, 16.0, h, device=card))
+    else:
+        dt = 0.001 + 0.099 * torch.rand(b, s, h, generator=gen, device=card)
+        a_log = torch.log(1 + 7 * torch.rand(h, generator=gen, device=card))
+    bm, cm = (torch.randn(b, s, n, generator=gen, device=card)
+              for _ in range(2))
+    return x, dt, a_log, bm, cm
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_kernel_equals_plain(card):
+    """Around the 128-step chunk edge, ragged tails, one and two batch rows,
+    the model's head shape and the smoke config's, float32 and bf16, both
+    input families; y and the final state."""
+    gen = torch.Generator(device=card).manual_seed(2)
+    for b, s, h, p, n in [(1, 1, 64, 64, 128), (2, 5, 64, 64, 128),
+                          (1, 127, 64, 64, 128), (2, 128, 4, 16, 16),
+                          (1, 129, 64, 64, 128), (2, 300, 3, 24, 40),
+                          (1, 1000, 64, 64, 128)]:
+        for model_like in (False, True):
+            atol, rtol = 3e-5, 3e-4
+            args = ssd_inputs(gen, card, b, s, h, p, n, model_like)
+            for dtype in (torch.float32, torch.bfloat16):
+                x, dt, a_log, bm, cm = (
+                    t.to(dtype) if i in (0, 3, 4) else t
+                    for i, t in enumerate(args))
+                y, state = SK.ssd_chunk_kernel(x, dt, a_log, bm, cm)
+                want = ssd_chunk_ref(x, dt, a_log, bm, cm)
+                want_state = ssd_final_state(x, dt, a_log, bm)
+                torch.cuda.synchronize()
+                case = (b, s, h, p, n, model_like, dtype)
+                assert y.dtype == dtype, case
+                extra = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+                assert torch.allclose(y.float(), want.float(), atol=atol,
+                                      rtol=rtol + extra), case
+                assert torch.allclose(state, want_state, atol=atol,
+                                      rtol=rtol), case
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_model_equals_cpu(card):
+    """mamba2-1.3b's smoke model: prefill (two chunks, a ragged tail) and
+    three decode steps on the card against the CPU; the card's prefill
+    launches the SSD kernel once per layer."""
+    cfg = get_smoke_config("mamba2-1.3b")
+    cpu = TF.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = TF.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu.to(card)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 150)))
+    before = SK.LAUNCHES["ssd_chunk"]
+    gl, gc = TF.prefill(gpu, toks.to(card), 256)
+    assert SK.LAUNCHES["ssd_chunk"] - before == cfg.n_layers
+    cl, cc = TF.prefill(cpu, toks, 256)
+    assert torch.allclose(gl.cpu().float(), cl.float(), atol=5e-2,
+                          rtol=5e-2)
+    for i in range(3):
+        tok = toks[:, i:i + 1]
+        pos = torch.full((2, 1), 150 + i, dtype=torch.int32)
         gl, gc = TF.decode_step(gpu, gc, tok.to(card), pos.to(card))
         cl, cc = TF.decode_step(cpu, cc, tok, pos)
         assert torch.allclose(gl.cpu().float(), cl.float(), atol=5e-2,
