@@ -23,10 +23,14 @@ paths through them:
   * the model stack's serving path: recurrentgemma-2b at its published
     width (26 layers, d_model 2560, weights drawn from a seeded generator)
     behind the slot server (`runtime.server.Server`), whose prefills run the
-    flash-attention and RG-LRU scan kernels;
+    tensor-core flash-attention kernel (bf16) and the RG-LRU scan kernel;
   * mamba2-1.3b at its published width (48 SSD layers, d_model 2048,
     1.344 B parameters) behind the same server, prompts of 1 to 16,384
-    tokens, whose prefills run the SSD chunk kernel.
+    tokens, whose prefills run the tensor-core SSD chunk kernel (bf16).
+
+flash_attention and ssd_chunk each have a tensor-core kernel (bf16) and a
+CUDA-core one (float32); both are held against the plain versions and
+timed, and the served models must launch the tensor-core ones only.
 
 Every schedule is checked against the port's event-driven oracle, every
 served request against a manual prefill/decode loop, and the script prints
@@ -39,6 +43,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -220,6 +225,30 @@ def round_breakdown(torch, P, ops, K, wl, sched, repeats=5):
     return out, int(maps[0].shape[0]), err
 
 
+def ptxas_summary(log):
+    """Registers, stack, spills and static shared memory of each kernel in
+    one source's ``nvcc -Xptxas -v`` output."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = dict(kernel=m.group(1))
+            out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                cur.update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]),
+                           spill_load_bytes=int(m[3]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                cur["static_smem_bytes"] = int(m[1])
+    return out
+
+
 def profile_device(torch, fn):
     """Device busy share of one call of ``fn``: kernel time summed by
     `torch.profiler` over the wall time of the same call, plus the kernels
@@ -245,7 +274,7 @@ def profile_device(torch, fn):
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
-                top_kernels=[dict(name=e.key[:60], ms=dev_us(e) / 1e3,
+                top_kernels=[dict(name=e.key[:100], ms=dev_us(e) / 1e3,
                                   calls=e.count) for e in top])
 
 
@@ -574,24 +603,60 @@ def attn_pairs(s, window, causal=True):
                for i in q)
 
 
+def flops_per_s(elem_bytes):
+    """The card's peak rate for products of this element size: bf16 on the
+    tensor cores, float32 on the CUDA cores (TF32 is not float32)."""
+    return TENSOR_BF16_FLOPS_PER_S if elem_bytes == 2 else SCALAR_OPS_PER_S
+
+
 def flash_bound_ms(b, s, h, kvh, d, window, elem_bytes):
     """(least time on the card in ms, what bounds it) for one flash call:
-    4 * D flops per unmasked pair at the bf16 tensor-core rate, against q,
-    k, v read and the output written once at the HBM rate."""
+    4 * D flops per unmasked pair at the peak rate of the inputs' type,
+    against q, k, v read and the output written once at the HBM rate."""
     flops = FLASH_FLOPS_PER_PAIR_PER_D * d * attn_pairs(s, window) * b * h
     nbytes = elem_bytes * d * s * b * (2 * h + 2 * kvh)
-    ops_ms = flops / TENSOR_BF16_FLOPS_PER_S * 1e3
+    ops_ms = flops / flops_per_s(elem_bytes) * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
 
 
+def sdpa_yardsticks(torch, sdpa, qt, kt, vt, s, g):
+    """Which SDPA backend the masked call takes (its kernels: with a dense
+    mask every pair is computed), and SDPA's flash backend on the causal
+    mask without the window: more pairs than the window leaves, but dead
+    tiles skipped, as the kernel skips them.  Yardsticks only; a backend
+    that refuses the call is reported, not failed."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def causal():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    masked = profile_device(torch, sdpa)
+    try:
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            causal_ms, _ = time_cuda(torch, causal, 20)
+        refused = None
+    except RuntimeError as e:
+        causal_ms, refused = None, str(e).splitlines()[0][:200]
+    emit(phase="sdpa_yardsticks", masked_call_kernels=[
+             k["name"] for k in masked["top_kernels"]],
+         masked_call_pairs=s * s * g, flash_causal_ms=causal_ms,
+         flash_causal_refused=refused,
+         flash_causal_pairs=attn_pairs(s, 0) * g)
+
+
 def phase_flash_vs_plain(torch, FA, FAR):
-    """The flash-attention kernel against its plain version: G in {1, 4,
-    10}, D in {64, 128, 256}, S = T across the 64-row tiles and the 2048
-    window, causal with and without the window, one non-causal case, in
-    float32 (atol 1e-4) and bf16 (2 ulps); then its time at one 4096-token
-    prefill of the model's attention layer."""
+    """The flash-attention kernels against their plain version: G in {1, 4,
+    10}, D in {64, 128, 256}, S = T across the 64- and 128-row tiles and the
+    2048 window, causal with and without the window, one non-causal case,
+    in float32 (the CUDA-core kernel, atol 1e-4) and bf16 (the tensor-core
+    kernel, 2 ulps); plus D in {24, 200}, which bf16 takes to the CUDA-core
+    kernel (2 ulps).  Each call is counted on the kernel it should take,
+    and the worst error is reported per kernel and dtype.  Then each
+    kernel's time at one 4096-token prefill of the model's attention layer
+    in the dtype it serves."""
     gen = torch.Generator(device="cuda").manual_seed(31)
     cases = [dict(b=1, kvh=1, g=g, d=d, s=s, window=w, causal=True)
              for g in (1, 4, 10) for d in (64, 128, 256)
@@ -600,8 +665,11 @@ def phase_flash_vs_plain(torch, FA, FAR):
     cases += [dict(b=2, kvh=2, g=3, d=128, s=1000, window=0, causal=False),
               dict(b=1, kvh=1, g=10, d=256, s=2049, window=2048,
                    causal=False)]
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    worst_ulps = 0.0
+    cases += [dict(b=1, kvh=1, g=4, d=d, s=s, window=w, causal=True)
+              for d in (24, 200) for s in (65, 2049) for w in (0, 2048)]
+    worst = {"flash_attention": 0.0, "flash_attention_tc": 0.0}
+    # (kernel, dtype) -> [cases, max abs err, max bf16 ulps]
+    variants = {}
     for c in cases:
         b, s, h, kvh, d = c["b"], c["s"], c["kvh"] * c["g"], c["kvh"], c["d"]
         q32, k32, v32 = (torch.randn(shape, generator=gen, device="cuda")
@@ -610,54 +678,74 @@ def phase_flash_vs_plain(torch, FA, FAR):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (x.to(dtype) for x in (q32, k32, v32))
             kw = dict(causal=c["causal"], window=c["window"])
+            name = ("flash_attention_tc" if FA.uses_tensor_cores(dtype, d)
+                    else "flash_attention")
+            before = dict(FA.LAUNCHES)
             got = FA.flash_attention_kernel(q, k, v, **kw)
+            check({n: FA.LAUNCHES[n] - before[n] for n in before}
+                  == {n: int(n == name) for n in before},
+                  f"flash_attention {dtype} D={d} did not launch {name}")
             want = FAR.flash_attention_ref(q, k, v, **kw)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
-            worst[dtype] = max(worst[dtype], err)
+            worst[name] = max(worst[name], err)
+            var = variants.setdefault((name, str(dtype).split(".")[1]),
+                                      [0, 0.0, None])
+            var[0] += 1
+            var[1] = max(var[1], err)
             if dtype == torch.float32:
                 check(torch.allclose(got, want, atol=1e-4, rtol=0),
-                      f"flash_attention != plain (float32) for {c}: {err}")
+                      f"{name} != plain (float32) for {c}: {err}")
             else:
                 ok, ulps = bf16_within_ulps(torch, got, want, 2)
-                worst_ulps = max(worst_ulps, ulps)
-                check(ok, f"flash_attention != plain (bf16) for {c}: "
-                          f"{ulps} ulps")
-    emit(phase="kernel_vs_plain", kernel="flash_attention",
-         cases=2 * len(cases), max_abs_err_f32=worst[torch.float32],
-         max_abs_err_bf16=worst[torch.bfloat16], max_ulps_bf16=worst_ulps)
+                var[2] = max(var[2] or 0.0, ulps)
+                check(ok, f"{name} != plain (bf16) for {c}: {ulps} ulps")
+    for (name, dtype), (n, err, ulps) in sorted(variants.items()):
+        emit(phase="kernel_vs_plain", kernel=name, dtype=dtype, cases=n,
+             max_abs_err=err, max_ulps_bf16=ulps)
 
-    # one prefill of a 4096-token prompt in an attention layer of the model
+    # one prefill of a 4096-token prompt in an attention layer of the model,
+    # in each kernel's dtype
     b, s, g, kvh, d, w = 1, 4096, 10, 1, 256, 2048
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(
-        torch.bfloat16) for shape in ((b, s, g * kvh, d), (b, s, kvh, d),
-                                      (b, s, kvh, d)))
-    ms, host_ms = time_cuda(torch, lambda: FA.flash_attention_kernel(
-        q, k, v, causal=True, window=w), 20)
-    plain_ms, _ = time_cuda(torch, lambda: FAR.flash_attention_ref(
-        q, k, v, causal=True, window=w), 3)
-    # the one PyTorch call computing the same function: SDPA with the same
-    # causal window mask (a yardstick only; the port never calls it)
     pos = torch.arange(s, device="cuda")
     mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - w)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    timings = {}
+    for name, dtype in (("flash_attention_tc", torch.bfloat16),
+                        ("flash_attention", torch.float32)):
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for shape in ((b, s, g * kvh, d), (b, s, kvh, d),
+                                 (b, s, kvh, d)))
+        ms, host_ms = time_cuda(torch, lambda: FA.flash_attention_kernel(
+            q, k, v, causal=True, window=w), 20)
+        plain_ms, _ = time_cuda(torch, lambda: FAR.flash_attention_ref(
+            q, k, v, causal=True, window=w), 3)
+        # the one PyTorch call computing the same function: SDPA with the
+        # same causal window mask (a yardstick only; the port never calls
+        # it)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
-    def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
-    lib_ms, _ = time_cuda(torch, sdpa, 20)
-    lib_err = float((sdpa().transpose(1, 2).float() - FA.flash_attention_kernel(
-        q, k, v, causal=True, window=w).float()).abs().max())
-    bound, by = flash_bound_ms(b, s, g * kvh, kvh, d, w, 2)
-    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                  library_ms=lib_ms)
-    emit(phase="kernel_timing", kernel="flash_attention", B=b, S=s, H=g,
-         KV=kvh, D=d, window=w, dtype="bf16", host_ms_per_call=host_ms,
-         unmasked_pairs=attn_pairs(s, w) * g, library="scaled_dot_product_"
-         "attention (bool window mask, enable_gqa)",
-         library_max_abs_diff=lib_err, **timing)
-    return worst[torch.float32], timing
+        lib_ms, _ = time_cuda(torch, sdpa, 20)
+        lib_err = float((sdpa().transpose(1, 2).float()
+                         - FA.flash_attention_kernel(
+                             q, k, v, causal=True, window=w).float()
+                         ).abs().max())
+        bound, by = flash_bound_ms(b, s, g * kvh, kvh, d, w,
+                                   torch.finfo(dtype).bits // 8)
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                             bound_by=by, library_ms=lib_ms)
+        emit(phase="kernel_timing", kernel=name, B=b, S=s, H=g, KV=kvh, D=d,
+             window=w, dtype=str(dtype).split(".")[1],
+             host_ms_per_call=host_ms, unmasked_pairs=attn_pairs(s, w) * g,
+             library="scaled_dot_product_attention (bool window mask, "
+                     "enable_gqa)", library_max_abs_diff=lib_err,
+             **timings[name])
+        if dtype == torch.bfloat16:
+            sdpa_yardsticks(torch, sdpa, qt, kt, vt, s, g)
+    return worst, timings
 
 
 def rglru_gates(torch, gen, b, s, d):
@@ -733,7 +821,7 @@ def ssd_bound_ms(b, s, h, p, n, elem_bytes, chunk=128):
     HBM rate; against the products the chunked algorithm needs on these
     shapes (C B^T once per chunk and batch row, shared by the heads; y_diag
     and the chunk states on every step; y_off on every step past the first
-    chunk) at the bf16 tensor-core rate."""
+    chunk) at the peak rate of the inputs' type."""
     nbytes = (2 * b * s * h * p * elem_bytes + 2 * b * s * n * elem_bytes
               + 4 * b * s * h + 4 * b * h * p * n + 4 * h)
     lens = [min(chunk, s - t) for t in range(0, s, chunk)]
@@ -741,24 +829,29 @@ def ssd_bound_ms(b, s, h, p, n, elem_bytes, chunk=128):
     flops = (2 * b * n * sq + 2 * b * h * p * sq + 2 * b * h * p * n * s
              + 2 * b * h * p * n * (s - lens[0]))
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / TENSOR_BF16_FLOPS_PER_S * 1e3
+    ops_ms = flops / flops_per_s(elem_bytes) * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations"), nbytes, flops
 
 
 def phase_ssd_vs_plain(torch, SK, SR):
-    """The SSD chunk kernel against its plain version, y and the final
+    """The SSD chunk kernels against their plain version, y and the final
     state: S in {1, 5, 127, 128, 129, 300, 4096}, B in {1, 2}, the model's
-    heads (H 64, P 64, N 128) plus the smoke config's (4, 16, 16) and a
-    ragged one (3, 24, 40), float32 and bf16 inputs, both input families,
-    all held to SSD_TOL (a bf16 y to one bf16 spacing more).  Every case
-    is reported before any is checked.  Then its time at one 4,096-token
-    prefill of a model layer."""
+    heads (H 64, P 64, N 128) plus the smoke config's (4, 16, 16) and
+    ragged ones (3, 24, 40) and (3, 20, 40), float32 inputs (the CUDA-core
+    kernel) and bf16 (the tensor-core kernel, or the CUDA-core one for P
+    20), each call counted on the kernel it should take, both input
+    families, all held to SSD_TOL (a bf16 y to one bf16 spacing more).
+    Every case is reported before any is checked.  Then each kernel's time
+    at one 4,096-token prefill of a model layer in the dtype it serves, and
+    the tensor-core kernel's launches in a profile."""
     gen = torch.Generator(device="cuda").manual_seed(41)
     shapes = [(b, s, 64, 64, 128) for s in (1, 5, 127, 128, 129, 300, 4096)
               for b in (1, 2)]
     shapes += [(2, s, 4, 16, 16) for s in (1, 128, 300)]
     shapes += [(2, s, 3, 24, 40) for s in (5, 129, 300)]
+    # P not a multiple of 8: bf16 takes the CUDA-core kernel
+    shapes += [(2, s, 3, 20, 40) for s in (129, 300)]
     atol, rtol = SSD_TOL
     worst = {}
     failed = []
@@ -769,7 +862,13 @@ def phase_ssd_vs_plain(torch, SK, SR):
                 x, dt, a_log, bm, cm = (
                     t.to(dtype) if i in (0, 3, 4) else t
                     for i, t in enumerate(args))
+                name = ("ssd_chunk_tc" if SK.uses_tensor_cores(dtype, p, n)
+                        else "ssd_chunk")
+                before = dict(SK.LAUNCHES)
                 y, state = SK.ssd_chunk_kernel(x, dt, a_log, bm, cm)
+                check({k: SK.LAUNCHES[k] - before[k] for k in before}
+                      == {k: int(k == name) for k in before},
+                      f"ssd_chunk {dtype} P={p} N={n} did not launch {name}")
                 want = SR.ssd_chunk_ref(x, dt, a_log, bm, cm)
                 want_state = SR.ssd_final_state(x, dt, a_log, bm)
                 torch.cuda.synchronize()
@@ -783,7 +882,7 @@ def phase_ssd_vs_plain(torch, SK, SR):
                     atol + (rtol + extra) * wy.abs())).max())
                 ratio_s = float(((state - want_state).abs() / (
                     atol + rtol * want_state.abs())).max())
-                key = ("model" if model_like else "reference",
+                key = ("model" if model_like else "reference", name,
                        str(dtype).split(".")[1])
                 w = worst.setdefault(key, [0.0, 0.0, 0.0])
                 w[0] = max(w[0], err_y)
@@ -792,41 +891,50 @@ def phase_ssd_vs_plain(torch, SK, SR):
                 if not (y.dtype == dtype and ratio_y <= 1 and ratio_s <= 1
                         and bool(torch.isfinite(gy).all())):
                     failed.append(dict(shape=(b, s, h, p, n), family=key[0],
-                                       dtype=key[1], max_abs_err_y=err_y,
+                                       kernel=name, dtype=key[2],
+                                       max_abs_err_y=err_y,
                                        max_abs_err_state=err_s,
                                        ratio_y=ratio_y, ratio_state=ratio_s))
-    for (family, dtype), (ey, es, r) in sorted(worst.items()):
-        emit(phase="kernel_vs_plain", kernel="ssd_chunk", family=family,
+    for (family, name, dtype), (ey, es, r) in sorted(worst.items()):
+        emit(phase="kernel_vs_plain", kernel=name, family=family,
              dtype=dtype, max_abs_err_y=ey, max_abs_err_state=es,
              worst_ratio_to_tolerance=r)
     for f in failed:
-        emit(phase="kernel_vs_plain_failed", kernel="ssd_chunk", **f)
+        emit(phase="kernel_vs_plain_failed", **f)
     check(not failed, f"ssd_chunk != plain in {len(failed)} of "
                       f"{4 * len(shapes)} cases")
 
-    # one prefill of a 4096-token prompt in an SSD layer of the model
+    # one prefill of a 4096-token prompt in an SSD layer of the model, in
+    # each kernel's dtype
     b, s, h, p, n = SSD_SHAPE
-    x, dt, a_log, bm, cm = (t.to(torch.bfloat16) if i in (0, 3, 4) else t
-                            for i, t in enumerate(ssd_inputs(
-                                torch, gen, b, s, h, p, n, True)))
-    ms, host_ms = time_cuda(torch, lambda: SK.ssd_chunk_kernel(
-        x, dt, a_log, bm, cm), 20)
-    plain_ms, _ = time_cuda(torch, lambda: (
-        SR.ssd_chunk_ref(x, dt, a_log, bm, cm),
-        SR.ssd_final_state(x, dt, a_log, bm)), 5)
-    bound, by, nbytes, flops = ssd_bound_ms(b, s, h, p, n, 2)
-    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                  library_ms=None)
-    emit(phase="kernel_timing", kernel="ssd_chunk", B=b, S=s, H=h, P=p, N=n,
-         dtype="bf16 x, b, c; float32 dt, state", host_ms_per_call=host_ms,
-         bytes=nbytes, flops=flops, library="none: no PyTorch call computes "
-         "an SSD chunk scan", **timing)
-    # the time of each of the kernel's three launches (chunk states, the
-    # walk, chunk outputs), over ten calls
-    emit(phase="device_profile", workload="ssd_chunk_x10",
-         **profile_device(torch, lambda: [SK.ssd_chunk_kernel(
-             x, dt, a_log, bm, cm) for _ in range(10)]))
-    return max(w[0] for k, w in worst.items() if k[1] == "float32"), timing
+    timings = {}
+    for name, dtype in (("ssd_chunk_tc", torch.bfloat16),
+                        ("ssd_chunk", torch.float32)):
+        x, dt, a_log, bm, cm = (t.to(dtype) if i in (0, 3, 4) else t
+                                for i, t in enumerate(ssd_inputs(
+                                    torch, gen, b, s, h, p, n, True)))
+        ms, host_ms = time_cuda(torch, lambda: SK.ssd_chunk_kernel(
+            x, dt, a_log, bm, cm), 20)
+        plain_ms, _ = time_cuda(torch, lambda: (
+            SR.ssd_chunk_ref(x, dt, a_log, bm, cm),
+            SR.ssd_final_state(x, dt, a_log, bm)), 5)
+        bound, by, nbytes, flops = ssd_bound_ms(
+            b, s, h, p, n, torch.finfo(dtype).bits // 8)
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                             bound_by=by, library_ms=None)
+        emit(phase="kernel_timing", kernel=name, B=b, S=s, H=h, P=p, N=n,
+             dtype=f"{str(dtype).split('.')[1]} x, b, c; float32 dt, state",
+             host_ms_per_call=host_ms, bytes=nbytes, flops=flops,
+             library="none: no PyTorch call computes an SSD chunk scan",
+             **timings[name])
+        if name == "ssd_chunk_tc":
+            # the time of each of the kernel's three launches (chunk
+            # states, the walk, chunk outputs), over ten calls
+            emit(phase="device_profile", workload="ssd_chunk_x10",
+                 **profile_device(torch, lambda: [SK.ssd_chunk_kernel(
+                     x, dt, a_log, bm, cm) for _ in range(10)]))
+    return {name: max([w[0] for k, w in worst.items() if k[1] == name],
+                      default=0.0) for name in SK.LAUNCHES}, timings
 
 
 def manual_greedy(torch, TF, model, prompt, n_new, max_len, rows=1):
@@ -861,8 +969,9 @@ def serve_model(np, torch, arch, prompts_len, max_len, kernels,
     from a seeded generator, behind the slot server: one greedy request per
     prompt length, SERVE_NEW new tokens each, SERVE_SLOTS slots.
     ``kernels`` maps each kernel of the model's prefill to (its launch
-    counter, the block kind that launches it once per prefill); the counts
-    are set to 0 just before the run and read just after.  Then the server
+    counter, the block kind that launches it once per prefill, or None for
+    a kernel the run must not launch); the counts are set to 0 just before
+    the run and read just after.  Then the server
     against a manual prefill + decode loop, prefill against forward, and a
     device profile of the longest prefill and of one tick.  Returns the
     launch counts."""
@@ -1010,25 +1119,26 @@ def serve_model(np, torch, arch, prompts_len, max_len, kernels,
 
 def phase_model_serve(np, torch, FA, RK):
     """recurrentgemma-2b at its published width: 8 requests of 64 to 4,096
-    prompt tokens, every prefill through the flash-attention and RG-LRU
-    scan kernels."""
-    launches = serve_model(
+    prompt tokens, every prefill through the tensor-core flash-attention
+    kernel (bf16; the CUDA-core one never) and the RG-LRU scan kernel."""
+    return serve_model(
         np, torch, MODEL_ARCH, SERVE_PROMPTS, SERVE_MAX_LEN,
-        {"flash_attention": (FA.LAUNCHES, "attn_local"),
+        {"flash_attention_tc": (FA.LAUNCHES, "attn_local"),
+         "flash_attention": (FA.LAUNCHES, None),
          "rglru_scan": (RK.LAUNCHES, "rglru")},
         manual_prompts=(2049, 4096), forward_tokens=2304, seed=13)
-    return launches["flash_attention"], launches["rglru_scan"]
 
 
 def phase_model_serve_mamba2(np, torch, SK):
     """mamba2-1.3b at its published width: 8 requests of 1 to 16,384 prompt
     tokens (one chunk, a ragged tail, many chunks, the long prompt that
-    ``sub_quadratic`` is for), every prefill through the SSD kernel."""
-    launches = serve_model(
+    ``sub_quadratic`` is for), every prefill through the tensor-core SSD
+    kernel (bf16; the CUDA-core one never)."""
+    return serve_model(
         np, torch, MAMBA_ARCH, MAMBA_PROMPTS, MAMBA_MAX_LEN,
-        {"ssd_chunk": (SK.LAUNCHES, "ssd")},
+        {"ssd_chunk_tc": (SK.LAUNCHES, "ssd"),
+         "ssd_chunk": (SK.LAUNCHES, None)},
         manual_prompts=(129, 4096), forward_tokens=2304, seed=17)
-    return launches["ssd_chunk"]
 
 
 def main() -> int:
@@ -1071,22 +1181,32 @@ def main() -> int:
     # phase 1: build every kernel of the path from this checkout's sources
     # (one nvcc process per source, all started together)
     t0 = time.perf_counter()
-    sources = [K._SOURCE, LK._SOURCE, FK._SOURCE, FA._SOURCE, RK._SOURCE,
-               SK._SOURCE]
+    sources = [K._SOURCE, LK._SOURCE, FK._SOURCE, FA._SOURCE, FA._SOURCE_TC,
+               RK._SOURCE, SK._SOURCE, SK._SOURCE_TC]
     _build.build_all(sources)
-    for mod in (K, LK, FK, FA, RK, SK):
-        mod._lib()
+    for load in (K._lib, LK._lib, FK._lib, FA._lib, FA._lib_tc, RK._lib,
+                 SK._lib, SK._lib_tc):
+        load()
     emit(phase="build", sources=[str(x.relative_to(ROOT)) for x in sources],
          seconds=time.perf_counter() - t0)
+    # what ptxas made of the tensor-core kernels, and their dynamic shared
+    # memory per block
+    for src, smem in ((FA._SOURCE_TC, {f"D{d}": FA._lib_tc(
+            ).flash_attention_tc_smem(d) for d in (64, 128, 256)}),
+                      (SK._SOURCE_TC, SK._lib_tc().ssd_chunk_tc_smem())):
+        log = _build.LOGS.get(src)
+        emit(phase="ptxas", source=str(src.relative_to(ROOT)),
+             dynamic_smem_bytes=smem,
+             kernels=ptxas_summary(log) if log else "built before this run")
 
     # phase 2: each kernel against its plain version, and its time
     worst, timings = phase_kernel_vs_plain(torch, K, ref)
     worst_depart, depart_timings = phase_depart_vs_plain(torch, LK, LR)
     worst_flit, flit_timings = phase_flit_vs_plain(
         np, torch, FK, FR, MAX_PAYLOAD_B, P.link_layer.MAX_REPLAY_PPM)
-    worst_flash, flash_timing = phase_flash_vs_plain(torch, FA, FAR)
+    worst_flash, flash_timings = phase_flash_vs_plain(torch, FA, FAR)
     worst_rglru, rglru_timing = phase_rglru_vs_plain(torch, RK, RR)
-    worst_ssd, ssd_timing = phase_ssd_vs_plain(torch, SK, SR)
+    worst_ssd, ssd_timings = phase_ssd_vs_plain(torch, SK, SR)
 
     # warm up the CUDA libraries on a tiny workload (not part of the run)
     tiny = paper_workload(np, P, build_topo(P, "chain", 2), 2, 500, "cuda")
@@ -1208,8 +1328,9 @@ def main() -> int:
 
     # phase 8: the model stack's serving path at full width (the flash
     # attention and RG-LRU scan kernels' path)
-    flash_launches, rglru_launches = phase_model_serve(np, torch, FA, RK)
-    check(flash_launches > 0 and rglru_launches > 0,
+    rg_launches = phase_model_serve(np, torch, FA, RK)
+    check(rg_launches["flash_attention_tc"] > 0
+          and rg_launches["rglru_scan"] > 0,
           "the served model never launched its kernels")
     # free recurrentgemma-2b's weights and caches before the next model
     gc.collect()
@@ -1217,7 +1338,8 @@ def main() -> int:
 
     # phase 9: mamba2-1.3b at full width (the SSD chunk kernel's path)
     ssd_launches = phase_model_serve_mamba2(np, torch, SK)
-    check(ssd_launches > 0, "the served model never launched ssd_chunk")
+    check(ssd_launches["ssd_chunk_tc"] > 0,
+          "the served model never launched ssd_chunk_tc")
 
     main_k = 268_800
     t = timings[main_k]
@@ -1243,23 +1365,29 @@ def main() -> int:
              launches=flit_launches, max_abs_err=worst_flit, ms=tf["ms"],
              plain_ms=tf["plain_ms"], bound_ms=tf["bound_ms"],
              bound_by=tf["bound_by"], library_ms=None, K=1 << 24),
-        dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/kernels/flash_attention/csrc/"
-                    "flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention/kernel.py:93",
-             launches=flash_launches, max_abs_err=worst_flash,
-             **flash_timing, shape="B1 S4096 H10 KV1 D256 window 2048 bf16"),
+        *[dict(name=name, route="cuda",
+               source=f"src/repro_torch/kernels/flash_attention/csrc/"
+                      f"{name}.cu",
+               replaces="src/repro/kernels/flash_attention/kernel.py:93",
+               launches=rg_launches[name], max_abs_err=worst_flash[name],
+               **flash_timings[name],
+               shape=f"B1 S4096 H10 KV1 D256 window 2048 {dtype}")
+          for name, dtype in (("flash_attention_tc", "bf16"),
+                              ("flash_attention", "float32"))],
         dict(name="rglru_scan", route="cuda",
              source="src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
              replaces="src/repro/kernels/rglru_scan/kernel.py:62",
-             launches=rglru_launches, max_abs_err=worst_rglru,
+             launches=rg_launches["rglru_scan"], max_abs_err=worst_rglru,
              **rglru_timing, shape="(1, 4096, 2560) float32"),
-        dict(name="ssd_chunk", route="cuda",
-             source="src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu",
-             replaces="src/repro/kernels/ssd_chunk/kernel.py:82",
-             launches=ssd_launches, max_abs_err=worst_ssd, **ssd_timing,
-             shape="x (1, 4096, 64, 64) bf16, b and c (1, 4096, 128) bf16, "
-                   "dt (1, 4096, 64) float32")])
+        *[dict(name=name, route="cuda",
+               source=f"src/repro_torch/kernels/ssd_chunk/csrc/{name}.cu",
+               replaces="src/repro/kernels/ssd_chunk/kernel.py:82",
+               launches=ssd_launches[name], max_abs_err=worst_ssd[name],
+               **ssd_timings[name],
+               shape=f"x (1, 4096, 64, 64) {dtype}, b and c (1, 4096, 128) "
+                     f"{dtype}, dt (1, 4096, 64) float32")
+          for name, dtype in (("ssd_chunk_tc", "bf16"),
+                              ("ssd_chunk", "float32"))]])
 
     leaked = sorted(m for m in sys.modules if m in ("jax", "repro")
                     or m.startswith(("jax.", "jaxlib", "repro.")))

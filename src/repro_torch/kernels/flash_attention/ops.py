@@ -5,9 +5,9 @@
 k and v (B, T, KV, D) -> (B, S, H, D), the query heads grouped per KV head
 without replicating K and V.  ``window`` 0 means no window.
 
-The tensors' device picks the path: the CUDA kernel
-(`kernel.flash_attention_kernel`, which reads the model layout itself) when
-they lie on the card, the plain version (`ref.flash_attention_ref`) when
+The tensors' device picks the path: the CUDA kernels
+(`kernel.flash_attention_kernel`, which reads the model layout itself and
+takes the tensor-core kernel for bf16) when they lie on the card, the plain version (`ref.flash_attention_ref`) when
 they lie on the CPU.  On the card it launches the kernel or raises; nothing
 falls back.  Both paths take S <= T, so that every query row sees at least
 one key.

@@ -9,11 +9,14 @@ float32, the PV product in float32, the result cast to q's dtype.
 The CPU path and the tests use them; on the card `flash_attention_ref` is
 the yardstick the kernel is held against.
 
-`flash_attention_tiled` runs the CUDA kernel's algorithm on the CPU: the
+`flash_attention_tiled` runs the CUDA kernels' algorithm on the CPU: the
 query tiles, the KV tiles each visits (`kv_tile_range`, the skipping of
-dead tiles), the online softmax.  The CPU tests hold it against the plain
-version at small tiles, so the tile walk is tested here and not only on the
-card.
+dead tiles), the online softmax.  With ``split=True`` it also rounds as the
+tensor-core kernel does: the float32 weights split hi/lo into bf16
+(`kernels._split.split_bf16`) and ``P_hi V + P_lo V`` in float32, on that
+kernel's 128-row query and 64-key tiles.  The CPU tests hold it against the
+plain version at small tiles and at the kernels' own, so the tile walk and
+the split are tested here and not only on the card.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import functools
 import math
 
 import torch
+
+from .._split import split_bf16
 
 NEG = -2.0e38
 
@@ -82,11 +87,13 @@ def kv_tile_range(q0: int, bq: int, t: int, bk: int, *, causal: bool,
 
 
 def flash_attention_tiled(q, k, v, *, causal: bool = True, window: int = 0,
-                          bq: int = 64, bk: int = 64):
-    """The CUDA kernel's algorithm on the CPU, in the grouped layout of
+                          bq: int = 64, bk: int = 64, split: bool = False):
+    """The CUDA kernels' algorithm on the CPU, in the grouped layout of
     `flash_attention_grouped`: query tiles of ``bq`` rows walk the KV tiles of
     ``bk`` keys that `kv_tile_range` keeps, in order, with the online
-    softmax (masked scores at -inf contribute 0) in float32."""
+    softmax (masked scores at -inf contribute 0) in float32.  ``split``:
+    the weights times V as ``P_hi V + P_lo V`` (the tensor-core kernel,
+    whose tiles are ``bq`` 128 and ``bk`` 64)."""
     d = q.shape[-1]
     sq, t = q.shape[3], k.shape[2]
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -115,8 +122,13 @@ def flash_attention_tiled(q, k, v, *, causal: bool = True, window: int = 0,
             p = torch.where(x == float("-inf"), 0.0,
                             torch.exp(x - m_new[..., None]))
             l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bkgst,bktd->bkgsd", p, vt)
+            if split:
+                hi, lo = split_bf16(p)
+                pv = torch.einsum("bkgst,bktd->bkgsd", hi, vt) + \
+                    torch.einsum("bkgst,bktd->bkgsd", lo, vt)
+            else:
+                pv = torch.einsum("bkgst,bktd->bkgsd", p, vt)
+            acc = acc * alpha[..., None] + pv
             m = m_new
         out[..., q0:q0 + bq, :] = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.to(q.dtype)

@@ -50,6 +50,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "chunk_walk.cuh"
+
 namespace {
 
 constexpr int Q = 128;        // chunk length
@@ -63,7 +65,6 @@ constexpr int NB = MAX_N / TX;  // N columns per thread
 constexpr int QA = Q / TX;      // query rows per thread
 constexpr int JC = Q / TX;      // key columns per thread in a score tile
 constexpr int RA = RT / TX;     // query rows per thread in a score tile
-constexpr int WALK = 8;         // chunk loads in flight in the walk
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -343,39 +344,6 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-// phase 2: state_in[c] = state; state = state * decay[c] + contribution[c],
-// in place over the contributions; one thread per (batch, head, element).
-// Two roundings a step, as the plain version's separate operations.
-__global__ void __launch_bounds__(THREADS)
-chunk_walk(float* __restrict__ states, const float* __restrict__ decay,
-           float* __restrict__ final_state, int nc, int pn) {
-  const int e = blockIdx.x * THREADS + threadIdx.x;
-  if (e >= pn) return;
-  const long long bh = blockIdx.y;
-  float* sp = states + bh * nc * static_cast<long long>(pn) + e;
-  const float* dp = decay + bh * nc;
-  float state = 0.f;
-  int c = 0;
-  // the loads do not depend on the state: issue WALK of them at once
-  for (; c + WALK <= nc; c += WALK) {
-    float contrib[WALK];
-#pragma unroll
-    for (int k = 0; k < WALK; ++k)
-      contrib[k] = sp[static_cast<long long>(c + k) * pn];
-#pragma unroll
-    for (int k = 0; k < WALK; ++k) {
-      sp[static_cast<long long>(c + k) * pn] = state;
-      state = __fadd_rn(__fmul_rn(state, dp[c + k]), contrib[k]);
-    }
-  }
-  for (; c < nc; ++c) {
-    const float contrib = sp[static_cast<long long>(c) * pn];
-    sp[static_cast<long long>(c) * pn] = state;
-    state = __fadd_rn(__fmul_rn(state, dp[c]), contrib);
-  }
-  final_state[bh * pn + e] = state;
-}
-
 template <typename T, bool Y, bool STATE>
 cudaError_t launch_chunks(dim3 grid, const void* x, const float* dt,
                           const float* a_log, const void* b, const void* c,
@@ -409,9 +377,8 @@ cudaError_t run(const void* x, const float* dt, const float* a_log,
       grid, x, dt, a_log, b, c, y, states, decay, final_state, s, h, p, n,
       stream);
   if (err != cudaSuccess) return err;
-  chunk_walk<<<dim3((p * n + THREADS - 1) / THREADS, batch * h), THREADS, 0,
-               stream>>>(states, decay, final_state, nc, p * n);
-  err = cudaGetLastError();
+  err = launch_chunk_walk(states, decay, final_state, nc, p * n, batch * h,
+                          stream);
   if (err != cudaSuccess) return err;
   return launch_chunks<T, true, false>(grid, x, dt, a_log, b, c, y, states,
                                        decay, final_state, s, h, p, n,

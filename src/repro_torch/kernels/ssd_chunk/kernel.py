@@ -1,25 +1,36 @@
-"""Mamba-2 SSD chunk scan — the Hopper CUDA kernel's wrapper.
+"""Mamba-2 SSD chunk scan — the wrapper of its two Hopper CUDA kernels.
 
 Replaces ``repro/kernels/ssd_chunk/kernel.py::ssd_chunk_pallas`` (the
-Pallas TPU kernel, ``pl.pallas_call`` at its line 82).  The kernel is CUDA
-C++ for ``sm_90a`` in ``csrc/ssd_chunk.cu``, built with ``nvcc`` at first
-use (`kernels._build`) and called through ``ctypes`` on PyTorch's current
-stream.
+Pallas TPU kernel, ``pl.pallas_call`` at its line 82).  Both kernels are
+CUDA C++ for ``sm_90a``, built with ``nvcc`` at first use
+(`kernels._build`) and called through ``ctypes`` on PyTorch's current
+stream.  The wrapper picks one by dtype and shape:
 
-What it computes: `ref.ssd_chunk_ref` (the SSD output y) and
+* bf16 x, b and c with P and N multiples of 8 (the served model's case):
+  ``csrc/ssd_chunk_tc.cu``, the products on the tensor cores (``mma.sync``),
+  ``C B^T`` once per chunk for a group of heads, each float32 operand split
+  into three bf16 parts against exact bf16 ones; counted in
+  ``LAUNCHES["ssd_chunk_tc"]``;
+* float32 inputs, or bf16 of another shape: ``csrc/ssd_chunk.cu``, float32
+  FMA on the CUDA cores; counted in ``LAUNCHES["ssd_chunk"]``.
+
+Nothing falls back from one to the other.
+
+What they compute: `ref.ssd_chunk_ref` (the SSD output y) and
 `ref.ssd_final_state` (the recurrent state after the last step) in one
 call, up to the order of the float32 sums.  The TPU kernel carried the
 (P, N) state across an ordered grid of chunks; CUDA blocks have no order,
-so this one runs the reference's decomposition in three phases over chunks
-of `CHUNK` steps (chunk states, a walk over the chunks for each chunk's
-incoming state, each chunk's output; one phase when S fits one chunk).
-`ref.ssd_chunk_blocked` runs the same decomposition on the CPU.  Any S is
-taken (the tail chunk is masked); P and N up to `MAX_P` and `MAX_N`.
+so both run the reference's decomposition in three phases over chunks of
+`CHUNK` steps (chunk states, a walk over the chunks for each chunk's
+incoming state, each chunk's output; one launch when S fits one chunk).
+`ref.ssd_chunk_blocked` and `ref.ssd_chunk_split` run the same
+decomposition on the CPU, rounding as the CUDA-core and the tensor-core
+kernel do.  Any S is taken (the tail chunk is masked); P and N up to
+`MAX_P` and `MAX_N`.
 
 Bound on the H100: memory.  One layer's prefill of mamba2-1.3b at S = 4096
-moves 72.4 MB (x and y in bf16, b, c, dt and the final state) against 13.0
-GFLOP of minimal work; this first kernel computes in float32 on the CUDA
-cores and recomputes ``C B^T`` for every head.
+moves 72.4 MB (x and y in bf16, b, c, dt and the final state) against 12.9
+GFLOP of minimal work.
 """
 
 from __future__ import annotations
@@ -32,43 +43,62 @@ import torch
 from .._build import load_library
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_chunk.cu"
+_SOURCE_TC = _SOURCE.with_name("ssd_chunk_tc.cu")
 
-# the kernel's chunk length and largest head dim and state size (``Q``,
-# ``MAX_P`` and ``MAX_N`` in the CUDA source, which the library reports
-# back when it is loaded)
+# the kernels' chunk length and largest head dim and state size (``Q``,
+# ``MAX_P`` and ``MAX_N`` in both CUDA sources, which the libraries report
+# back when they are loaded)
 CHUNK = 128
 MAX_P = 64
 MAX_N = 128
 
-# launches of the CUDA kernel, counted by the wrapper (a run resets it to 0
-# and reads it back to show that its path went through the kernel)
-LAUNCHES = {"ssd_chunk": 0}
+# launches of each CUDA kernel, counted by the wrapper (a run resets them to
+# 0 and reads them back to show that its path went through the kernels)
+LAUNCHES = {"ssd_chunk": 0, "ssd_chunk_tc": 0}
+
+
+def _load(source, prefix: str, n_ints: int):
+    lib = load_library(source)
+    launch = getattr(lib, f"{prefix}_launch")
+    if launch.argtypes is None:
+        launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * n_ints + [
+            ctypes.c_void_p]
+        launch.restype = ctypes.c_int
+        sizes = [getattr(lib, f"{prefix}_{x}") for x in ("len", "max_p",
+                                                          "max_n")]
+        for fn in sizes:
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+        built = tuple(fn() for fn in sizes)
+        if built != (CHUNK, MAX_P, MAX_N):
+            raise RuntimeError(f"{source.name} has (chunk, max P, max N) = "
+                               f"{built}, the wrapper {(CHUNK, MAX_P, MAX_N)}")
+    return lib
 
 
 def _lib():
-    lib = load_library(_SOURCE)
-    if lib.ssd_chunk_launch.argtypes is None:
-        lib.ssd_chunk_launch.argtypes = [ctypes.c_void_p] * 9 + [
-            ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.ssd_chunk_launch.restype = ctypes.c_int
-        for fn in (lib.ssd_chunk_len, lib.ssd_chunk_max_p,
-                   lib.ssd_chunk_max_n):
-            fn.argtypes = []
-            fn.restype = ctypes.c_int
-        built = (lib.ssd_chunk_len(), lib.ssd_chunk_max_p(),
-                 lib.ssd_chunk_max_n())
-        if built != (CHUNK, MAX_P, MAX_N):
-            raise RuntimeError(f"ssd_chunk.cu has (chunk, max P, max N) = "
-                               f"{built}, the wrapper {(CHUNK, MAX_P, MAX_N)}")
-    return lib
+    return _load(_SOURCE, "ssd_chunk", 6)
+
+
+def _lib_tc():
+    return _load(_SOURCE_TC, "ssd_chunk_tc", 5)
+
+
+def uses_tensor_cores(dtype, p: int, n: int) -> bool:
+    """Whether a call with x, b and c of this dtype, head dim ``p`` and
+    state size ``n`` takes the tensor-core kernel (else the CUDA-core
+    one)."""
+    return dtype == torch.bfloat16 and p % 8 == 0 and n % 8 == 0
 
 
 def ssd_chunk_kernel(x, dt, a_log, b, c):
     """x (B, S, H, P), b and c (B, S, N), all float32 or all bf16; dt
     (B, S, H) and a_log (H,) float32; contiguous CUDA tensors on one
     device.  Returns (y (B, S, H, P) in x's dtype, final state (B, H, P, N)
-    float32).  Launches the CUDA kernel on the current stream; raises on
-    any tensor it does not take or on a failed launch."""
+    float32).  Launches the tensor-core kernel for bf16 with P and N
+    multiples of 8, the CUDA-core kernel otherwise (`uses_tensor_cores`),
+    on the current stream; raises on any tensor it does not take or on a
+    failed launch."""
     ok = (x.dim() == 4 and b.dim() == 3 and c.shape == b.shape
           and b.shape[:2] == x.shape[:2] and dt.shape == x.shape[:3]
           and a_log.shape == x.shape[2:3]
@@ -102,14 +132,20 @@ def ssd_chunk_kernel(x, dt, a_log, b, c):
         scratch = (states.data_ptr(), decay.data_ptr())
     else:
         scratch = (None, None)
+    ptrs = (x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+            c.data_ptr(), y.data_ptr(), state.data_ptr(), *scratch)
+    tc = uses_tensor_cores(x.dtype, p, n)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().ssd_chunk_launch(
-            x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
-            c.data_ptr(), y.data_ptr(), state.data_ptr(), *scratch,
-            int(x.dtype == torch.bfloat16), bsz, s, h, p, n, stream)
+        if tc:
+            err = _lib_tc().ssd_chunk_tc_launch(*ptrs, bsz, s, h, p, n,
+                                                stream)
+        else:
+            err = _lib().ssd_chunk_launch(
+                *ptrs, int(x.dtype == torch.bfloat16), bsz, s, h, p, n,
+                stream)
+    name = "ssd_chunk_tc" if tc else "ssd_chunk"
     if err != 0:
-        raise RuntimeError(f"ssd_chunk kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES["ssd_chunk"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
     return y, state

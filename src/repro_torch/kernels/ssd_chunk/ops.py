@@ -4,8 +4,9 @@
 ``repro/kernels/ssd_chunk/ops.py::ssd_chunk`` (the Mamba-2 SSD over chunks)
 that also returns the recurrent state after the last step, which the
 reference's prefill computes in a second pass (``models/ssd.py::
-_final_state``).  The tensors' device picks the path: the CUDA kernel
-(`kernel.ssd_chunk_kernel`) when they lie on the card, the plain versions
+_final_state``).  The tensors' device picks the path: the CUDA kernels
+(`kernel.ssd_chunk_kernel`, the tensor-core one for bf16) when they lie on
+the card, the plain versions
 (`ref.ssd_chunk_ref`, `ref.ssd_final_state`) when they lie on the CPU.  On
 the card it launches the kernel or raises; nothing falls back.
 """

@@ -25,11 +25,21 @@ walk over the chunks giving each its incoming state and the final state
 (phase 2), and each chunk's output, ``y_off`` from the incoming state plus
 ``y_diag`` over query-row tiles of ``rows`` (phase 3).  With one chunk,
 phases 1 and 3 are one pass and phase 2 is skipped.
+
+`ssd_chunk_split` runs the same three phases with the tensor-core kernel's
+arithmetic: ``G = C B^T`` once per chunk, shared by the heads; ``dt`` folded
+into ``M_ij = G_ij exp(cs_i - cs_j) dt_j``; the chunk states as ``(x w)^T
+B`` with ``w_j = dt_j exp(cs_last - cs_j)``; every float32 operand of a
+product that meets an exact bf16 one (``M``, ``x w``, the incoming state)
+split into three bf16 parts (hi, mid, lo; `kernels._split.split_bf16`),
+each part multiplied in float32.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .._split import split_bf16
 
 
 def _check(x, dt, a_log, b, c):
@@ -144,39 +154,83 @@ def ssd_final_state(x, dt, a_log, b, c=None, *, chunk: int = 128):
     return carry
 
 
+def _walk(states, chunk_decay):
+    """Phase 2: (each chunk's incoming state, or None for one chunk; the
+    final state), from the chunk states (b,c,h,p,n) and decays (b,c,h).
+    The kernels overwrite each chunk's contribution with its incoming state,
+    in place."""
+    if states.shape[1] == 1:
+        return None, states[:, 0]
+    incoming = torch.empty_like(states)
+    carry = torch.zeros_like(states[:, 0])
+    for ci in range(states.shape[1]):
+        incoming[:, ci] = carry
+        carry = carry * chunk_decay[:, ci, :, None, None] + states[:, ci]
+    return incoming, carry
+
+
+def _chunks(x, dt, a_log, b, c, chunk):
+    """The inputs in chunks of ``chunk`` steps, the tail chunk's missing
+    steps zero (dt = 0: no decay; x = b = c = 0: no contribution): x
+    (b,c,q,h,p), dt (b,c,h,q), b and c (b,c,q,n) float32, and the in-order
+    chunk cumsums of logA (b,c,h,q)."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    nc = (s + chunk - 1) // chunk
+    x, dt, b, c = (_pad_seq(t, nc * chunk - s) for t in (x, dt, b, c))
+    dt_c = dt.reshape(bsz, nc, chunk, h).float().permute(0, 1, 3, 2)
+    cs = cumsum(-torch.exp(a_log.float())[:, None] * dt_c)
+    return (x.reshape(bsz, nc, chunk, h, p).float(), dt_c,
+            b.reshape(bsz, nc, chunk, n).float(),
+            c.reshape(bsz, nc, chunk, n).float(), cs)
+
+
+def ssd_chunk_split(x, dt, a_log, b, c, *, chunk: int = 128):
+    """The tensor-core kernel's three phases and roundings over chunks of
+    ``chunk`` steps: (y in x's dtype, final state float32)."""
+    _check(x, dt, a_log, b, c)
+    bsz, s, h, p = x.shape
+    x_c, dt_c, b_c, c_c, cs = _chunks(x, dt, a_log, b, c, chunk)
+    nc = x_c.shape[1]
+
+    def two(eq, hi_lo, other):
+        return sum(torch.einsum(eq, half, other) for half in hi_lo)
+
+    # phase 1: (x w)^T B, w_j = dt_j exp(cs_last - cs_j), x w split
+    w = dt_c * torch.exp(cs[..., -1:] - cs)                   # (b,c,h,q)
+    xw = split_bf16(x_c * w.permute(0, 1, 3, 2)[..., None], 3)  # (b,c,q,h,p)
+    states = two("bcjhp,bcjn->bchpn", xw, b_c)
+    incoming, final = _walk(states, torch.exp(cs[..., -1]))
+
+    # phase 3: y_off = exp(cs_i) (C state_in^T), then y_diag = M x
+    y = x_c.new_zeros(x_c.shape)
+    if incoming is not None:
+        y[:, 1:] = two("bchpn,bcin->bcihp", split_bf16(incoming[:, 1:], 3),
+                       c_c[:, 1:]) \
+            * torch.exp(cs[:, 1:]).permute(0, 1, 3, 2)[..., None]
+    g = torch.einsum("bcin,bcjn->bcij", c_c, b_c)[:, :, None]  # shared
+    seg = cs[..., :, None] - cs[..., None, :]                 # (b,c,h,i,j)
+    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                   device=x.device))
+    m = torch.where(causal, g * torch.exp(seg) * dt_c[..., None, :],
+                    torch.zeros((), device=x.device))
+    y = y + two("bchij,bcjhp->bcihp", split_bf16(m, 3), x_c)
+    y = y.reshape(bsz, nc * chunk, h, p)[:, :s]
+    return y.to(x.dtype), final
+
+
 def ssd_chunk_blocked(x, dt, a_log, b, c, *, chunk: int = 128,
                       rows: int = 32):
     """The kernel's three-phase algorithm over chunks of ``chunk`` steps and
     query-row tiles of ``rows``: (y in x's dtype, final state float32)."""
     _check(x, dt, a_log, b, c)
     bsz, s, h, p = x.shape
-    n = b.shape[-1]
-    nc = (s + chunk - 1) // chunk
-    pad = nc * chunk - s
-    # the tail chunk's missing steps are zero: dt = 0 (no decay), x = b =
-    # c = 0 (no contribution)
-    x, dt, b, c = (_pad_seq(t, pad) for t in (x, dt, b, c))
-    dt_c = dt.reshape(bsz, nc, chunk, h).float().permute(0, 1, 3, 2)
-    xdt = x.reshape(bsz, nc, chunk, h, p).float() \
-        * dt_c.permute(0, 1, 3, 2)[..., None]                 # (b,c,q,h,p)
-    b_c = b.reshape(bsz, nc, chunk, n).float()
-    c_c = c.reshape(bsz, nc, chunk, n).float()
-    cs = cumsum(-torch.exp(a_log.float())[:, None] * dt_c)
+    x_c, dt_c, b_c, c_c, cs = _chunks(x, dt, a_log, b, c, chunk)
+    nc = x_c.shape[1]
+    xdt = x_c * dt_c.permute(0, 1, 3, 2)[..., None]           # (b,c,q,h,p)
 
-    # phase 1: each chunk's state contribution and decay
-    states, chunk_decay = _chunk_states(xdt, b_c, cs)
-    if nc == 1:
-        final = states[:, 0]
-        incoming = None
-    else:
-        # phase 2: the walk over the chunks (the kernel overwrites each
-        # chunk's contribution with its incoming state, in place)
-        incoming = torch.empty_like(states)
-        carry = states.new_zeros((bsz, h, p, n))
-        for ci in range(nc):
-            incoming[:, ci] = carry
-            carry = carry * chunk_decay[:, ci, :, None, None] + states[:, ci]
-        final = carry
+    # phases 1 and 2: each chunk's state contribution and decay, the walk
+    incoming, final = _walk(*_chunk_states(xdt, b_c, cs))
 
     # phase 3: y_off from the incoming state, then y_diag by row tiles
     ecs = torch.exp(cs).permute(0, 1, 3, 2)                   # (b,c,q,h)

@@ -13,12 +13,13 @@ package, so it runs on a machine that has only the port's dependencies:
 Tolerances: the engine's kernels exact (int64 picoseconds); `rglru_scan`
 bit-equal to its plain version while one chunk covers the sequence, else
 ``1e-5`` (the chunk carries round differently); `flash_attention` ``1e-4``
-in float32 and 2 bf16 ulps in bf16 (float32 sums in another order; see
-`bf16_within_ulps` for outputs near zero); `ssd_chunk` ``atol 3e-5, rtol
-3e-4`` (the reference suite's kernel-vs-oracle tolerance) on its input
-family and on model-like inputs alike, whose chunk cumsums reach -10^3
-(the kernel and the plain version take that cumsum in one order), plus
-one bf16 spacing for a bf16 output; the models
+in float32 (the CUDA-core kernel) and 2 bf16 ulps in bf16 (the tensor-core
+kernel; float32 sums in another order; see `bf16_within_ulps` for outputs
+near zero); `ssd_chunk` ``atol 3e-5, rtol 3e-4`` (the reference suite's
+kernel-vs-oracle tolerance) on its input family and on model-like inputs
+alike, whose chunk cumsums reach -10^3 (the kernels and the plain version
+take that cumsum in one order), plus one bf16 spacing for a bf16 output
+(the tensor-core kernel); the models
 on the card against the CPU ``5e-2``, the bf16 tolerance of the CPU tests
 against the reference.
 """
@@ -214,6 +215,60 @@ def test_cuda_flash_kernel_equals_plain(card, dtype):
             assert bf16_within_ulps(got, want, 2), (s, d)
 
 
+def launched(launches, call):
+    """The launch counts ``call()`` added, by kernel."""
+    before = dict(launches)
+    call()
+    return {name: launches[name] - before[name] for name in launches}
+
+
+@pytest.mark.cuda
+def test_cuda_flash_tc_kernel_equals_plain(card):
+    """The tensor-core kernel (bf16, D a multiple of 16): S around the
+    128-row and 64-key tiles, S < T, windows, non-causal, the model's shape
+    (S 4,096, H 10, KV 1, D 256, window 2,048); each call raises the
+    tensor-core counter and not the other.  Float32, and bf16 with D not a
+    multiple of 16, take the CUDA-core kernel, held to the same tolerances
+    (1e-4 in float32, 2 ulps in bf16)."""
+    gen = torch.Generator(device=card).manual_seed(3)
+
+    def qkv(b, kv, g, s, t, d, dtype):
+        return [torch.randn(shape, generator=gen, device=card).to(dtype)
+                for shape in ((b, s, kv * g, d), (b, t, kv, d),
+                              (b, t, kv, d))]
+
+    for b, kv, g, s, t, d, causal, window in [
+            (1, 1, 1, 1, 1, 16, True, 0), (1, 1, 2, 127, 127, 48, True, 0),
+            (2, 2, 3, 129, 129, 64, True, 40),
+            (1, 1, 4, 300, 301, 128, False, 0),
+            (1, 1, 2, 200, 333, 80, False, 70),
+            (1, 1, 10, 4096, 4096, 256, True, 2048)]:
+        q, k, v = qkv(b, kv, g, s, t, d, torch.bfloat16)
+        out = []
+        counts = launched(FA.LAUNCHES, lambda: out.append(
+            FA.flash_attention_kernel(q, k, v, causal=causal,
+                                      window=window)))
+        assert counts == {"flash_attention": 0, "flash_attention_tc": 1}
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert bf16_within_ulps(out[0], want, 2), (s, t, d, window)
+    for dtype, d, s, t, window in (
+            (torch.float32, 64, 70, 70, 0), (torch.bfloat16, 24, 70, 70, 0),
+            (torch.bfloat16, 24, 129, 200, 40),
+            (torch.bfloat16, 200, 300, 300, 128)):
+        q, k, v = qkv(1, 1, 2, s, t, d, dtype)
+        out = []
+        counts = launched(FA.LAUNCHES, lambda: out.append(
+            FA.flash_attention_kernel(q, k, v, window=window)))
+        assert counts == {"flash_attention": 1, "flash_attention_tc": 0}
+        want = flash_attention_ref(q, k, v, window=window)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            assert torch.allclose(out[0], want, atol=1e-4, rtol=1e-4), d
+        else:
+            assert bf16_within_ulps(out[0], want, 2), (s, t, d, window)
+
+
 @pytest.mark.cuda
 def test_cuda_model_equals_cpu(card):
     """recurrentgemma-2b's smoke model: prefill (prompt longer than the
@@ -226,11 +281,14 @@ def test_cuda_model_equals_cpu(card):
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (2, 48)))
     kinds = [k.split("_", 1)[1] for k, _ in gpu.keys]
-    before = (FA.LAUNCHES["flash_attention"], RK.LAUNCHES["rglru_scan"])
+    before = dict(FA.LAUNCHES, rglru_scan=RK.LAUNCHES["rglru_scan"])
     gl, gc = TF.prefill(gpu, toks.to(card), 64)
-    assert FA.LAUNCHES["flash_attention"] - before[0] == kinds.count(
-        "attn_local")
-    assert RK.LAUNCHES["rglru_scan"] - before[1] == kinds.count("rglru")
+    # bf16 attention takes the tensor-core kernel, never the CUDA-core one
+    assert FA.LAUNCHES["flash_attention_tc"] - before[
+        "flash_attention_tc"] == kinds.count("attn_local")
+    assert FA.LAUNCHES["flash_attention"] == before["flash_attention"]
+    assert RK.LAUNCHES["rglru_scan"] - before["rglru_scan"] == kinds.count(
+        "rglru")
     cl, cc = TF.prefill(cpu, toks, 64)
     assert torch.allclose(gl.cpu().float(), cl.float(), atol=5e-2,
                           rtol=5e-2)
@@ -291,6 +349,60 @@ def test_cuda_ssd_kernel_equals_plain(card):
 
 
 @pytest.mark.cuda
+def test_cuda_ssd_tc_kernel_equals_plain(card):
+    """The tensor-core kernel (bf16, P and N multiples of 8): S around the
+    128-step chunk, P and N padded to 16 inside (24, 40), head groups that
+    do not fill a block (H 3, 12), the model's shape (1, 4,096, 64, 64,
+    128), both input families; each call raises the tensor-core counter and
+    not the other.  Float32, and bf16 with P not a multiple of 8, take the
+    CUDA-core kernel, held to the same tolerances."""
+    gen = torch.Generator(device=card).manual_seed(4)
+    atol, rtol = 3e-5, 3e-4
+    for b, s, h, p, n in [(1, 1, 64, 64, 128), (2, 129, 12, 64, 128),
+                          (1, 300, 3, 24, 40), (2, 257, 4, 16, 16),
+                          (1, 4096, 64, 64, 128)]:
+        for model_like in (False, True):
+            x, dt, a_log, bm, cm = (
+                t.to(torch.bfloat16) if i in (0, 3, 4) else t
+                for i, t in enumerate(ssd_inputs(gen, card, b, s, h, p, n,
+                                                 model_like)))
+            out = []
+            counts = launched(SK.LAUNCHES, lambda: out.append(
+                SK.ssd_chunk_kernel(x, dt, a_log, bm, cm)))
+            assert counts == {"ssd_chunk": 0, "ssd_chunk_tc": 1}
+            y, state = out[0]
+            want = ssd_chunk_ref(x, dt, a_log, bm, cm)
+            want_state = ssd_final_state(x, dt, a_log, bm)
+            torch.cuda.synchronize()
+            case = (b, s, h, p, n, model_like)
+            assert y.dtype == torch.bfloat16, case
+            assert torch.allclose(y.float(), want.float(), atol=atol,
+                                  rtol=rtol + 2.0 ** -7), case
+            assert torch.allclose(state, want_state, atol=atol,
+                                  rtol=rtol), case
+    for dtype, p in ((torch.float32, 64), (torch.bfloat16, 20)):
+        for model_like in (False, True):
+            args = [t.to(dtype) if i in (0, 3, 4) else t
+                    for i, t in enumerate(ssd_inputs(gen, card, 1, 200, 2, p,
+                                                     16, model_like))]
+            out = []
+            counts = launched(SK.LAUNCHES, lambda: out.append(
+                SK.ssd_chunk_kernel(*args)))
+            assert counts == {"ssd_chunk": 1, "ssd_chunk_tc": 0}
+            y, state = out[0]
+            want = ssd_chunk_ref(*args)
+            want_state = ssd_final_state(*args[:4])
+            torch.cuda.synchronize()
+            case = (p, dtype, model_like)
+            assert y.dtype == dtype, case
+            extra = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+            assert torch.allclose(y.float(), want.float(), atol=atol,
+                                  rtol=rtol + extra), case
+            assert torch.allclose(state, want_state, atol=atol,
+                                  rtol=rtol), case
+
+
+@pytest.mark.cuda
 def test_cuda_mamba_model_equals_cpu(card):
     """mamba2-1.3b's smoke model: prefill (two chunks, a ragged tail) and
     three decode steps on the card against the CPU; the card's prefill
@@ -301,9 +413,12 @@ def test_cuda_mamba_model_equals_cpu(card):
     gpu.to(card)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (2, 150)))
-    before = SK.LAUNCHES["ssd_chunk"]
+    before = dict(SK.LAUNCHES)
     gl, gc = TF.prefill(gpu, toks.to(card), 256)
-    assert SK.LAUNCHES["ssd_chunk"] - before == cfg.n_layers
+    # bf16 x, b and c take the tensor-core kernel, never the CUDA-core one
+    assert SK.LAUNCHES["ssd_chunk_tc"] - before["ssd_chunk_tc"] == \
+        cfg.n_layers
+    assert SK.LAUNCHES["ssd_chunk"] == before["ssd_chunk"]
     cl, cc = TF.prefill(cpu, toks, 256)
     assert torch.allclose(gl.cpu().float(), cl.float(), atol=5e-2,
                           rtol=5e-2)

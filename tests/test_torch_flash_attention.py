@@ -6,9 +6,14 @@ Tolerances:
   ``flash_attention_gqa(interpret=True)``, in float32: ``atol = rtol =
   1e-4``, the tolerance of the reference's kernel benchmark
   (``benchmarks/bench_kernels.py``); the sums run in another order;
-* `ref.flash_attention_tiled`, the CPU emulation of the CUDA kernel's tile
+* `ref.flash_attention_tiled`, the CPU emulation of the CUDA kernels' tile
   walk (dead tiles skipped, online softmax), against the plain version: the
-  same ``1e-4``;
+  same ``1e-4``; with ``split=True`` (the tensor-core kernel's roundings:
+  the float32 weights split hi/lo into bf16 against V) on bf16 inputs, the
+  same ``1e-4`` against the plain version and against the reference's
+  ``flash_attention_ref``: the split keeps 2^-17 of each term;
+* `kernels._split.split_bf16`: ``hi + lo`` within 2^-17 of each float32
+  value, relative, and equal to a bf16 value;
 * the model-layout op against the reference's ``ops.flash_attention(impl=
   "ref")``: ``1e-4`` in float32;
 * the port's ``plain_attention`` and ``chunked_attention`` against the
@@ -39,6 +44,7 @@ from repro.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref as jax_ref)
 from repro.models import attention as JA  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.kernels._split import split_bf16  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as pkernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as pops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
@@ -125,6 +131,47 @@ def test_tiled_emulation_equals_plain(b, kv, g, s, d, causal, window, bq,
     got = flash_attention_tiled(q, k, v, causal=causal, window=window, bq=bq,
                                 bk=bk)
     close(got, want, F32_TOL, f"tiled bq={bq} bk={bk}")
+
+
+@pytest.mark.parametrize("bq,bk", [(128, 64), (16, 8)])
+@pytest.mark.parametrize("b,kv,g,s,d,causal,window", CASES)
+def test_split_emulation_equals_plain_and_reference(b, kv, g, s, d, causal,
+                                                    window, bq, bk):
+    """The tensor-core kernel's roundings (P split hi/lo against V) on bf16
+    inputs, at its own tiles (128 query rows, 64 keys) and at small ones."""
+    q, k, v = (f32(jnp.asarray(x).astype(jnp.bfloat16))
+               for x in grouped(s * 5 + bq, b, kv, g, s, d))
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    got = flash_attention_tiled(tq, tk, tv, causal=causal, window=window,
+                                bq=bq, bk=bk, split=True)
+    assert got.dtype == torch.bfloat16
+    got32 = flash_attention_tiled(tq.float(), tk.float(), tv.float(),
+                                  causal=causal, window=window, bq=bq, bk=bk,
+                                  split=True)
+    close(got32, flash_attention_grouped(tq.float(), tk.float(), tv.float(),
+                                         causal=causal, window=window),
+          F32_TOL, f"split bq={bq} bk={bk} vs plain")
+    close(got32, jax_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal=causal, window=window), F32_TOL,
+          f"split bq={bq} bk={bk} vs flash_attention_ref")
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0 ** -60, 2.0 ** 60])
+def test_hi_lo_split(scale):
+    """hi + lo is within 2^-17 of each float32 value, relative, hi and lo
+    hold bf16 values, and a bf16 value splits into itself and 0."""
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 1, 100_000).astype(np.float32)) * scale
+    hi, lo = split_bf16(x)
+    for part in (hi, lo):
+        assert part.dtype == torch.float32
+        assert torch.equal(part, part.to(torch.bfloat16).float())
+    rel = ((x.double() - hi.double() - lo.double()).abs()
+           / x.double().abs()).max()
+    assert float(rel) <= 2.0 ** -17
+    b = x.to(torch.bfloat16).float()
+    hi, lo = split_bf16(b)
+    assert torch.equal(hi, b) and not lo.any()
 
 
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 16),
@@ -294,3 +341,29 @@ def test_attention_block_past_the_reference_chunked_switch(window):
                                window=window, cache_len=s + 8)
     close(ty.float(), f32(jy), BF16_TOL, "prefill y past 2048")
     _check_cache(tc, jc, "prefill past 2048")
+
+
+def model_size_rehearsal() -> bool:
+    """`flash_attention_tiled(split=True)` at the tensor-core kernel's tiles
+    (128 query rows, 64 keys) against the plain version at recurrentgemma-
+    2b's local-attention shape cut to two query heads (S 4,096, D 256,
+    window 2,048, bf16), to the 2 bf16 ulps the card holds the kernel to
+    (`test_torch_cuda.bf16_within_ulps`): the check to run on the CPU
+    before a card run of a change to the kernel's roundings.  It is kept
+    out of the suite for its size: ``PYTHONPATH=src python
+    tests/test_torch_flash_attention.py`` prints whether the output is
+    within 1 and within 2 ulps."""
+    from test_torch_cuda import bf16_within_ulps
+
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in grouped(0, 1, 1, 2, 4096, 256))
+    got = flash_attention_tiled(q, k, v, causal=True, window=2048, bq=128,
+                                bk=64, split=True)
+    want = flash_attention_grouped(q, k, v, causal=True, window=2048)
+    within = {n: bf16_within_ulps(got, want, n) for n in (1, 2)}
+    print(f"within 1 ulp: {within[1]}, within 2 ulps: {within[2]}")
+    return within[2]
+
+
+if __name__ == "__main__":
+    raise SystemExit(0 if model_size_rehearsal() else 1)

@@ -18,6 +18,14 @@ Tolerances:
 * bf16 x, b and c: the output in bf16, one bf16 spacing (``rtol = 2^-7``)
   plus ``atol = 3e-5``, since float32 sums a few ulps apart may round to
   neighbouring bf16 values;
+* `ref.ssd_chunk_split`, the tensor-core kernel's roundings (``C B^T``
+  shared by the heads, ``dt`` folded into ``M``, every float32 operand
+  split in three bf16 parts), on bf16 inputs: y within
+  ``3e-5`` plus ``3e-4`` and one bf16 spacing relative, the final state
+  within ``3e-5 / 3e-4``, against the plain version and against the
+  reference's ``ssd_chunked`` and ``_final_state``;
+* `kernels._split.split_bf16` in three parts gives back every float32
+  value of the normal range exactly;
 * `ssd_block` in prefill and decode, output and cache, and the conv's
   output, against the reference's: ``atol = rtol = 5e-2``, the bf16
   tolerance the reference suite holds its own prefill and forward paths to
@@ -36,10 +44,11 @@ from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.kernels.ssd_chunk.kernel import ssd_chunk_pallas  # noqa: E402
 from repro.models import ssd as JSSD  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.kernels._split import split_bf16  # noqa: E402
 from repro_torch.kernels.ssd_chunk import kernel as pkernel  # noqa: E402
 from repro_torch.kernels.ssd_chunk import ops as pops  # noqa: E402
 from repro_torch.kernels.ssd_chunk.ref import (  # noqa: E402
-    ssd_chunk_blocked, ssd_chunk_ref, ssd_final_state)
+    ssd_chunk_blocked, ssd_chunk_ref, ssd_chunk_split, ssd_final_state)
 from repro_torch.models import ssd as SSD  # noqa: E402
 from repro_torch.models.convert import fill_module  # noqa: E402
 
@@ -91,6 +100,13 @@ def torch_args(args):
 
 def jax_args(args):
     return tuple(jnp.asarray(a) for a in args)
+
+
+def bf16_args(args):
+    """torch (x, dt, a_log, b, c) with x, b and c in bf16, as the model
+    calls the scan."""
+    return tuple(torch.from_numpy(a) if i in (1, 2) else torch.from_numpy(
+        a).to(torch.bfloat16) for i, a in enumerate(args))
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +183,44 @@ def test_blocked_emulation_equals_plain(chunk, rows, s):
               f"{rows}, {s})")
         close(state, ssd_final_state(*args, chunk=chunk),
               f"blocked state ({chunk}, {rows}, {s})")
+
+
+@pytest.mark.parametrize("s,chunk", [(1, 128), (7, 16), (45, 16), (129, 128),
+                                     (300, 128), (64, 32)])
+@pytest.mark.parametrize("model_like", [False, True])
+def test_split_emulation_equals_plain_and_reference(s, chunk, model_like):
+    """The tensor-core kernel's three phases and roundings on bf16 inputs
+    (one chunk, ragged tails, many chunks), y and the final state."""
+    args = inputs(11 * s + chunk, 2, s, 3, 8, 16, model_like=model_like)
+    tin = bf16_args(args)
+    jin = [jnp.asarray(a) if i in (1, 2) else jnp.asarray(a).astype(
+        jnp.bfloat16) for i, a in enumerate(args)]
+    y, state = ssd_chunk_split(*tin, chunk=chunk)
+    assert y.dtype == torch.bfloat16 and state.dtype == torch.float32
+    rtol = RTOL + 2.0 ** -7
+    close(y.float(), ssd_chunk_ref(*tin, chunk=chunk).float(),
+          f"split y S={s}", rtol=rtol)
+    close(state, ssd_final_state(*tin, chunk=chunk), f"split state S={s}")
+    close(y.float(), f32(JSSD.ssd_chunked(*jin, chunk=chunk)),
+          f"split y vs ssd_chunked S={s}", rtol=rtol)
+    close(state, JSSD._final_state(*jin, chunk=chunk),
+          f"split state vs _final_state S={s}")
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0 ** -80, 2.0 ** 80])
+def test_three_part_split_is_exact(scale):
+    """hi + mid + lo gives back each float32 value of the normal range; the
+    first two parts alone are within 2^-17 of it."""
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, 100_000).astype(np.float32)) * scale
+    hi, mid, lo = split_bf16(x, 3)
+    assert torch.equal(hi.double() + mid.double() + lo.double(), x.double())
+    assert all(torch.equal(t, t.to(torch.bfloat16).float())
+               for t in (hi, mid, lo))
+    two = split_bf16(x)
+    assert torch.equal(two[0], hi) and torch.equal(two[1], mid)
+    rel = (x.double() - hi.double() - mid.double()).abs() / x.double().abs()
+    assert float(rel.max()) <= 2.0 ** -17
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
@@ -297,3 +351,36 @@ def test_block_parameters_follow_the_reference():
         close(named[name].detach(), f32(jp[name] if "." not in name
                                         else jp["norm"]["scale"]),
               name, 1e-7, 1e-7)
+
+
+def worst_ratio(got, want, atol, rtol):
+    """Largest |got - want| over what ``atol + rtol * |want|`` allows (at
+    most 1 passes)."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def model_size_rehearsal() -> bool:
+    """`ssd_chunk_split` against the plain version at mamba2-1.3b's SSD
+    shape (B 1, S 4,096, H 64, P 64, N 128, bf16 x, b and c), on both input
+    families, at this file's tolerances: the check to run on the CPU before
+    a card run of a change to the tensor-core kernel's roundings.  It is
+    kept out of the suite for its size (a few GB, about a minute):
+    ``PYTHONPATH=src python tests/test_torch_ssd.py`` prints, per family,
+    the worst ratio of each difference to what the tolerance allows."""
+    ok = True
+    for model_like in (False, True):
+        args = bf16_args(inputs(0, 1, 4096, 64, 64, 128,
+                                model_like=model_like))
+        y, state = ssd_chunk_split(*args)
+        ry = worst_ratio(y.float(), ssd_chunk_ref(*args).float(), ATOL,
+                         RTOL + 2.0 ** -7)
+        rs = worst_ratio(state, ssd_final_state(*args), ATOL, RTOL)
+        print(f"{'model' if model_like else 'reference'} family: y {ry:.3f}"
+              f", state {rs:.3f} of the tolerance")
+        ok &= ry <= 1 and rs <= 1
+    return ok
+
+
+if __name__ == "__main__":
+    raise SystemExit(0 if model_size_rehearsal() else 1)
