@@ -10,14 +10,16 @@ each against its plain PyTorch version on the card, and drives the port's
 paths through them:
 
   * the main path (`build_workload` -> `simulate` -> `request_stats`) on the
-    paper's topology study at scale 16 and on two long traces (serve-scan
-    kernel);
+    paper's topology study at scale 16 and on two long traces (the fused
+    serve-round kernel, once per round; its converged round held against
+    the plain round and its time split by step);
   * the link-layer studies (`studies.link_layer`, `studies.link_reliability`)
     at the reference benchmarks' full sizes, their sweeps stacked
-    (`simulate_stacked`: one serve-scan launch per round for all members);
+    (`simulate_stacked`: one fused serve-round launch per round for all
+    members);
   * `depart_times` (segmented depart kernel) on the converged rounds of the
     paper fabrics and of every expected-mode sweep member, against the
-    serve-scan kernel's departures;
+    fused serve round's departures;
   * the link explorer's flit-efficiency grid (`flit_sweep`, flit-pack
     kernel);
   * the model stack's serving path: recurrentgemma-2b at its published
@@ -30,7 +32,10 @@ paths through them:
 
 flash_attention and ssd_chunk each have a tensor-core kernel (bf16) and a
 CUDA-core one (float32); both are held against the plain versions and
-timed, and the served models must launch the tensor-core ones only.
+timed, and the served models must launch the tensor-core ones only.  The
+serve round has the fused kernel (the engine's path) and a map-only scan
+sharing its device code; both are held against the plain versions and
+timed.
 
 Every schedule is checked against the port's event-driven oracle, every
 served request against a manual prefill/decode loop, and the script prints
@@ -56,10 +61,15 @@ ROOT = Path(__file__).resolve().parent
 # integer max/add work
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
-# serve scan, per item: six int64 map components read, one int64 written;
-# applying one map to the state is 4 adds + 4 max + 2 saturations
+# map-only serve scan, per item: six int64 map components read, one int64
+# written; applying one map to the state is 4 adds + 4 max + 2 saturations
 SCAN_BYTES_PER_ITEM = 7 * 8
 SCAN_OPS_PER_ITEM = 10
+# fused serve round, per item: the operands' bytes (read once, counted from
+# the tensors: 84 B for the engine's dtypes) and three int64 outputs; the
+# lookups, the map (about 30 adds, compares and selects) and its application
+ROUND_OUT_BYTES_PER_ITEM = 3 * 8
+ROUND_OPS_PER_ITEM = 40
 # segmented depart, per item: int64 channel, arrive and ser read, depart
 # written (28 B with an int32 channel); a head test, an add and a max
 DEPART_BYTES_PER_ITEM = 4 * 8
@@ -181,17 +191,29 @@ def scan_bound_ms(k):
     return bound_ms(k, SCAN_BYTES_PER_ITEM, SCAN_OPS_PER_ITEM)
 
 
-def round_breakdown(torch, P, ops, K, wl, sched, repeats=5):
+def round_bound_ms(args):
+    """(least time on the card in ms, what bounds it, bytes per item) of
+    the fused round on these operands: each read once, three int64 outputs
+    written."""
+    k = int(args[0].shape[0])
+    per_item = (sum(x.element_size() for x in args)
+                + ROUND_OUT_BYTES_PER_ITEM)
+    return bound_ms(k, per_item, ROUND_OPS_PER_ITEM) + (per_item,)
+
+
+def round_breakdown(torch, K, wl, sched, repeats=5):
     """Device time of each step of one engine round, replayed from the
     resolved schedule (a fixed point, so every repeat does the same work),
-    timed with CUDA events; also holds the kernel against the plain version
-    on this round's real maps."""
+    timed with CUDA events; also holds the fused round against the plain
+    round on this round's real operands.  Returns the steps, the operands
+    and the largest difference."""
     from repro_torch.core.engine import _round_inputs, _scatter_round
+    from repro_torch.kernels.serve_round.ref import serve_round_ref
 
-    names = ("sort_gather", "prepass", "scan_kernel", "scatter_propagate",
+    names = ("sort_gather", "fused_round", "scatter_propagate",
              "residual_readback")
     total = dict.fromkeys(names, 0.0)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     arrive = sched.arrive
     host = 0.0
     for _ in range(repeats):
@@ -200,29 +222,49 @@ def round_breakdown(torch, P, ops, K, wl, sched, repeats=5):
         ev[0].record()
         order, args = _round_inputs(wl.hops, wl.channels, arrive)
         ev[1].record()
-        maps, aux = ops.serve_maps(*args)
+        s_start, s_depart, s_stall = K.serve_round_fused(*args)
         ev[2].record()
-        d_rel = K.serve_scan(*maps)
-        ev[3].record()
-        s_start, s_depart, _ = ops.finish_round(d_rel, args[3], args[1],
-                                                args[11], aux)
         new_arrive = _scatter_round(wl.hops, wl.issue_ps, order, s_start,
                                     s_depart, None)[0]
-        ev[4].record()
+        ev[3].record()
         resid = int((new_arrive - arrive).abs().max())
-        ev[5].record()
+        ev[4].record()
         torch.cuda.synchronize()
         host += time.perf_counter() - h0
         check(resid == 0, "replayed round moved a converged schedule")
         for i, n in enumerate(names):
             total[n] += ev[i].elapsed_time(ev[i + 1])
-    plain = ops.serve_scan_ref(*maps)
-    err = int((d_rel - plain).abs().max())
-    check(err == 0, f"kernel != plain version on the main path's maps "
-                    f"(K={maps[0].shape[0]}, max abs err {err})")
+    err = max(int((got - want).abs().max()) for got, want in zip(
+        (s_start, s_depart, s_stall), serve_round_ref(*args)))
+    check(err == 0, f"fused round != plain round on the main path's round "
+                    f"(K={args[0].shape[0]}, max abs err {err})")
     out = {n: total[n] / repeats for n in names}
     out["round_host_ms"] = host / repeats * 1e3
-    return out, int(maps[0].shape[0]), err
+    return out, args, err
+
+
+def round_timing(torch, K, ref, name, args):
+    """The fused round's device time on one converged round's operands,
+    against the plain round, the unfused path it replaced (the plain
+    pre-pass, the map-only scan kernel and the plain finish) and its
+    bound."""
+    k = int(args[0].shape[0])
+    ms, host_ms = time_cuda(torch, lambda: K.serve_round_fused(*args), 50)
+    plain_ms, _ = time_cuda(torch, lambda: ref.serve_round_ref(*args), 5)
+
+    def unfused():
+        maps, aux = ref.serve_maps(*args)
+        return ref.finish_round(K.serve_scan(*maps), args[3], args[1],
+                                args[11], aux)
+
+    unfused_ms, _ = time_cuda(torch, unfused, 5)
+    bound, by, per_item = round_bound_ms(args)
+    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                  library_ms=None)
+    emit(phase="kernel_timing", kernel="serve_round", workload=name, K=k,
+         host_ms_per_call=host_ms, unfused_prepass_scan_finish_ms=unfused_ms,
+         bytes_per_item=per_item, **timing)
+    return timing
 
 
 def ptxas_summary(log):
@@ -249,10 +291,11 @@ def ptxas_summary(log):
     return out
 
 
-def profile_device(torch, fn):
+def profile_device(torch, fn, ops=()):
     """Device busy share of one call of ``fn``: kernel time summed by
     `torch.profiler` over the wall time of the same call, plus the kernels
-    that took the most device time."""
+    that took the most device time, and the calls and device time of each
+    PyTorch operator named in ``ops``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -272,16 +315,34 @@ def profile_device(torch, fn):
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
+
+    def total_dev_us(e):
+        return getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0.0))
+
+    named = {op: dict(calls=0, device_ms=0.0) for op in ops}
+    for e in prof.key_averages():
+        if e.key in named and e.device_type != DeviceType.CUDA:
+            named[e.key]["calls"] += e.count
+            named[e.key]["device_ms"] += total_dev_us(e) / 1e3
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
                 top_kernels=[dict(name=e.key[:100], ms=dev_us(e) / 1e3,
-                                  calls=e.count) for e in top])
+                                  calls=e.count) for e in top],
+                **({"operators": named} if ops else {}))
 
 
 def device_profile(torch, P, wl):
-    """`profile_device` of one `simulate`."""
-    return profile_device(
-        torch, lambda: P.simulate(wl.hops, wl.channels, wl.issue_ps))
+    """`profile_device` of one `simulate`, with its rounds and the
+    ``torch.cummax`` calls left in it (one ``aten::_cummax_helper`` per
+    call; the profiler nests two ``aten::cummax`` events in each)."""
+    out = {}
+
+    def run():
+        out["rounds"] = P.simulate(wl.hops, wl.channels, wl.issue_ps).rounds
+
+    prof = profile_device(torch, run, ops=("aten::_cummax_helper",))
+    return dict(prof, rounds=out["rounds"])
 
 
 # ---------------------------------------------------------------------------
@@ -289,9 +350,9 @@ def device_profile(torch, P, wl):
 # ---------------------------------------------------------------------------
 
 def phase_kernel_vs_plain(torch, K, ref):
-    """The kernel against its plain version on well-formed streams (block
-    edges, one segment over many blocks, a long pass-through prefix),
-    then its device time at the main path's sizes."""
+    """The map-only serve scan against its plain version on well-formed
+    map streams (block edges, one segment over many blocks, a long
+    pass-through prefix), then its device time at the main path's sizes."""
     blk = K.block_items()
     cases = [dict(k=k) for k in (1, 2, blk - 1, blk, blk + 1, 3 * blk + 5,
                                  (1 << 20) + 7)]
@@ -303,7 +364,7 @@ def phase_kernel_vs_plain(torch, K, ref):
         maps = [torch.from_numpy(m).cuda()
                 for m in ref.random_maps(k, 1000 + i, **case)]
         got = K.serve_scan(*maps)
-        want = ref.serve_scan_ref(*maps)
+        want = ref.serve_scan_plain(*maps)
         torch.cuda.synchronize()
         err = int((got - want).abs().max())
         worst = max(worst, err)
@@ -315,7 +376,7 @@ def phase_kernel_vs_plain(torch, K, ref):
     for k in (268_800, 688_128):
         maps = [torch.from_numpy(m).cuda() for m in ref.random_maps(k, k)]
         ms, host_ms = time_cuda(torch, lambda: K.serve_scan(*maps), 50)
-        plain_ms, _ = time_cuda(torch, lambda: ref.serve_scan_ref(*maps), 5)
+        plain_ms, _ = time_cuda(torch, lambda: ref.serve_scan_plain(*maps), 5)
         bound, by = scan_bound_ms(k)
         timings[k] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                           bound_by=by)
@@ -325,17 +386,47 @@ def phase_kernel_vs_plain(torch, K, ref):
     return worst, timings
 
 
+def phase_round_vs_plain(torch, K, ref):
+    """The fused round against the plain round on random sorted streams:
+    block edges, segments over many blocks, serving items far apart,
+    marker-only segments, a padded tail, warm seeds, times past 2**40 ps,
+    more blocks than the one-block passes have threads, K to 2**20 + 7."""
+    blk = K.round_block_items()
+    families = [dict(), dict(n_chan=1), dict(n_chan=2, serve=0.02,
+                                              marker=0.01),
+                dict(markers_only=3), dict(tail=3000),
+                dict(n_chan=600, warm=True, offset=7 << 40)]
+    worst, n = 0, 0
+    for f, kw in enumerate(families):
+        for k in (1, 2, 3, blk - 1, blk, blk + 1, 3 * blk + 5,
+                  300 * blk + 7, (1 << 20) + 7):
+            args = [torch.from_numpy(x).cuda() for x in ref.random_round(
+                k, 4000 + k + f, **dict(kw, tail=min(kw.get("tail", 0),
+                                                     k)))]
+            got = K.serve_round_fused(*args)
+            want = ref.serve_round_ref(*args)
+            torch.cuda.synchronize()
+            err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+            worst = max(worst, err)
+            n += 1
+            check(err == 0, f"serve_round != plain at K={k} {kw}")
+    emit(phase="kernel_vs_plain", kernel="serve_round", block_items=blk,
+         cases=n, max_abs_err=worst)
+    return worst
+
+
 def timed(torch, fn):
-    """(result, host ms, serve_scan launches) of one main-path call."""
+    """(result, host ms, fused serve-round launches) of one main-path
+    call."""
     from repro_torch.kernels.serve_round.kernel import LAUNCHES
 
-    before = LAUNCHES["serve_scan"]
+    before = LAUNCHES["serve_round"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     return (out, (time.perf_counter() - t0) * 1e3,
-            LAUNCHES["serve_scan"] - before)
+            LAUNCHES["serve_round"] - before)
 
 
 def run_path(np, torch, P, name, wl):
@@ -481,21 +572,21 @@ def phase_flit_vs_plain(np, torch, FK, FR, max_payload, max_ppm):
 
 def check_study_runs(np, P, name, log):
     """Every schedule a study resolved — each member of a stacked sweep —
-    against the port's oracle; a stacked sweep launches the serve scan once
-    per round for all its members."""
+    against the port's oracle; a stacked sweep launches the fused serve
+    round once per round for all its members."""
     members = 0
     for run in log.runs:
         rounds = run.schedule.rounds
         if run.stacked:
             check(run.launches == max(rounds),
-                  f"{name}/{run.label}: {run.launches} serve_scan launches "
+                  f"{name}/{run.label}: {run.launches} serve_round launches "
                   f"for {max(rounds)} stacked rounds")
             tables = [(P.member(run.hops, i), P.member(run.channels, i),
                        P.member(run.issue_ps, i), P.member(run.schedule, i))
                       for i in range(len(rounds))]
         else:
             check(run.launches == rounds,
-                  f"{name}/{run.label}: {run.launches} serve_scan launches "
+                  f"{name}/{run.label}: {run.launches} serve_round launches "
                   f"for {rounds} rounds")
             tables = [(run.hops, run.channels, run.issue_ps, run.schedule)]
         for i, (hops, ch, issue, sched) in enumerate(tables):
@@ -516,7 +607,7 @@ def run_study(np, torch, P, K, module, name):
     from repro_torch.studies.common import StudyLog
 
     log = StudyLog(sync=torch.cuda.synchronize,
-                   launches=lambda: K.LAUNCHES["serve_scan"])
+                   launches=lambda: K.LAUNCHES["serve_round"])
     t0 = time.perf_counter()
     rows = module.run(quick=False, device="cuda", log=log)
     total_s = time.perf_counter() - t0
@@ -532,6 +623,22 @@ def run_study(np, torch, P, K, module, name):
          rounds={r.label: r.schedule.rounds for r in log.runs},
          members_checked=members, oracle_s=time.perf_counter() - t0)
     return rows, log
+
+
+def stacked_round_vs_plain(torch, K, ref, run):
+    """The fused round against the plain round on one stacked sweep's
+    converged round, all members in one sort.  Returns (K, largest
+    difference)."""
+    from repro_torch.core.engine import _flatten_members, _round_inputs
+
+    fh, fc, _ = _flatten_members(run.hops, run.channels, run.issue_ps)
+    arrive = run.schedule.arrive
+    _, args = _round_inputs(fh, fc, arrive.reshape(-1, arrive.shape[-1]))
+    err = max(int((g - w).abs().max()) for g, w in zip(
+        K.serve_round_fused(*args), ref.serve_round_ref(*args)))
+    check(err == 0, f"fused round != plain round on the stacked sweep "
+                    f"{run.label} (max abs err {err})")
+    return int(args[0].shape[0]), err
 
 
 def stacked_vs_loop(torch, P, run):
@@ -557,7 +664,7 @@ def stacked_vs_loop(torch, P, run):
 
 def depart_on_round(torch, P, LO, name, hops, channels, sched):
     """`depart_times` over one replayed converged round's serving items
-    against the serve-scan kernel's departures for those items."""
+    against the fused serve round's departures for those items."""
     from repro_torch.core.engine import _round_inputs
     from repro_torch.kernels.serve_round.ops import serve_round
 
@@ -575,7 +682,7 @@ def depart_on_round(torch, P, LO, name, hops, channels, sched):
     torch.cuda.synchronize()
     err = int((got - want).abs().max()) if got.numel() else 0
     check(torch.equal(got, want),
-          f"{name}: depart_times != serve-scan depart (max abs err {err})")
+          f"{name}: depart_times != serve-round depart (max abs err {err})")
     return int(serving.sum()), err
 
 
@@ -761,25 +868,34 @@ def rglru_gates(torch, gen, b, s, d):
 
 def phase_rglru_vs_plain(torch, RK, RR):
     """The RG-LRU scan kernel against its plain version (B in {1, 4}, D in
-    {1, 31, 2560}, S across the chunk edges to 4096; atol 1e-5), then its
-    time at one 4096-token prefill of the model's recurrent layer."""
+    {1, 31, 2560}, S across the chunk and tile edges to 4096; atol 1e-5,
+    bit-equal while one chunk covers S) and bit-equal to the CPU emulation
+    of its chunk carries (`rglru_scan_blocked`), then its time at one
+    4096-token prefill of the model's recurrent layer."""
     gen = torch.Generator(device="cuda").manual_seed(37)
     worst = 0.0
     n = 0
+    ch, tile = RK.chunk(), RK.tile()
     for b in (1, 4):
         for d in (1, 31, 2560):
-            for s in (1, 255, 256, 257, 4096):
+            for s in (1, ch - 1, ch, ch + 1, tile - 1, tile, tile + 1,
+                      4096):
                 a, bb = rglru_gates(torch, gen, b, s, d)
                 got = RK.rglru_scan_kernel(a, bb)
                 want = RR.rglru_scan_ref(a, bb)
+                blocked = RR.rglru_scan_blocked(a, bb, ch)
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
                 worst = max(worst, err)
                 n += 1
                 check(torch.allclose(got, want, atol=1e-5, rtol=0),
                       f"rglru_scan != plain at {(b, s, d)}: {err}")
-    emit(phase="kernel_vs_plain", kernel="rglru_scan", chunk=RK.chunk(),
-         cases=n, max_abs_err=worst)
+                check(s > ch or torch.equal(got, want),
+                      f"rglru_scan != plain bit for bit at {(b, s, d)}")
+                check(torch.equal(got, blocked),
+                      f"rglru_scan != rglru_scan_blocked at {(b, s, d)}")
+    emit(phase="kernel_vs_plain", kernel="rglru_scan", chunk=ch, tile=tile,
+         cases=n, max_abs_err=worst, equal_to_blocked=True)
 
     b, s, d = 1, 4096, 2560
     a, bb = rglru_gates(torch, gen, b, s, d)
@@ -1163,7 +1279,7 @@ def main() -> int:
     from repro_torch.kernels.flit_pack.ops import MAX_PAYLOAD_B
     from repro_torch.kernels.link_contention import kernel as LK, ref as LR
     from repro_torch.kernels.link_contention import ops as LO
-    from repro_torch.kernels.serve_round import kernel as K, ops, ref
+    from repro_torch.kernels.serve_round import kernel as K, ref
     from repro_torch.kernels.ssd_chunk import kernel as SK, ref as SR
     from repro_torch.studies import (link_explorer, link_layer,
                                      link_reliability)
@@ -1189,10 +1305,12 @@ def main() -> int:
         load()
     emit(phase="build", sources=[str(x.relative_to(ROOT)) for x in sources],
          seconds=time.perf_counter() - t0)
-    # what ptxas made of the tensor-core kernels, and their dynamic shared
-    # memory per block
-    for src, smem in ((FA._SOURCE_TC, {f"D{d}": FA._lib_tc(
-            ).flash_attention_tc_smem(d) for d in (64, 128, 256)}),
+    # what ptxas made of the fused serve round, the RG-LRU scan and the
+    # tensor-core kernels, and the latter's dynamic shared memory per block
+    for src, smem in ((K._SOURCE, None), (RK._SOURCE, None),
+                      (FA._SOURCE_TC, {f"D{d}": FA._lib_tc(
+                          ).flash_attention_tc_smem(d) for d in (64, 128,
+                                                                 256)}),
                       (SK._SOURCE_TC, SK._lib_tc().ssd_chunk_tc_smem())):
         log = _build.LOGS.get(src)
         emit(phase="ptxas", source=str(src.relative_to(ROOT)),
@@ -1200,6 +1318,7 @@ def main() -> int:
              kernels=ptxas_summary(log) if log else "built before this run")
 
     # phase 2: each kernel against its plain version, and its time
+    worst_round = phase_round_vs_plain(torch, K, ref)
     worst, timings = phase_kernel_vs_plain(torch, K, ref)
     worst_depart, depart_timings = phase_depart_vs_plain(torch, LK, LR)
     worst_flit, flit_timings = phase_flit_vs_plain(
@@ -1214,6 +1333,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # phases 3-4: the main path, with the launch counts read around it
+    K.LAUNCHES["serve_round"] = 0
     K.LAUNCHES["serve_scan"] = 0
     runs = []
     cpu_threads = torch.get_num_threads()
@@ -1259,20 +1379,26 @@ def main() -> int:
     sched, _, row = run_path(np, torch, P, "markers", wl)
     emit(phase="markers", markers=markers, **row)
     runs.append(("markers", wl, sched))
-    launches = K.LAUNCHES["serve_scan"]
-    check(launches > 0, "the main path never launched serve_scan")
+    launches = K.LAUNCHES["serve_round"]
+    scan_launches = K.LAUNCHES["serve_scan"]
+    check(launches > 0, "the main path never launched serve_round")
 
     # where one round's time goes, per workload (after the counts are read)
+    round_timings = {}
     for name, wl, sched in runs:
-        steps, k, err = round_breakdown(torch, P, ops, K, wl, sched)
-        worst = max(worst, err)
-        emit(phase="round_breakdown", workload=name, K=k, **steps)
+        steps, args, err = round_breakdown(torch, K, wl, sched)
+        worst_round = max(worst_round, err)
+        emit(phase="round_breakdown", workload=name, K=int(args[0].shape[0]),
+             **steps)
         if name in ("chain", "long_span"):
+            round_timings[name] = round_timing(torch, K, ref, name, args)
             emit(phase="device_profile", workload=name,
                  **device_profile(torch, P, wl))
+        del args
 
     # phase 5: the link-layer studies at the reference's full sizes, with
-    # the serve-scan count read around them
+    # the serve-round counts read around them
+    K.LAUNCHES["serve_round"] = 0
     K.LAUNCHES["serve_scan"] = 0
     logs = {}
     for name, module in (("link_layer", link_layer),
@@ -1282,15 +1408,20 @@ def main() -> int:
         # link_reliability asserts its three gates itself
         check("pass=False" not in derived and "=False" not in derived,
               f"{name}: an acceptance gate failed: {derived}")
-    study_launches = K.LAUNCHES["serve_scan"]
-    check(study_launches > 0, "the studies never launched serve_scan")
+    study_launches = K.LAUNCHES["serve_round"]
+    check(study_launches > 0, "the studies never launched serve_round")
     launches += study_launches
-    # each stacked sweep against its members run one by one (after the
-    # count is read: these are timing runs)
+    scan_launches += K.LAUNCHES["serve_scan"]
+    # each stacked sweep's converged round through the fused kernel against
+    # the plain round, and the sweep against its members run one by one
+    # (after the count is read: these are checks and timing runs)
     for name, log in logs.items():
         for run in log.runs:
             if run.stacked:
+                k, err = stacked_round_vs_plain(torch, K, ref, run)
+                worst_round = max(worst_round, err)
                 emit(phase="stacked_vs_loop", study=name, sweep=run.label,
+                     round_K=k, fused_round_max_abs_err=err,
                      **stacked_vs_loop(torch, P, run))
 
     # phase 6: depart_times on real converged rounds (its path), against
@@ -1346,12 +1477,19 @@ def main() -> int:
     td = depart_timings[main_k]
     tf = flit_timings[1 << 24]
     emit(kernels=[
+        dict(name="serve_round", route="cuda",
+             source="src/repro_torch/kernels/serve_round/csrc/serve_round.cu",
+             replaces="src/repro/kernels/serve_round/kernel.py:104",
+             launches=launches, max_abs_err=worst_round,
+             **round_timings["chain"], K=main_k,
+             shape="the chain's converged round"),
         dict(name="serve_scan", route="cuda",
              source="src/repro_torch/kernels/serve_round/csrc/serve_round.cu",
              replaces="src/repro/kernels/serve_round/kernel.py:104",
-             launches=launches, max_abs_err=worst, ms=t["ms"],
+             launches=scan_launches, max_abs_err=worst, ms=t["ms"],
              plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-             bound_by=t["bound_by"], library_ms=None, K=main_k),
+             bound_by=t["bound_by"], library_ms=None, K=main_k,
+             shape="random well-formed maps (map-only entry)"),
         dict(name="segmented_depart", route="cuda",
              source="src/repro_torch/kernels/link_contention/csrc/"
                     "link_contention.cu",

@@ -6,97 +6,131 @@
 // independently for every (batch, feature) column.
 //
 // The TPU kernel walked ordered sequence chunks and carried h from one to
-// the next in VMEM scratch.  CUDA blocks run in no order, and one thread per
-// column alone leaves the card mostly idle at the model's shapes (B = 1,
-// D = 2560 is 2,560 threads for 132 SMs).  So the sequence is cut into
-// chunks of CHUNK steps and scanned in three phases:
-//   1. every (batch, chunk, feature) thread composes its chunk's affine map
-//      h -> A*h + Bc (A = product of a, Bc = the chunk's scan from 0);
-//   2. one thread per (batch, feature) walks the chunk maps in order and
-//      writes the state entering each chunk;
-//   3. every (batch, chunk, feature) thread re-scans its chunk from that
-//      state and writes h.
-// Phase 3 of the first chunk starts from 0, so with S <= CHUNK (one chunk,
-// phases 1 and 2 skipped) the kernel equals the plain version bit for bit;
-// longer sequences differ from it only by the rounding of the chunk carries.
+// the next in VMEM scratch.  CUDA blocks run in no order, so here one block
+// owns LANES adjacent features of one batch row and walks the whole
+// sequence itself, in tiles of WARPS chunks of CHUNK steps, one launch and
+// no state shared between blocks:
+//   1. each warp loads its chunk of the tile (lane = feature, so a step's
+//      32 features are one 128-byte load) into registers, and composes the
+//      chunk's affine map h -> A*h + H (A = product of a, H = the chunk's
+//      scan from 0);
+//   2. warp 0 walks the tile's chunk maps in sequence order from the state
+//      the previous tile left, writing each chunk's incoming state to shared
+//      memory;
+//   3. each warp re-scans its chunk from that state and writes h.
+// The next tile's a and b are loaded while this tile is computed, so a and
+// b are read once and h written once.  The chunk carries are composed in
+// sequence order with the same roundings as ref.rglru_scan_blocked(a, b,
+// CHUNK), which the kernel equals bit for bit; the first chunk starts from
+// 0, so with S <= CHUNK it equals the plain version bit for bit, and longer
+// sequences differ from it only by the rounding of the chunk carries.  The
+// result does not depend on timing: every carry is composed in one order.
 // Every multiply and add is a round-to-nearest intrinsic, so nvcc does not
 // contract a*h + b into a fused multiply-add: each step rounds twice, as
-// the plain version's separate PyTorch operations do.
-// Neighbouring threads take neighbouring features, so every load and store
-// of a step is coalesced.  Any S and D are taken; the ragged edges are
-// masked.
+// the plain version's separate PyTorch operations do.  Any S and D are
+// taken; features past D are masked.
 //
 // Bound on the H100: memory.  The function reads a and b and writes h,
-// 12 B per element (37.6 us at (1, 4096, 2560) over 3.35 TB/s); phases 1
-// and 3 both read a and b, so the kernel moves 20 B per element.
+// 12 B per element (37.6 us at (1, 4096, 2560) over 3.35 TB/s), and this
+// design moves exactly that.  At D = 2560 it runs 80 blocks of 512 threads,
+// one per SM, each with a tile (64 KB of a and b) loading while it computes
+// the one before.
 //
 // Interface: plain C, called through ctypes on PyTorch's current stream; the
-// launches are checked with cudaGetLastError and its error code returned
+// launch is checked with cudaGetLastError and its error code returned
 // (0 = success).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int CHUNK = 64;
+constexpr int LANES = 32;  // features per block, one per lane
+constexpr int WARPS = 16;  // chunks per tile, one per warp
+constexpr int CHUNK = 16;  // steps per chunk
+constexpr int TILE = WARPS * CHUNK;
+constexpr int THREADS = WARPS * 32;
 
-__global__ void __launch_bounds__(THREADS)
-chunk_maps(const float* __restrict__ a, const float* __restrict__ b,
-           float* __restrict__ agg_a, float* __restrict__ agg_b, int s,
-           int d) {
-  const int f = blockIdx.x * THREADS + threadIdx.x;
-  if (f >= d) return;
-  const int c = blockIdx.y, n_chunks = gridDim.y;
-  const long long batch = blockIdx.z;
-  const int t0 = c * CHUNK, t1 = min(s, t0 + CHUNK);
-  const float* ap = a + (batch * s + t0) * d + f;
-  const float* bp = b + (batch * s + t0) * d + f;
-  float A = 1.0f, H = 0.0f;
-#pragma unroll 8
-  for (int t = t0; t < t1; ++t, ap += d, bp += d) {
-    const float at = *ap;
-    A = __fmul_rn(A, at);
-    H = __fadd_rn(__fmul_rn(at, H), *bp);
-  }
-  const long long o = (batch * n_chunks + c) * d + f;
-  agg_a[o] = A;
-  agg_b[o] = H;
-}
-
-__global__ void __launch_bounds__(THREADS)
-chunk_carries(const float* __restrict__ agg_a,
-              const float* __restrict__ agg_b, float* __restrict__ carry,
-              int n_chunks, int d) {
-  const int f = blockIdx.x * THREADS + threadIdx.x;
-  if (f >= d) return;
-  const long long base = static_cast<long long>(blockIdx.y) * n_chunks * d;
-  float h = 0.0f;
-  for (int c = 0; c < n_chunks; ++c) {
-    const long long o = base + static_cast<long long>(c) * d + f;
-    carry[o] = h;
-    h = __fadd_rn(__fmul_rn(agg_a[o], h), agg_b[o]);
+// This warp's chunk of the tile at t0: n steps (0 past the sequence's end
+// or for a masked feature), read into registers.
+__device__ __forceinline__ void load_chunk(const float* __restrict__ a,
+                                           const float* __restrict__ b,
+                                           long long off, int n, int d,
+                                           float* ra, float* rb) {
+#pragma unroll
+  for (int j = 0; j < CHUNK; ++j) {
+    if (j < n) {
+      ra[j] = a[off + static_cast<long long>(j) * d];
+      rb[j] = b[off + static_cast<long long>(j) * d];
+    }
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-chunk_rescan(const float* __restrict__ a, const float* __restrict__ b,
-             const float* __restrict__ carry, float* __restrict__ out, int s,
-             int d) {
-  const int f = blockIdx.x * THREADS + threadIdx.x;
-  if (f >= d) return;
-  const int c = blockIdx.y, n_chunks = gridDim.y;
-  const long long batch = blockIdx.z;
-  const int t0 = c * CHUNK, t1 = min(s, t0 + CHUNK);
-  const long long off = (batch * s + t0) * d + f;
-  const float* ap = a + off;
-  const float* bp = b + off;
-  float* op = out + off;
-  float h = carry ? carry[(batch * n_chunks + c) * d + f] : 0.0f;
-#pragma unroll 8
-  for (int t = t0; t < t1; ++t, ap += d, bp += d, op += d) {
-    h = __fadd_rn(__fmul_rn(*ap, h), *bp);
-    *op = h;
+__global__ void __launch_bounds__(THREADS, 1)
+rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                  float* __restrict__ out, int s, int d) {
+  __shared__ float map_a[WARPS][LANES];
+  __shared__ float map_h[WARPS][LANES];
+  __shared__ float incoming[WARPS][LANES];
+  const int lane = threadIdx.x % 32;
+  const int w = threadIdx.x / 32;
+  const int f = blockIdx.x * LANES + lane;
+  const bool live = f < d;
+  const long long col = static_cast<long long>(blockIdx.y) * s * d + f;
+
+  // steps of this warp's chunk in the tile at t0
+  auto steps = [&](int t0) {
+    const int c0 = t0 + w * CHUNK;
+    return live ? max(0, min(CHUNK, s - c0)) : 0;
+  };
+  auto offset = [&](int t0) {
+    return col + static_cast<long long>(t0 + w * CHUNK) * d;
+  };
+
+  float ca[CHUNK], cb[CHUNK], na[CHUNK], nb[CHUNK];
+  load_chunk(a, b, offset(0), steps(0), d, ca, cb);
+  float carry = 0.0f;  // warp 0: the state the previous tile left
+  for (int t0 = 0; t0 < s; t0 += TILE) {
+    const int n = steps(t0);
+    if (t0 + TILE < s) load_chunk(a, b, offset(t0 + TILE), steps(t0 + TILE),
+                                  d, na, nb);
+    // 1. this chunk's map
+    float A = 1.0f, H = 0.0f;
+#pragma unroll
+    for (int j = 0; j < CHUNK; ++j) {
+      if (j < n) {
+        A = __fmul_rn(A, ca[j]);
+        H = __fadd_rn(__fmul_rn(ca[j], H), cb[j]);
+      }
+    }
+    map_a[w][lane] = A;
+    map_h[w][lane] = H;
+    __syncthreads();
+    // 2. the tile's chunk carries, in sequence order
+    if (w == 0) {
+      float h = carry;
+      for (int c = 0; c < WARPS; ++c) {
+        incoming[c][lane] = h;
+        if (t0 + c * CHUNK < s)
+          h = __fadd_rn(__fmul_rn(map_a[c][lane], h), map_h[c][lane]);
+      }
+      carry = h;
+    }
+    __syncthreads();
+    // 3. the chunk re-scanned from its incoming state
+    float h = incoming[w][lane];
+    float* op = out + offset(t0);
+#pragma unroll
+    for (int j = 0; j < CHUNK; ++j) {
+      if (j < n) {
+        h = __fadd_rn(__fmul_rn(ca[j], h), cb[j]);
+        op[static_cast<long long>(j) * d] = h;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < CHUNK; ++j) {
+      ca[j] = na[j];
+      cb[j] = nb[j];
+    }
   }
 }
 
@@ -104,29 +138,16 @@ chunk_rescan(const float* __restrict__ a, const float* __restrict__ b,
 
 extern "C" int rglru_scan_chunk() { return CHUNK; }
 
-// a, b, out: (batch, s, d) float32 contiguous.  agg_a, agg_b, carry:
-// scratch of batch * ceil(s / CHUNK) * d floats each (unused, and may be
-// null, when s <= CHUNK).
+// Sequence steps one block walks per tile (WARPS chunks).
+extern "C" int rglru_scan_tile() { return TILE; }
+
+// a, b, out: (batch, s, d) float32 contiguous.
 extern "C" int rglru_scan_launch(const float* a, const float* b, float* out,
-                                 int batch, int s, int d, float* agg_a,
-                                 float* agg_b, float* carry,
+                                 int batch, int s, int d,
                                  cudaStream_t stream) {
   if (batch <= 0 || s <= 0 || d <= 0 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int n_chunks = (s + CHUNK - 1) / CHUNK;
-  if (n_chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((d + THREADS - 1) / THREADS, n_chunks, batch);
-  if (n_chunks == 1) {
-    chunk_rescan<<<grid, THREADS, 0, stream>>>(a, b, nullptr, out, s, d);
-    return static_cast<int>(cudaGetLastError());
-  }
-  chunk_maps<<<grid, THREADS, 0, stream>>>(a, b, agg_a, agg_b, s, d);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  chunk_carries<<<dim3(grid.x, batch), THREADS, 0, stream>>>(
-      agg_a, agg_b, carry, n_chunks, d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  chunk_rescan<<<grid, THREADS, 0, stream>>>(a, b, carry, out, s, d);
+  const dim3 grid((d + LANES - 1) / LANES, batch);
+  rglru_scan_kernel<<<grid, THREADS, 0, stream>>>(a, b, out, s, d);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,14 +8,17 @@ stream.
 
 What it computes: ``h_t = a_t * h_{t-1} + b_t`` over the sequence axis of
 (B, S, D) float32 tensors.  The TPU kernel carried ``h`` across an ordered
-grid of sequence chunks; CUDA blocks have no order, so this one scans in
-three phases over chunks of `chunk()` steps (chunk maps, a walk over the
-chunks for each chunk's incoming state, a re-scan of every chunk; one phase
-when S fits one chunk).  `ref.rglru_scan_blocked` runs the same
-decomposition on the CPU.  Any S and D are taken.
+grid of sequence chunks; CUDA blocks have no order, so here one block owns
+32 adjacent features of one batch row and walks the whole sequence in tiles
+of 16 chunks of `chunk()` steps: each warp composes its chunk's map from a
+and b held in registers, one warp walks the chunk maps in order, and each
+warp re-scans its chunk from its incoming state, while the next tile loads.
+One launch; `ref.rglru_scan_blocked(a, b, chunk())` computes the same
+chunk carries in the same order on the CPU, and the kernel equals it bit
+for bit.  Any S and D are taken.
 
-Bound on the H100: memory, 12 B per element (a and b read, h written); the
-kernel reads a and b twice, 20 B per element.
+Bound on the H100: memory, 12 B per element (a and b read, h written),
+which is what the kernel moves.
 """
 
 from __future__ import annotations
@@ -38,10 +41,12 @@ def _lib():
     lib = load_library(_SOURCE)
     if lib.rglru_scan_launch.argtypes is None:
         lib.rglru_scan_launch.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+            ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.rglru_scan_launch.restype = ctypes.c_int
         lib.rglru_scan_chunk.argtypes = []
         lib.rglru_scan_chunk.restype = ctypes.c_int
+        lib.rglru_scan_tile.argtypes = []
+        lib.rglru_scan_tile.restype = ctypes.c_int
     return lib
 
 
@@ -49,6 +54,12 @@ def chunk() -> int:
     """Sequence steps one chunk of the kernel covers (set in the CUDA
     source; builds it)."""
     return int(_lib().rglru_scan_chunk())
+
+
+def tile() -> int:
+    """Sequence steps one block walks per tile (set in the CUDA source;
+    builds it)."""
+    return int(_lib().rglru_scan_tile())
 
 
 def rglru_scan_kernel(a, b):
@@ -66,15 +77,10 @@ def rglru_scan_kernel(a, b):
     out = torch.empty_like(a)
     if a.numel() == 0:
         return out
-    n_chunks = -(-s // chunk())
-    scratch = torch.empty((3, bsz * n_chunks * d) if n_chunks > 1 else (3, 0),
-                          dtype=torch.float32, device=a.device)
-    ptrs = [x.data_ptr() if n_chunks > 1 else None for x in scratch]
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().rglru_scan_launch(a.data_ptr(), b.data_ptr(),
-                                       out.data_ptr(), bsz, s, d, *ptrs,
-                                       stream)
+                                       out.data_ptr(), bsz, s, d, stream)
     if err != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
                            f"{err}")

@@ -9,16 +9,24 @@ order, one multiply and one add per step (each rounding once), which is the
 definition itself.  The CPU path and the tests use it; on the card it is the
 yardstick the kernel is held against.
 
-`rglru_scan_blocked` runs the CUDA kernel's decomposition with whole-tensor
-PyTorch: the sequence cut into chunks, each chunk's affine map ``h -> A*h +
-B`` (phase 1), a walk over the chunks giving each its incoming state
-(phase 2), and a re-scan of every chunk from that state (phase 3).  With one
-chunk it is the plain version, bit for bit.
+`rglru_scan_blocked` computes the CUDA kernel's chunk carries with
+whole-tensor PyTorch: the sequence cut into chunks, each chunk's affine map
+``h -> A*h + B`` (phase 1), a walk over the chunks in order giving each its
+incoming state (phase 2), and a re-scan of every chunk from that state
+(phase 3).  The kernel makes the same maps, walks them in the same order and
+re-scans from the same states, tile by tile in one pass, so at the kernel's
+``chunk`` the two are equal bit for bit.  With one chunk it is the plain
+version, bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
+
+# the CUDA kernel's shape (csrc/rglru_scan.cu): chunks of CHUNK steps, one
+# block walking the sequence in tiles of TILE steps (16 chunks)
+CHUNK = 16
+TILE = 256
 
 
 def _check(a, b):
@@ -41,8 +49,8 @@ def rglru_scan_ref(a, b):
 
 
 def rglru_scan_blocked(a, b, chunk: int):
-    """The kernel's three-phase algorithm over chunks of ``chunk`` steps
-    (the last chunk may be short), in float32; (B, S, D)."""
+    """The kernel's chunk decomposition over chunks of ``chunk`` steps (the
+    last chunk may be short), in float32; (B, S, D)."""
     _check(a, b)
     a = a.float()
     b = b.float()

@@ -10,9 +10,12 @@ package, so it runs on a machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the engine's kernels exact (int64 picoseconds); `rglru_scan`
-bit-equal to its plain version while one chunk covers the sequence, else
-``1e-5`` (the chunk carries round differently); `flash_attention` ``1e-4``
+Tolerances: the engine's kernels exact (int64 picoseconds): the fused
+serve round bit-equal to the plain round, on random sorted streams and on
+the real rounds of runs, stacked sweeps and warm-carry runs; `rglru_scan`
+bit-equal to `rglru_scan_blocked` at the kernel's chunk, and to its plain
+version while one chunk covers the sequence, else ``1e-5`` (the chunk
+carries round differently); `flash_attention` ``1e-4``
 in float32 (the CUDA-core kernel) and 2 bf16 ulps in bf16 (the tensor-core
 kernel; float32 sums in another order; see `bf16_within_ulps` for outputs
 near zero); `ssd_chunk` ``atol 3e-5, rtol 3e-4`` (the reference suite's
@@ -41,12 +44,19 @@ from repro_torch.kernels.link_contention.ref import (  # noqa: E402
     random_stream, segmented_depart_ref)
 from repro_torch.kernels.rglru_scan import kernel as RK  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
+from repro_torch.core.engine import (_flatten_members,  # noqa: E402
+                                     _initial_arrive, _round_inputs)
+from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
+    CHUNK, rglru_scan_blocked)
 from repro_torch.kernels.serve_round import kernel as K  # noqa: E402
+from repro_torch.kernels.serve_round import ops as SO  # noqa: E402
 from repro_torch.kernels.ssd_chunk import kernel as SK  # noqa: E402
 from repro_torch.kernels.ssd_chunk.ref import (  # noqa: E402
     ssd_chunk_ref, ssd_final_state)
 from repro_torch.kernels.serve_round.ref import (random_maps,  # noqa: E402
-                                                 serve_scan_ref)
+                                                 random_round,
+                                                 serve_round_ref,
+                                                 serve_scan_plain)
 from repro_torch.models import transformer as TF  # noqa: E402
 
 
@@ -68,26 +78,98 @@ def test_cuda_kernel_equals_plain(card, prefix):
                 random_maps(k, k, prefix=min(prefix, k - 1))]
         got = K.serve_scan(*maps)
         torch.cuda.synchronize()
-        assert torch.equal(got, serve_scan_ref(*maps)), k
+        assert torch.equal(got, serve_scan_plain(*maps)), k
 
 
 @pytest.mark.cuda
-def test_cuda_simulate_equals_cpu(card):
-    topo = P.tree(4, bw_MBps=64_000, fixed_ps=26_000)
-    mems = [int(m) for m in topo.memories()]
-    specs = [P.RequesterSpec(node=int(r), n_requests=40, targets=mems,
-                             issue_interval_ps=500, seed=i)
-             for i, r in enumerate(topo.requesters())]
+@pytest.mark.parametrize("kw", [{}, dict(n_chan=1),
+                                dict(n_chan=2, serve=0.02, marker=0.01),
+                                dict(markers_only=3), dict(tail=3000),
+                                dict(n_chan=600, warm=True, offset=7 << 40)])
+def test_cuda_fused_round_equals_plain(card, kw):
+    """The fused round bit-equal to the plain round at block edges, on
+    segments over many blocks, sparse serving items, marker-only segments,
+    a padded tail and warm seeds."""
+    blk = K.round_block_items()
+    for k in (1, 2, 3, blk - 1, blk, blk + 1, 3 * blk + 5, 300 * blk + 7):
+        args = [torch.from_numpy(x).to(card) for x in random_round(
+            k, k, **dict(kw, tail=min(kw.get("tail", 0), k)))]
+        before = K.LAUNCHES["serve_round"]
+        got = SO.serve_round(*args)
+        assert K.LAUNCHES["serve_round"] - before == 1
+        want = serve_round_ref(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (k, kw)
+
+
+def _cpu(wl):
+    return (P.hops_from_arrays(wl.hops, device="cpu"),
+            P.channels_from_arrays(wl.channels, device="cpu"),
+            P.issue_from_array(wl.issue_ps, device="cpu"))
+
+
+def _rounds_equal_plain(hops, channels, arrives, carry=None):
+    """The fused round on the card against the plain round on the CPU, on
+    the sorted operands of each of ``arrives``' rounds."""
+    for arrive in arrives:
+        _, args = _round_inputs(hops, channels, arrive, carry)
+        got = SO.serve_round(*args)
+        want = serve_round_ref(*(a.cpu() for a in args))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+def _warm_carry(n_channels, device):
+    rng = np.random.default_rng(5)
+    return P.StreamCarry(
+        depart_ps=torch.as_tensor(rng.integers(0, 6000, n_channels),
+                                  device=device),
+        last_dir=torch.as_tensor(rng.integers(-1, 2, n_channels),
+                                 dtype=torch.int8, device=device),
+        last_row=torch.as_tensor(rng.integers(-2, 3, n_channels),
+                                 dtype=torch.int32, device=device),
+        down_until_ps=torch.as_tensor(np.where(
+            rng.random(n_channels) < .5, rng.integers(0, 9000, n_channels),
+            0), device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fabric", ["tree", "half_duplex_rows"])
+@pytest.mark.parametrize("warm", [False, True])
+def test_cuda_simulate_equals_cpu(card, fabric, warm):
+    """A run on the card equals the run on the CPU, launching the fused
+    round once per round; its first and converged rounds equal the plain
+    round.  ``half_duplex_rows`` turns its bus around and keeps DRAM rows;
+    ``warm`` seeds every channel with a carried frontier."""
+    if fabric == "tree":
+        topo = P.tree(4, bw_MBps=64_000, fixed_ps=26_000)
+        mems = [int(m) for m in topo.memories()]
+        specs = [P.RequesterSpec(node=int(r), n_requests=40, targets=mems,
+                                 issue_interval_ps=500, seed=i)
+                 for i, r in enumerate(topo.requesters())]
+    else:
+        topo = P.single_bus(n_mems=4, duplex="half", turnaround_ps=3_000,
+                            endpoint=P.EndpointSpec(
+                                banks=2, row_hit_extra_ps=2_000,
+                                row_miss_extra_ps=9_000))
+        specs = [P.RequesterSpec(node=0, n_requests=400,
+                                 targets=[2, 3, 4, 5], read_ratio=0.5,
+                                 issue_interval_ps=300, seed=3)]
     wl = P.build_workload(topo.build(), specs, device=card)
-    before = K.LAUNCHES["serve_scan"]
-    gpu = P.simulate(wl.hops, wl.channels, wl.issue_ps)
-    assert K.LAUNCHES["serve_scan"] - before == gpu.rounds
-    cpu = P.simulate(P.hops_from_arrays(wl.hops, device="cpu"),
-                     P.channels_from_arrays(wl.channels, device="cpu"),
-                     P.issue_from_array(wl.issue_ps, device="cpu"))
+    n_chan = wl.channels.bw_MBps.shape[0]
+    carry = _warm_carry(n_chan, card) if warm else None
+    before = K.LAUNCHES["serve_round"]
+    gpu = P.simulate(wl.hops, wl.channels, wl.issue_ps, carry=carry)
+    assert K.LAUNCHES["serve_round"] - before == gpu.rounds
+    cpu = P.simulate(*_cpu(wl), carry=_warm_carry(n_chan, "cpu")
+                     if warm else None)
     assert gpu.converged and gpu.rounds == cpu.rounds
     for f in ("start", "depart", "arrive", "complete"):
         assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+    _rounds_equal_plain(wl.hops, wl.channels, [
+        _initial_arrive(wl.hops, wl.channels, wl.issue_ps), gpu.arrive],
+        carry)
 
 
 @pytest.mark.cuda
@@ -142,27 +224,38 @@ def test_cuda_stacked_sweep_equals_cpu(card):
         chans = [wl.channels._replace(replay_ppm=torch.where(
             link, torch.full_like(wl.channels.replay_ppm, p), 0))
             for p in (0, 1_000, 100_000)]
-        before = K.LAUNCHES["serve_scan"]
-        out[dev.type] = P.simulate_stacked(
-            P.stack_members([wl.hops] * 3), P.stack_members(chans),
-            torch.stack([wl.issue_ps] * 3))
+        tables = (P.stack_members([wl.hops] * 3), P.stack_members(chans),
+                  torch.stack([wl.issue_ps] * 3))
+        before = K.LAUNCHES["serve_round"]
+        out[dev.type] = P.simulate_stacked(*tables)
         if dev.type == "cuda":
-            assert K.LAUNCHES["serve_scan"] - before == max(
+            assert K.LAUNCHES["serve_round"] - before == max(
                 out["cuda"].rounds)
+            gpu_tables = tables
     gpu, cpu = out["cuda"], out["cpu"]
     assert gpu.rounds == cpu.rounds and all(gpu.converged)
     for f in ("start", "depart", "arrive", "complete"):
         assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+    # the stacked converged round, all members in one sort
+    fh, fc, _ = _flatten_members(*gpu_tables)
+    _rounds_equal_plain(fh, fc, [gpu.arrive.reshape(
+        -1, gpu.arrive.shape[-1])])
 
 
 @pytest.mark.cuda
 def test_cuda_rglru_kernel_equals_plain(card):
-    """Around the chunk edge and the block width, with a near 1 as the
-    model draws it."""
+    """Around the chunk and tile edges and the block width, with a near 1 as
+    the model draws it: bit-equal to the CPU emulation of its chunk carries
+    everywhere, and to the plain version while one chunk covers the
+    sequence."""
     gen = torch.Generator(device=card).manual_seed(0)
     ch = RK.chunk()
+    assert ch == CHUNK
+    tile = RK.tile()
     for b, s, d in [(1, 1, 1), (3, ch - 1, 255), (1, ch, 256),
-                    (2, ch + 1, 257), (1, 5 * ch + 3, 31), (1, 300, 2560)]:
+                    (2, ch + 1, 257), (1, 5 * ch + 3, 31), (1, 300, 2560),
+                    (2, tile - 1, 33), (1, tile + 1, 64),
+                    (1, 3 * tile + ch + 5, 2560)]:
         r = torch.rand(b, s, d, generator=gen, device=card)
         a = torch.exp(-8.0 * r * torch.rand(d, generator=gen, device=card)
                       * 0.1)
@@ -171,6 +264,7 @@ def test_cuda_rglru_kernel_equals_plain(card):
         got = RK.rglru_scan_kernel(a, bb)
         want = rglru_scan_ref(a, bb)
         torch.cuda.synchronize()
+        assert torch.equal(got, rglru_scan_blocked(a, bb, ch)), (b, s, d)
         if s <= ch:
             assert torch.equal(got, want), (b, s, d)
         else:

@@ -6,9 +6,10 @@ Tolerances:
   associative scan) and ``rglru_scan_pallas(interpret=True)``: ``atol =
   rtol = 1e-5`` in float32, the reference suite's own tolerance between its
   kernel and its oracle (the sums are taken in another order);
-* `ref.rglru_scan_blocked`, the CPU emulation of the CUDA kernel's
-  three-phase chunk decomposition, against the plain version: bit-equal when
-  one chunk covers the sequence, ``1e-5`` otherwise (the chunk carries round
+* `ref.rglru_scan_blocked`, the CPU emulation of the CUDA kernel's chunk
+  carries (equal to the kernel bit for bit on the card), against the plain
+  version, also at the kernel's chunk and tile edges: bit-equal when one
+  chunk covers the sequence, ``1e-5`` otherwise (the chunk carries round
   differently);
 * `rglru_block` in prefill and decode, output and cache, against the
   reference's: ``atol = rtol = 5e-2``, the bf16 tolerance the reference
@@ -31,7 +32,7 @@ from repro.models import rglru as JRG  # noqa: E402
 from repro_torch.kernels.rglru_scan import kernel as pkernel  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as pops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
-    rglru_scan_blocked, rglru_scan_ref)
+    CHUNK, TILE, rglru_scan_blocked, rglru_scan_ref)
 from repro_torch.models import rglru as RG  # noqa: E402
 from repro_torch.models.convert import fill_module  # noqa: E402
 
@@ -121,6 +122,21 @@ def test_blocked_emulation_equals_plain(chunk, s):
         assert torch.equal(got, want)
     else:
         close(got, want, SCAN_TOL, f"blocked chunk={chunk}")
+
+
+@pytest.mark.parametrize("s", [1, CHUNK - 1, CHUNK, CHUNK + 1, TILE - 1,
+                               TILE, TILE + 1, 3 * TILE + CHUNK + 5])
+def test_blocked_emulation_at_kernel_chunk_and_tile_edges(s):
+    """The kernel's chunk (its carries, bit for bit on the card) against the
+    plain version, at the chunk and tile edges, on model-like gates."""
+    a, bb = gates(s, 2, s, 40)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(bb)
+    got = rglru_scan_blocked(ta, tb, CHUNK)
+    want = rglru_scan_ref(ta, tb)
+    if s <= CHUNK:
+        assert torch.equal(got, want)
+    else:
+        close(got, want, SCAN_TOL, f"blocked chunk={CHUNK} s={s}")
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
