@@ -73,6 +73,7 @@ ROUND_OPS_PER_ITEM = 40
 # segmented depart, per item: int64 channel, arrive and ser read, depart
 # written (28 B with an int32 channel); a head test, an add and a max
 DEPART_BYTES_PER_ITEM = 4 * 8
+DEPART_BYTES_PER_ITEM_I32 = 4 + 3 * 8
 DEPART_OPS_PER_ITEM = 3
 # flit pack, per point: four int32 reads, an int32 and a float32 write;
 # ceil division, multiply, select, three float multiply/adds, max, divide
@@ -478,18 +479,31 @@ def run_path(np, torch, P, name, wl):
 
 
 def phase_depart_vs_plain(torch, LK, LR):
-    """The segmented depart kernel against its plain version (block edges,
-    one segment over many blocks, one-item segments, a leading channel -1
-    run, int32 channels, K to 2**20 + 7), then its time at the main path's
-    sizes."""
+    """The segmented depart kernel against its plain version (tile edges,
+    one segment over many tiles, one-item segments, a leading channel -1
+    run, int32 channels, K to 2**20 + 7 on many channels and on one
+    segment, the longest look-back), on more tiles than the card holds at
+    once, and over back-to-back calls on one stream (each call's workspace
+    zeroed anew); then its time at the main path's sizes."""
     blk = LK.block_items()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = LK.blocks_per_sm() * sms
+    big = (2 * resident + 3) * blk + 5
     cases = [dict(k=k) for k in (1, 2, blk - 1, blk, blk + 1, 3 * blk + 5,
                                  (1 << 20) + 7)]
     cases += [dict(k=5 * blk + 3, one_segment=True),
               dict(k=4 * blk + 9, singletons=True),
               dict(k=3 * blk + 1, lead_minus_one=blk + 17),
-              dict(k=2 * blk + 11, offset=7 << 40)]
+              dict(k=2 * blk + 11, offset=7 << 40),
+              dict(k=(1 << 20) + 7, one_segment=True),
+              dict(k=big), dict(k=big, one_segment=True)]
     worst = 0
+
+    def compare(got, want, what):
+        nonlocal worst
+        worst = max(worst, int((got - want).abs().max()))
+        check(torch.equal(got, want), f"segmented_depart != plain for {what}")
+
     for i, case in enumerate(cases):
         kw = dict(case)
         cols = [torch.from_numpy(x).cuda()
@@ -498,29 +512,51 @@ def phase_depart_vs_plain(torch, LK, LR):
         for chan in (cols[0], cols[0].int()):
             got = LK.segmented_depart(chan, *cols[1:])
             torch.cuda.synchronize()
-            worst = max(worst, int((got - want).abs().max()))
-            check(torch.equal(got, want),
-                  f"segmented_depart != plain for {case} ({chan.dtype})")
+            compare(got, want, f"{case} ({chan.dtype})")
+    # ten calls enqueued back to back, one segment and many channels in
+    # turn, so each call's workspace may reuse the last one's memory
+    streams = [[torch.from_numpy(x).cuda() for x in LR.random_stream(
+        300_007, 3000 + i, one_segment=i % 2 == 0)] for i in range(10)]
+    wants = [LR.segmented_depart_ref(*cols) for cols in streams]
+    torch.cuda.synchronize()
+    gots = [LK.segmented_depart(*cols) for cols in streams]
+    torch.cuda.synchronize()
+    for i, (got, want) in enumerate(zip(gots, wants)):
+        compare(got, want, f"back-to-back call {i}")
     emit(phase="kernel_vs_plain", kernel="segmented_depart", block_items=blk,
-         cases=2 * len(cases), max_abs_err=worst)
+         resident_blocks=resident, grid_past_resident=-(-big // blk),
+         cases=2 * len(cases) + len(streams), max_abs_err=worst)
 
     timings = {}
     for k in (268_800, 688_128):
-        cols = [torch.from_numpy(x).cuda()
-                for x in LR.random_stream(k, k, n_chan=600)]
-        chan32 = cols[0].int()
-        ms, host_ms = time_cuda(torch, lambda: LK.segmented_depart(*cols), 50)
-        ms32, _ = time_cuda(torch, lambda: LK.segmented_depart(
-            chan32, *cols[1:]), 50)
-        plain_ms, _ = time_cuda(torch,
-                                lambda: LR.segmented_depart_ref(*cols), 5)
-        bound, by = bound_ms(k, DEPART_BYTES_PER_ITEM, DEPART_OPS_PER_ITEM)
-        timings[k] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                          bound_by=by)
-        emit(phase="kernel_timing", kernel="segmented_depart", K=k, ms=ms,
-             ms_int32_channel=ms32, host_ms_per_call=host_ms,
-             plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-             library_ms=None)
+        for label, kw in (("n_chan=600", dict(n_chan=600)),
+                          ("one_segment", dict(one_segment=True))):
+            cols = [torch.from_numpy(x).cuda()
+                    for x in LR.random_stream(k, k, **kw)]
+            chan32 = cols[0].int()
+            ms, host_ms = time_cuda(torch,
+                                    lambda: LK.segmented_depart(*cols), 50)
+            ms32, _ = time_cuda(torch, lambda: LK.segmented_depart(
+                chan32, *cols[1:]), 50)
+            plain_ms, _ = time_cuda(torch,
+                                    lambda: LR.segmented_depart_ref(*cols), 5)
+            bound, by = bound_ms(k, DEPART_BYTES_PER_ITEM,
+                                 DEPART_OPS_PER_ITEM)
+            bound32, by32 = bound_ms(k, DEPART_BYTES_PER_ITEM_I32,
+                                     DEPART_OPS_PER_ITEM)
+            # where a call's device time goes: the kernel and the memset
+            # of its workspace, over 20 calls
+            prof = profile_device(torch, lambda: [
+                LK.segmented_depart(*cols) for _ in range(20)])
+            if label == "n_chan=600":
+                timings[k] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                  bound_by=by)
+            emit(phase="kernel_timing", kernel="segmented_depart", K=k,
+                 stream=label, ms=ms, host_ms_per_call=host_ms,
+                 plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                 ms_int32_channel=ms32, bound_ms_int32_channel=bound32,
+                 bound_by_int32_channel=by32, library_ms=None,
+                 profile_20_calls=prof["top_kernels"])
     return worst, timings
 
 
@@ -1305,9 +1341,11 @@ def main() -> int:
         load()
     emit(phase="build", sources=[str(x.relative_to(ROOT)) for x in sources],
          seconds=time.perf_counter() - t0)
-    # what ptxas made of the fused serve round, the RG-LRU scan and the
-    # tensor-core kernels, and the latter's dynamic shared memory per block
-    for src, smem in ((K._SOURCE, None), (RK._SOURCE, None),
+    # what ptxas made of the fused serve round, the segmented depart scan,
+    # the RG-LRU scan and the tensor-core kernels, and the latter's dynamic
+    # shared memory per block
+    for src, smem in ((K._SOURCE, None), (LK._SOURCE, None),
+                      (RK._SOURCE, None),
                       (FA._SOURCE_TC, {f"D{d}": FA._lib_tc(
                           ).flash_attention_tc_smem(d) for d in (64, 128,
                                                                  256)}),

@@ -1,9 +1,8 @@
 """CPU emulation of the three-phase block scan of the port's CUDA scans.
 
 The scans of `csrc/serve_round.cu` (the map scan, and the fused round's
-"last present" lookups) and of `csrc/link_contention.cu` share one
-structure, because CUDA blocks run in no order and cannot hand a running
-state from one block to the next:
+"last present" lookups) share one structure, because CUDA blocks run in no
+order and cannot hand a running state from one block to the next:
 
   (A) each block of ``threads * items`` items builds one aggregate map: each
       thread composes its ``items`` consecutive maps in order, then the
@@ -63,7 +62,8 @@ def _block_scan(agg, identity, compose, warp):
     with ``warp`` lanes, Hillis–Steele inside each warp, Hillis–Steele over
     the warp totals, and each warp's exclusive total composed under its
     lanes.  Slot 0 of the exclusive scan holds the identity (never
-    applied)."""
+    applied).  The look-back emulation of ``link_contention`` scans its
+    tiles with it too."""
     t = agg[0].shape[-1]
     if warp is None or warp >= t:
         inc = _hillis_steele(agg, identity, compose)

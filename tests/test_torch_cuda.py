@@ -177,9 +177,15 @@ def test_cuda_simulate_equals_cpu(card, fabric, warm):
                                 dict(singletons=True),
                                 dict(lead_minus_one=2100)])
 def test_cuda_depart_kernel_equals_plain(card, kw):
-    """Bit-equal at block edges, int64 and int32 channels."""
+    """Bit-equal at tile edges, at 2**20 + 7 items (on one segment: the
+    longest look-back), on more tiles than the card holds at once, with
+    int64 and int32 channels, and over ten calls enqueued back to back on
+    one stream (each call's workspace zeroed anew)."""
     blk = LK.block_items()
-    for k in (1, 2, blk - 1, blk, blk + 1, 3 * blk + 5, 40_000):
+    resident = LK.blocks_per_sm() * torch.cuda.get_device_properties(
+        card).multi_processor_count
+    for k in (1, 2, blk - 1, blk, blk + 1, 3 * blk + 5, 40_000,
+              (1 << 20) + 7, (resident + 3) * blk + 5):
         cols = [torch.from_numpy(x).to(card)
                 for x in random_stream(k, k, **dict(
                     kw, lead_minus_one=min(kw.get("lead_minus_one", 0), k)))]
@@ -188,6 +194,17 @@ def test_cuda_depart_kernel_equals_plain(card, kw):
             got = LK.segmented_depart(chan, *cols[1:])
             torch.cuda.synchronize()
             assert torch.equal(got, want), (k, kw, chan.dtype)
+    streams = [[torch.from_numpy(x).to(card) for x in random_stream(
+        50_001, i, **(kw if i % 2 else dict(n_chan=300)))]
+        for i in range(10)]
+    wants = [segmented_depart_ref(*cols) for cols in streams]
+    for chan_dtype in (torch.int64, torch.int32):
+        torch.cuda.synchronize()
+        gots = [LK.segmented_depart(cols[0].to(chan_dtype), *cols[1:])
+                for cols in streams]
+        torch.cuda.synchronize()
+        for i, (got, want) in enumerate(zip(gots, wants)):
+            assert torch.equal(got, want), (i, kw, chan_dtype)
 
 
 @pytest.mark.cuda

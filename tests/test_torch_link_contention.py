@@ -8,9 +8,11 @@ the JAX reference.
   ``segmented_depart`` at ``blk=128`` too) and the ``(7 << 40)``-offset
   int64 case; plus one long segment, one-item segments and a leading run of
   channel -1.
-* `segmented_depart_blocked`, the CPU emulation of the CUDA kernel's
-  three-phase block decomposition, equals the plain version at small block
-  shapes, across block edges.
+* `segmented_depart_lookback`, the CPU emulation of the CUDA kernel's
+  single-pass look-back scan, equals the plain version at small tile
+  shapes, across tile edges, for several seeded patterns of what the
+  predecessors have published; `look_back` walks windows of 32 tiles
+  nearest first and stops at the first published prefix.
 * The CUDA wrapper refuses CPU tensors (the kernel itself is held against
   the plain version in ``test_torch_cuda.py``, on a card).
 
@@ -32,7 +34,8 @@ from repro.kernels.link_contention.ref import segmented_depart_ref as jax_ref  #
 from repro_torch.kernels.link_contention import kernel as pkernel  # noqa: E402
 from repro_torch.kernels.link_contention.ops import depart_times  # noqa: E402
 from repro_torch.kernels.link_contention.ref import (  # noqa: E402
-    random_stream, segmented_depart_blocked, segmented_depart_ref)
+    AGGREGATE, NEG, PREFIX, look_back, random_stream,
+    segmented_depart_lookback, segmented_depart_ref)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -101,30 +104,78 @@ def test_depart_times_keeps_int32_channels_and_widens_others():
         assert torch.equal(got, want)
 
 
+# publication patterns of the look-back emulation: seed 0 publishes no
+# early prefix (every look-back walks to a tile with a head)
+LOOKBACK_SEEDS = [0, 1, 2]
+
+
+@pytest.mark.parametrize("seed", LOOKBACK_SEEDS)
 @pytest.mark.parametrize("threads,items", [(1, 1), (2, 1), (4, 2), (8, 4)])
 @pytest.mark.parametrize("case", [
     dict(k=1), dict(k=7), dict(k=8), dict(k=9), dict(k=77),
     dict(k=150, one_segment=True), dict(k=150, singletons=True),
     dict(k=150, lead_minus_one=40), dict(k=333, n_chan=3),
     dict(k=300, offset=7 << 40)], ids=lambda c: str(c))
-def test_blocked_emulation_equals_plain(case, threads, items):
-    """The kernel's three-phase decomposition (block aggregates, one pass
-    over them, a re-scan of every block) on the CPU, at block sizes that put
-    segment edges everywhere relative to thread and block edges, and with
-    more blocks than one carry chunk."""
+def test_lookback_emulation_equals_plain(case, threads, items, seed):
+    """The kernel's single-pass look-back scan on the CPU, at tile sizes
+    that put segment edges everywhere relative to thread and tile edges,
+    with look-backs over more than one window of 32 tiles."""
     kw = dict(case)
     cols = _t(*random_stream(kw.pop("k"), 11, **kw))
-    assert torch.equal(segmented_depart_blocked(*cols, threads=threads,
-                                                items=items),
+    assert torch.equal(segmented_depart_lookback(*cols, threads=threads,
+                                                 items=items, seed=seed),
                        segmented_depart_ref(*cols))
 
 
-def test_blocked_emulation_at_kernel_block_shape():
-    """The kernel's own block shape (256 threads x 8 items), several blocks
-    and a segment that crosses all of them."""
+@pytest.mark.parametrize("seed", LOOKBACK_SEEDS)
+def test_lookback_emulation_at_kernel_block_shape(seed):
+    """The kernel's own tile shape (256 threads x 8 items, warps of 32),
+    several tiles and a segment that crosses all of them."""
     cols = _t(*random_stream(3 * 2048 + 5, 5, n_chan=2))
-    assert torch.equal(segmented_depart_blocked(*cols),
+    assert torch.equal(segmented_depart_lookback(*cols, seed=seed),
                        segmented_depart_ref(*cols))
+
+
+@pytest.mark.parametrize("seed", LOOKBACK_SEEDS)
+@pytest.mark.parametrize("threads,items", [(1, 2), (2, 2)])
+def test_lookback_emulation_one_segment_over_many_windows(threads, items,
+                                                          seed):
+    """One segment over 70 tiles: tile 69's look-back crosses two windows
+    of 32 when no tile publishes early."""
+    cols = _t(*random_stream(70 * threads * items, 8, one_segment=True))
+    assert torch.equal(segmented_depart_lookback(*cols, threads=threads,
+                                                 items=items, seed=seed),
+                       segmented_depart_ref(*cols))
+
+
+def _sequential_incoming(status, agg_c, agg_m, incl):
+    """The incoming depart by walking back one tile at a time."""
+    j = len(status) - 1
+    while j >= 0 and status[j] != PREFIX:
+        j -= 1
+    v = NEG if j < 0 else int(incl[j])
+    for i in range(j + 1, len(status)):
+        v = max(int(agg_c[i]), v + int(agg_m[i]))
+    return v
+
+
+@pytest.mark.parametrize("n,prefix_at,windows", [
+    (1, None, 1), (5, 4, 1), (40, 8, 1), (40, 7, 2), (40, 0, 2),
+    (70, None, 3), (64, 32, 1), (64, 31, 2), (97, 1, 3)])
+def test_look_back_walks_windows_nearest_first(n, prefix_at, windows):
+    """`look_back` over ``n`` predecessors whose only prefix is at
+    ``prefix_at`` (None: none, so the walk runs past tile 0) reads the
+    given number of windows and equals the walk one tile at a time."""
+    rng = np.random.default_rng(n)
+    status = torch.full((n,), AGGREGATE)
+    if prefix_at is not None:
+        status[prefix_at] = PREFIX
+    agg_c = torch.from_numpy(rng.integers(0, 1 << 30, n))
+    agg_m = torch.from_numpy(rng.integers(0, 1000, n))
+    incl = torch.from_numpy(rng.integers(0, 1 << 30, n))
+    got, walked = look_back(status, agg_c, agg_m, incl)
+    assert walked == windows
+    assert got == _sequential_incoming(status, agg_c, agg_m, incl)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
