@@ -10,13 +10,23 @@ each against its plain PyTorch version on the card, and drives the port's
 paths through them:
 
   * the main path (`build_workload` -> `simulate` -> `request_stats`) on the
-    paper's topology study at scale 16 and on two long traces (the fused
+    paper's topology study at scale 16 (`studies.topology.workload`) and on
+    two long traces (the fused
     serve-round kernel, once per round; its converged round held against
     the plain round and its time split by step);
   * the link-layer studies (`studies.link_layer`, `studies.link_reliability`)
     at the reference benchmarks' full sizes, their sweeps stacked
     (`simulate_stacked`: one fused serve-round launch per round for all
     members);
+  * the paper-figure studies (`studies.validation`, `topology`, `routing`,
+    `full_duplex`, `traces`: Fig. 7/8, 10-13, 16-20 and Table IV) at the
+    reference benchmarks' full sizes, every schedule through the fused
+    serve round (where the reference's `simulate_auto` would hand a
+    schedule to the host oracle, the port's runs the fixpoint on, on the
+    card, until it converges); each converged schedule is held against the
+    oracle, one that ends unconverged at its default budget (the ring at
+    scale 16, as in the reference) against the port's CPU run with that
+    budget, and Fig. 10 at scale 16 against the main path's bandwidth;
   * `depart_times` (segmented depart kernel) on the converged rounds of the
     paper fabrics and of every expected-mode sweep member, against the
     fused serve round's departures;
@@ -37,10 +47,11 @@ serve round has the fused kernel (the engine's path) and a map-only scan
 sharing its device code; both are held against the plain versions and
 timed.
 
-Every schedule is checked against the port's event-driven oracle, every
-served request against a manual prefill/decode loop, and the script prints
-one JSON object per result line.  The last line is ``{"ok": true, "device": {...}}``; any failed
-check raises, so the script exits non-zero and never prints it.  It imports
+Every converged schedule is checked against the port's event-driven
+oracle, every served request against a manual prefill/decode loop, and the
+script prints one JSON object per result line.  The last line is
+``{"ok": true, "device": {...}}``; any failed check raises, so the script
+exits non-zero and never prints it.  It imports
 nothing of JAX and nothing of the ``repro`` package.
 """
 
@@ -117,9 +128,6 @@ SSD_TOL = (3e-5, 3e-4)
 # unconverged at the bound and `simulate_auto` hands it to the oracle.
 REF_ROUNDS = {"ring": 83}
 SPIN_CYCLES = 200_000_000  # ~0.1 s of device spin at the H100's clocks
-PORT_MBPS = 64_000
-FIXED_PS = 26_000
-FABRICS = ("chain", "tree", "ring", "spine_leaf", "fully_connected")
 
 
 def emit(**obj):
@@ -129,32 +137,6 @@ def emit(**obj):
 def check(cond, what):
     if not cond:
         raise AssertionError(f"chip_smoke: {what}")
-
-
-# ---------------------------------------------------------------------------
-# inputs
-# ---------------------------------------------------------------------------
-
-def build_topo(P, kind, n_pairs):
-    kw = dict(bw_MBps=PORT_MBPS, fixed_ps=FIXED_PS)
-    if kind == "spine_leaf":
-        return P.spine_leaf(n_pairs, n_spines=2, per_leaf=min(4, n_pairs),
-                            **kw)
-    return P.TOPOLOGY_BUILDERS[kind](n_pairs, **kw)
-
-
-def paper_workload(np, P, topo, n_per_pair, interval_ps, device):
-    """The paper's §V-A setup: every requester sends uniform reads to every
-    memory; ECMP route choices from a fixed seed."""
-    mems = [int(m) for m in topo.memories()]
-    specs = [P.RequesterSpec(node=int(r), n_requests=n_per_pair * len(mems),
-                             targets=mems, issue_interval_ps=interval_ps,
-                             footprint_lines=4096 * len(mems), seed=i)
-             for i, r in enumerate(topo.requesters())]
-    n_tx = sum(s.n_requests for s in specs)
-    rc = np.random.default_rng(17).integers(0, 1 << 20, n_tx)
-    return P.build_workload(topo.build(), specs, header_bytes=64,
-                            route_choice=rc, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -608,11 +590,20 @@ def phase_flit_vs_plain(np, torch, FK, FR, max_payload, max_ppm):
 
 def check_study_runs(np, P, name, log):
     """Every schedule a study resolved — each member of a stacked sweep —
-    against the port's oracle; a stacked sweep launches the fused serve
-    round once per round for all its members."""
-    members = 0
+    held bit for bit: a converged one against the port's oracle; an
+    unconverged one (a plain `simulate` that ended at its default budget,
+    as the reference's does: its row says ``converged=False``) against the
+    port's CPU `simulate` of the same tables with the same budget, which
+    must end at that budget too.  No schedule may come from the oracle
+    itself: every one is the fused serve round's, launched once per round
+    (a stacked sweep once per round for all its members, which must
+    converge).  Returns how many schedules took each route, and how many
+    converged past their round bound (`SimOptions` ``check="extend"``)."""
+    routes = dict(oracle=0, cpu_at_budget=0, past_bound=0)
     for run in log.runs:
         rounds = run.schedule.rounds
+        check(not run.used_oracle,
+              f"{name}/{run.label}: the host oracle answered")
         if run.stacked:
             check(run.launches == max(rounds),
                   f"{name}/{run.label}: {run.launches} serve_round launches "
@@ -626,20 +617,39 @@ def check_study_runs(np, P, name, log):
                   f"for {rounds} rounds")
             tables = [(run.hops, run.channels, run.issue_ps, run.schedule)]
         for i, (hops, ch, issue, sched) in enumerate(tables):
-            check(sched.converged, f"{name}/{run.label}[{i}] not converged")
-            oracle = P.simulate_ref(hops, ch, issue)
+            what = f"{name}/{run.label}[{i}]"
+            budget = P.round_bound(hops)
+            if sched.converged:
+                want = P.simulate_ref(hops, ch, issue)
+                routes["oracle"] += 1
+                routes["past_bound"] += sched.rounds > budget
+            else:
+                check(not run.stacked, f"{what} not converged")
+                cpu = P.simulate(P.hops_from_arrays(hops, device="cpu"),
+                                 P.channels_from_arrays(ch, device="cpu"),
+                                 P.issue_from_array(issue, device="cpu"),
+                                 P.SimOptions(max_rounds=budget))
+                check(sched.rounds == cpu.rounds == budget
+                      and not cpu.converged
+                      and sched.residual_ps == cpu.residual_ps,
+                      f"{what}: unconverged after {sched.rounds} rounds "
+                      f"(residual {sched.residual_ps}), the CPU run after "
+                      f"{cpu.rounds} (residual {cpu.residual_ps}, converged "
+                      f"{cpu.converged}), budget {budget}")
+                want = {f: getattr(cpu, f).numpy()
+                        for f in ("start", "depart", "arrive", "complete")}
+                routes["cpu_at_budget"] += 1
             for f in ("start", "depart", "arrive", "complete"):
                 check(np.array_equal(getattr(sched, f).cpu().numpy(),
-                                     oracle[f]),
-                      f"{name}/{run.label}[{i}]: {f} differs from the "
-                      f"oracle")
-            members += 1
-    return members
+                                     want[f]),
+                      f"{what}: {f} differs from the "
+                      f"{'oracle' if sched.converged else 'CPU run'}")
+    return routes
 
 
 def run_study(np, torch, P, K, module, name):
     """One study at the reference's full size on the card: rows, host time
-    by phase, every schedule against the oracle."""
+    by phase, every schedule checked (`check_study_runs`)."""
     from repro_torch.studies.common import StudyLog
 
     log = StudyLog(sync=torch.cuda.synchronize,
@@ -648,7 +658,7 @@ def run_study(np, torch, P, K, module, name):
     rows = module.run(quick=False, device="cuda", log=log)
     total_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    members = check_study_runs(np, P, name, log)
+    routes = check_study_runs(np, P, name, log)
     for row in rows:
         emit(phase="study_row", study=name, name=row.name,
              us_per_call=row.us_per_call, derived=row.derived)
@@ -656,8 +666,12 @@ def run_study(np, torch, P, K, module, name):
          lower_s=log.seconds.get("lower", 0.0),
          verify_s=log.seconds.get("verify", 0.0),
          simulate_s=log.seconds.get("simulate", 0.0),
+         route_s=log.seconds.get("route", 0.0),
+         schedules=len(log.runs),
+         launches=sum(r.launches for r in log.runs),
          rounds={r.label: r.schedule.rounds for r in log.runs},
-         members_checked=members, oracle_s=time.perf_counter() - t0)
+         members_checked=routes["oracle"] + routes["cpu_at_budget"],
+         checked_by=routes, check_s=time.perf_counter() - t0)
     return rows, log
 
 
@@ -1317,8 +1331,9 @@ def main() -> int:
     from repro_torch.kernels.link_contention import ops as LO
     from repro_torch.kernels.serve_round import kernel as K, ref
     from repro_torch.kernels.ssd_chunk import kernel as SK, ref as SR
-    from repro_torch.studies import (link_explorer, link_layer,
-                                     link_reliability)
+    from repro_torch.studies import (full_duplex, link_explorer,
+                                     link_layer, link_reliability, routing,
+                                     topology, traces, validation)
 
     # phase 0: the card
     smi = subprocess.run(
@@ -1366,7 +1381,8 @@ def main() -> int:
     worst_ssd, ssd_timings = phase_ssd_vs_plain(torch, SK, SR)
 
     # warm up the CUDA libraries on a tiny workload (not part of the run)
-    tiny = paper_workload(np, P, build_topo(P, "chain", 2), 2, 500, "cuda")
+    _, tiny = topology.workload(topology.build_topo("chain", 2), 2,
+                                topology.FLOOD_IV_PS, device="cuda")
     P.simulate(tiny.hops, tiny.channels, tiny.issue_ps)
     torch.cuda.synchronize()
 
@@ -1374,10 +1390,11 @@ def main() -> int:
     K.LAUNCHES["serve_round"] = 0
     K.LAUNCHES["serve_scan"] = 0
     runs = []
+    fig10 = {}
     cpu_threads = torch.get_num_threads()
-    for fabric in FABRICS:
-        wl = paper_workload(np, P, build_topo(P, fabric, 8), 120, 500,
-                            "cuda")
+    for fabric in topology.FABRICS:
+        _, wl = topology.workload(topology.build_topo(fabric, 8), 120,
+                                  topology.FLOOD_IV_PS, device="cuda")
         sched, opts, row = run_path(np, torch, P, fabric, wl)
         # the same tables through the port's CPU path
         t0 = time.perf_counter()
@@ -1390,14 +1407,16 @@ def main() -> int:
         check(cpu.rounds == sched.rounds, f"{fabric}: CPU rounds differ")
         row.update(fabric=fabric, cpu_s=time.perf_counter() - t0,
                    cpu_threads=cpu_threads,
-                   fig10_norm_bw=row["steady_bandwidth_MBps"] / PORT_MBPS)
+                   fig10_norm_bw=(row["steady_bandwidth_MBps"]
+                                  / topology.PORT_MBPS))
         emit(phase="paper_path", **row)
+        fig10[fabric] = row["fig10_norm_bw"]
         runs.append((fabric, wl, sched))
 
     # 4a: past the reference kernel's int32 span (2**29 ps per round)
-    tree = build_topo(P, "tree", 8)
-    wl = paper_workload(np, P, P.with_flit(tree, P.FlitConfig("flit256")),
-                        512, 200_000, "cuda")
+    tree = topology.build_topo("tree", 8)
+    _, wl = topology.workload(P.with_flit(tree, P.FlitConfig("flit256")),
+                              512, 200_000, device="cuda")
     sched, _, row = run_path(np, torch, P, "long_span", wl)
     round_span = int(sched.arrive[:, :-1].max() - sched.arrive[:, :-1].min())
     check(round_span > (1 << 29) - 1, "long-span trace stays inside 2**29 ps")
@@ -1408,7 +1427,8 @@ def main() -> int:
     rel = P.FlitConfig("flit256", ber=1e-5, reliability="stochastic",
                        rel_seed=7, retrain_threshold=2,
                        retrain_ps=1_000_000)
-    wl = paper_workload(np, P, P.with_flit(tree, rel), 128, 6_000, "cuda")
+    _, wl = topology.workload(P.with_flit(tree, rel), 128, 6_000,
+                              device="cuda")
     markers = int(P.link_layer.retrain_marker_mask(
         wl.hops.channel.cpu().numpy(), wl.hops.nbytes.cpu().numpy(),
         wl.hops.valid.cpu().numpy(),
@@ -1461,6 +1481,35 @@ def main() -> int:
                 emit(phase="stacked_vs_loop", study=name, sweep=run.label,
                      round_K=k, fused_round_max_abs_err=err,
                      **stacked_vs_loop(torch, P, run))
+
+    # phase 5b: the paper studies at the reference's full sizes (Fig. 7/8,
+    # 10-13, 16-20, Table IV), with the serve-round count read around them
+    K.LAUNCHES["serve_round"] = 0
+    K.LAUNCHES["serve_scan"] = 0
+    paper, unconverged = {}, []
+    for name, module in (("validation", validation), ("topology", topology),
+                         ("routing", routing), ("full_duplex", full_duplex),
+                         ("traces", traces)):
+        paper[name], log = run_study(np, torch, P, K, module, name)
+        unconverged += [f"{name}/{r.label}" for r in log.runs
+                        if not r.stacked and not r.schedule.converged]
+    paper_launches = K.LAUNCHES["serve_round"]
+    check(paper_launches > 0, "the paper studies never launched serve_round")
+    launches += paper_launches
+    scan_launches += K.LAUNCHES["serve_scan"]
+    # Fig. 10 at scale 16 is the main path's workload: the same specs and
+    # ECMP seed, so each fabric's row carries paper_path's bandwidth
+    norm = {r.name: re.search(r"norm_bw=([^;]+)", r.derived)[1]
+            for r in paper["topology"] if r.name.startswith("fig10/")}
+    for fabric in topology.FABRICS:
+        got = norm[f"fig10/{fabric}/scale16"]
+        check(got == f"{fig10[fabric]:.2f}",
+              f"fig10/{fabric}/scale16: norm_bw={got}, paper_path "
+              f"{fig10[fabric]:.2f}")
+    emit(phase="paper_studies", serve_round_launches=paper_launches,
+         fig10_scale16={f: norm[f"fig10/{f}/scale16"]
+                        for f in topology.FABRICS},
+         unconverged_schedules=unconverged)
 
     # phase 6: depart_times on real converged rounds (its path), against
     # the serve-scan kernel's departures

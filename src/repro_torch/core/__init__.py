@@ -33,6 +33,11 @@ from .convert import (  # noqa: F401
     carry_from_arrays, channels_from_arrays, hops_from_arrays,
     issue_from_array, schedule_to_numpy,
 )
+from . import routing, traces, vcs  # noqa: F401
+from .traces import (  # noqa: F401
+    ARRIVAL_PATTERNS, WORKLOADS, arrival_times, request_stream, tenant_mix,
+)
+from .routing import route_and_simulate, STRATEGIES  # noqa: F401
 
 __all__ = [
     # topology / link layer
@@ -48,8 +53,11 @@ __all__ = [
     # stacked sweeps (the counterpart of jax.vmap(simulate))
     "simulate_stacked", "stack_members", "member", "stacked_request_stats",
     "stacked_channel_stats",
-    # device layer
-    "RequesterSpec", "Workload", "build_workload",
+    # device layer / workloads / traces
+    "RequesterSpec", "Workload", "build_workload", "ARRIVAL_PATTERNS",
+    "WORKLOADS", "arrival_times", "request_stream", "tenant_mix",
+    # routing
+    "route_and_simulate", "STRATEGIES",
     # oracle / verification
     "join_depth", "simulate_ref", "ref_schedule", "Finding", "VerifyError",
     "VerifyReport", "verify_workload", "assert_valid", "verify_built",
@@ -58,5 +66,5 @@ __all__ = [
     "issue_from_array", "schedule_to_numpy",
     # submodules
     "topology", "engine", "devices", "link_layer", "calibration", "verify",
-    "ref_des", "convert",
+    "ref_des", "convert", "traces", "routing", "vcs",
 ]

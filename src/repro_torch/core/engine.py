@@ -210,7 +210,9 @@ def empty_carry(n_channels: int, n_rows: int | None = None,
     )
 
 
-_CHECK_MODES = ("off", "static", "oracle")
+_CHECK_MODES = ("off", "static", "oracle", "extend")
+# "extend": the fixpoint may run on to this many times its budget
+EXTEND_FACTOR = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,7 +226,12 @@ class SimOptions:
                            when the fixpoint reports non-convergence;
                 "static" — also run the fabric-IR verifier (`verify`) on
                            the lowered triple first and raise
-                           `verify.VerifyError` on any finding.
+                           `verify.VerifyError` on any finding;
+                "extend" — on non-convergence first run the fixpoint on,
+                           on the tables' device, to ``EXTEND_FACTOR``
+                           times its budget (once converged it is the
+                           exact schedule), and fall back to the oracle
+                           only if it still has not converged.
     damping     damped Picard iteration of the coupled coherence fixpoint
                 (no entry point of this slice reads it).
     """
@@ -395,14 +402,21 @@ def simulate(hops: Hops, channels: Channels, issue_ps: torch.Tensor,
     """
     opts = options if options is not None else SimOptions()
     budget = opts.max_rounds if opts.max_rounds > 0 else round_bound(hops)
+    return _iterate(hops, channels, issue_ps,
+                    _initial_arrive(hops, channels, issue_ps), 0, budget,
+                    carry)
+
+
+def _iterate(hops: Hops, channels: Channels, issue_ps, arrive, rounds: int,
+             budget: int, carry: StreamCarry | None) -> Schedule:
+    """Run the fixpoint from ``arrive`` (after ``rounds`` rounds) until a
+    round leaves the arrivals unchanged or ``budget`` rounds in all."""
     has_join = hops.join_id is not None
     join_seed = carry.join_seed_ps if carry is not None else None
-
     n, h = hops.channel.shape
-    arrive = _initial_arrive(hops, channels, issue_ps)
     start = depart = torch.zeros((n, h), dtype=torch.int64,
                                  device=arrive.device)
-    rounds, resid = 0, -1
+    resid = -1
     while rounds < budget and resid != 0:
         eff_issue = (_join_gate(hops, issue_ps, arrive, join_seed)
                      if has_join else issue_ps)
@@ -551,6 +565,8 @@ def simulate_auto(hops: Hops, channels: Channels, issue_ps: torch.Tensor,
 
     ``SimOptions.check``: "oracle" (default) falls back to the event-driven
     `ref_des` oracle when the fixpoint does not converge within its budget;
+    "extend" first runs the fixpoint on past its budget (`SimOptions`), so
+    the schedule stays on the tables' device where that converges;
     "off" returns the fixpoint's schedule as it is; "static" first runs the
     fabric-IR verifier over the lowered triple (and the carry) and raises
     `verify.VerifyError` on any finding — an explicit ``max_rounds`` below
@@ -564,6 +580,9 @@ def simulate_auto(hops: Hops, channels: Channels, issue_ps: torch.Tensor,
         verify.assert_valid(hops, channels, issue_ps, carry=carry,
                             max_rounds=opts.max_rounds or None)
     sched = simulate(hops, channels, issue_ps, opts, carry=carry)
+    if opts.check == "extend" and not sched.converged:
+        sched = _iterate(hops, channels, issue_ps, sched.arrive,
+                         sched.rounds, EXTEND_FACTOR * sched.rounds, carry)
     if opts.check == "off" or sched.converged:
         return sched, False
     from . import ref_des  # local import: the oracle is pure Python

@@ -1,15 +1,29 @@
-"""The link-layer design study, on the port.
+"""The paper's studies, on the port.
 
 Each module reproduces one file of the reference row for row, on the card
 by default (``device="cpu"`` runs the plain PyTorch path):
 
+  * `validation`       — ``benchmarks/bench_validation.py``: Fig. 7 idle
+    latency and peak bandwidth vs R:W mix, Fig. 8 loaded latency, the
+    Table IV SPEC overhead proxy;
+  * `topology`         — ``benchmarks/bench_topology.py``: Fig. 10
+    bandwidth vs scale, Fig. 11 latency by hop count, Fig. 12
+    ISO-bisection latency;
+  * `routing`          — ``benchmarks/bench_routing.py``: Fig. 13
+    oblivious, ECMP and adaptive routing under noisy neighbours;
+  * `full_duplex`      — ``benchmarks/bench_full_duplex.py``: Fig. 16/17
+    duplex mode x header x R:W mix;
   * `link_layer`       — ``benchmarks/bench_link_layer.py``: PCIe 5 vs 6
     generations, the 236/256 flit-efficiency gate, the BER goodput sweep;
   * `link_reliability` — ``benchmarks/bench_link_reliability.py``: zero-BER
     equivalence, the p50/p99 tail sweep of both reliability modes, the
     retraining-stall gate;
-  * `link_explorer`    — ``examples/link_explorer.py``: flit modes, BER and
-    rx credits on a spine-leaf fabric, and the `flit_sweep` kernel grid.
+  * `traces`           — ``benchmarks/bench_traces.py``: Fig. 18/19 trace
+    replay on five fabrics, Fig. 20a/b duplex speedup and mix slope;
+  * `link_explorer`, `topology_explorer` — ``examples/link_explorer.py`` and
+    the fabric parts of ``examples/topology_explorer.py``;
+  * `run`              — ``benchmarks/run.py``: the CSV runner over the
+    studies above.
 
 The sweeps the reference ``jax.vmap``s run as one `engine.simulate_stacked`
 call each.

@@ -5,17 +5,29 @@ the reference's ``benchmarks/bench_*.py`` rows (``name``, host µs of the
 step, the ``derived`` payload with its pass flags).  A `StudyLog`, when the
 caller passes one, keeps what the study did on the way: host seconds per
 phase (``lower`` — `build_workload` and the reliability sampling and
-marker insertion; ``verify``; ``simulate``) and every schedule it resolved,
-with the tables it came from and the serve-scan launches it took, so a
-caller can time the phases apart and hold each schedule against the oracle.
+marker insertion; ``route`` — the routing study's lowering and route
+choice; ``verify``; ``simulate``) and every schedule it resolved, with the
+tables it came from and the serve-scan launches it took, so a caller can
+time the phases apart and hold each schedule against the oracle.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 from dataclasses import dataclass, field
 from typing import Callable
+
+from ..core.engine import SimOptions, simulate_auto
+
+# Where the reference's benches call ``simulate_auto``, the port's studies
+# run the fixpoint on past its round bound on the tables' device before the
+# host oracle would answer (``check="extend"``): a converged fixpoint is the
+# oracle's exact schedule, so the rows are the reference's, computed on the
+# card.
+simulate_exact = functools.partial(simulate_auto,
+                                   options=SimOptions(check="extend"))
 
 
 @dataclass
@@ -40,7 +52,8 @@ class Timer:
 @dataclass
 class Run:
     """One resolved schedule: ``stacked`` runs carry a leading member axis
-    on every table (`engine.simulate_stacked`)."""
+    on every table (`engine.simulate_stacked`); ``used_oracle`` says that
+    `engine.simulate_auto` answered with the oracle's schedule."""
 
     label: str
     hops: object
@@ -49,6 +62,7 @@ class Run:
     schedule: object
     stacked: bool
     launches: int
+    used_oracle: bool = False
 
 
 @dataclass
@@ -64,17 +78,24 @@ class StudyLog:
     launches: Callable[[], int] = lambda: 0
     seconds: dict = field(default_factory=dict)
     runs: list = field(default_factory=list)
+    _inner: list = field(default_factory=list, repr=False)
 
     @contextlib.contextmanager
     def phase(self, name: str):
+        """Time a phase; a phase opened inside another counts for itself
+        only, and the outer one keeps the rest."""
         self.sync()
         t0 = time.perf_counter()
+        self._inner.append(0.0)
         try:
             yield
         finally:
             self.sync()
+            took = time.perf_counter() - t0
             self.seconds[name] = (self.seconds.get(name, 0.0)
-                                  + time.perf_counter() - t0)
+                                  + took - self._inner.pop())
+            if self._inner:
+                self._inner[-1] += took
 
     def simulate(self, label, fn, hops, channels, issue_ps, *,
                  stacked=False):
@@ -86,7 +107,7 @@ class StudyLog:
             n = self.launches() - before
         # simulate_auto returns (schedule, used_oracle); a Schedule is a
         # NamedTuple itself
-        sched = out[0] if type(out) is tuple else out
+        sched, used_oracle = out if type(out) is tuple else (out, False)
         self.runs.append(Run(label, hops, channels, issue_ps, sched,
-                             stacked, n))
+                             stacked, n, used_oracle))
         return out

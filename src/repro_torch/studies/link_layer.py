@@ -22,13 +22,12 @@ from ..core import topology as T
 from ..core.calibration import (PCIE5_X16_MBPS, PCIE5_X16_RAW_MBPS,
                                 PCIE6_X16_RAW_MBPS)
 from ..core.devices import RequesterSpec, build_workload
-from ..core.engine import (channel_stats, request_stats, simulate_auto,
-                           simulate_stacked, stack_members,
-                           stacked_request_stats)
+from ..core.engine import (channel_stats, request_stats, simulate_stacked,
+                           stack_members, stacked_request_stats)
 from ..core.link_layer import (FlitConfig, flit_efficiency,
                                replay_overhead_ppm)
 from ..core.verify import verify_built
-from .common import Row, StudyLog, Timer
+from .common import Row, StudyLog, Timer, simulate_exact
 
 BERS = (0.0, 1e-8, 1e-7, 3e-7, 1e-6, 3e-6, 1e-5)
 
@@ -62,7 +61,7 @@ def run_generation(gen: str, n: int = 2500, device="cuda",
     }
     bw, flit = cfgs[gen]
     wl = _bus_workload(bw, flit, n, read_ratio=0.5, device=device, log=log)
-    sched, _ = log.simulate(f"gen/{gen}", simulate_auto, wl.hops,
+    sched, _ = log.simulate(f"gen/{gen}", simulate_exact, wl.hops,
                             wl.channels, wl.issue_ps)
     r = request_stats(wl.hops, sched, wl.issue_ps, wl.payload_bytes,
                       wl.measured)
@@ -81,7 +80,7 @@ def run_efficiency_check(n: int = 2000, device="cuda",
     log = log or StudyLog()
     wl = _bus_workload(PCIE6_X16_RAW_MBPS, FlitConfig("flit256"), n,
                        device=device, log=log)
-    sched, _ = log.simulate("flit256_efficiency", simulate_auto, wl.hops,
+    sched, _ = log.simulate("flit256_efficiency", simulate_exact, wl.hops,
                             wl.channels, wl.issue_ps)
     c = channel_stats(wl.hops, sched, wl.channels)
     measured = float(c["efficiency"][0])  # requester uplink

@@ -1,8 +1,8 @@
 """PyTorch port on a CUDA card: the hand-written kernels against their plain
-versions, the engine (one run and a stacked sweep) on the card against the
-engine on the CPU, and the smoke models of recurrentgemma-2b and
-mamba2-1.3b (prefill and decode) on the card against the same models on the
-CPU.
+versions, the engine (one run and a stacked sweep), adaptive routing and
+a Fig. 16/17 study run on the card against the same on the CPU, and the
+smoke models of recurrentgemma-2b and mamba2-1.3b (prefill and decode) on
+the card against the same models on the CPU.
 
 Every test here is marked ``cuda`` and skips without a card (the CUDA
 kernel has no CPU mode).  The file imports neither JAX nor the reference
@@ -257,6 +257,45 @@ def test_cuda_stacked_sweep_equals_cpu(card):
     fh, fc, _ = _flatten_members(*gpu_tables)
     _rounds_equal_plain(fh, fc, [gpu.arrive.reshape(
         -1, gpu.arrive.shape[-1])])
+
+
+@pytest.mark.cuda
+def test_cuda_adaptive_routing_equals_cpu(card):
+    """`route_and_simulate(strategy="adaptive")` on the card: the busy
+    table comes back to the host before the float64 route choice, so every
+    choice, the schedule and the channel stats equal the CPU run's."""
+    topo = P.spine_leaf(4, n_spines=2, per_leaf=2)
+    graph = topo.build()
+    specs = [P.RequesterSpec(node=int(r), n_requests=60,
+                             targets=[int(m) for m in topo.memories()],
+                             issue_interval_ps=500, seed=i)
+             for i, r in enumerate(topo.requesters())]
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        out[dev.type] = P.route_and_simulate(
+            graph, specs, strategy="adaptive", seed=3, header_bytes=64,
+            device=dev)
+    (wg, sg, cg), (wc, sc, cc) = out["cuda"], out["cpu"]
+    assert np.array_equal(wg.route_alt, wc.route_alt)
+    assert len(set(wg.route_alt.tolist())) > 1
+    assert sg.rounds == sc.rounds and sg.converged
+    for f in ("start", "depart", "arrive", "complete"):
+        assert torch.equal(getattr(sg, f).cpu(), getattr(sc, f)), f
+    for key in cc:
+        assert torch.equal(cg[key].cpu(), cc[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("duplex", ["full", "half"])
+def test_cuda_full_duplex_run_equals_cpu(card, duplex):
+    """`studies.full_duplex.run_one` (Fig. 16/17) on the card returns what
+    the CPU run returns."""
+    from repro_torch.studies import full_duplex
+
+    for rr, header in ((1.0, 0), (0.5, 32)):
+        assert full_duplex.run_one(rr, header, duplex, 1000,
+                                   device=card) == \
+            full_duplex.run_one(rr, header, duplex, 1000, device="cpu")
 
 
 @pytest.mark.cuda

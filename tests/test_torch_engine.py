@@ -211,6 +211,30 @@ def test_simulate_auto_falls_back_to_oracle():
     assert not used and not off.converged
 
 
+def test_simulate_auto_extend_runs_the_fixpoint_on():
+    """``check="extend"`` runs the fixpoint past its bound on the tables'
+    device: on the tight feedback case it converges after 38 rounds (bound
+    32) to the schedule the reference's oracle fallback gives, with no
+    oracle.  With a budget of 2 it is still unconverged after 8 x 2 rounds
+    and the oracle answers."""
+    hops, ch, issue = _tight_feedback_case()
+    h, c, i = _port(hops, ch, issue)
+    sched, used_oracle = P.simulate_auto(h, c, i,
+                                         P.SimOptions(check="extend"))
+    assert not used_oracle and sched.converged
+    assert sched.rounds == 38 > P.round_bound(h)
+    ref, ref_oracle = RE.simulate_auto(hops, ch, jnp.asarray(issue))
+    assert ref_oracle
+    for f in SCHEDULE_FIELDS:
+        assert np.array_equal(getattr(sched, f).numpy(),
+                              np.asarray(getattr(ref, f))), f
+    short, used_oracle = P.simulate_auto(
+        h, c, i, P.SimOptions(max_rounds=2, check="extend"))
+    assert used_oracle and short.converged
+    assert short.rounds == P.engine.EXTEND_FACTOR * 2
+    assert torch.equal(short.complete, sched.complete)
+
+
 def test_simulate_auto_converged_and_static_mode():
     hops, ch, issue, _ = _random_case(5)
     h, c, i = _port(hops, ch, issue)
