@@ -36,6 +36,13 @@ paths through them:
     width (26 layers, d_model 2560, weights drawn from a seeded generator)
     behind the slot server (`runtime.server.Server`), whose prefills run the
     tensor-core flash-attention kernel (bf16) and the RG-LRU scan kernel;
+  * device-handled coherence (`studies.snoop_filter`, `invblk`,
+    `coherence_fabric`, `coherence_modes`: Fig. 14, Fig. 15 and the coupled
+    studies) at the reference's full sizes, the snoop-filter protocol
+    through the `sf_scan` kernel (held against its plain version bit for
+    bit, Fig. 14/15 against the JAX package's integers), every coupled
+    fabric pass through the fused serve round and against the oracle, and
+    `simulate_coupled` itself against its CPU run;
   * mamba2-1.3b at its published width (48 SSD layers, d_model 2048,
     1.344 B parameters) behind the same server, prompts of 1 to 16,384
     tokens, whose prefills run the tensor-core SSD chunk kernel (bf16).
@@ -57,7 +64,9 @@ nothing of JAX and nothing of the ``repro`` package.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import re
 import subprocess
@@ -127,6 +136,51 @@ SSD_TOL = (3e-5, 3e-4)
 # the reference to it on the CPU).  With the default options such a run is
 # unconverged at the bound and `simulate_auto` hands it to the oracle.
 REF_ROUNDS = {"ring": 83}
+
+# The snoop-filter scan (`sf_scan`): Fig. 14 and Fig. 15 at the reference's
+# full size, n 32,000 requests over 4,096 lines, SF and caches of 819 lines.
+# The JAX package's integers for them, per policy and per InvBlk length:
+# (bandwidth_MBps, bisnp_events, invalidated_lines, total_time_ps, the sum
+# of latency_ps), made on the CPU with
+#   PYTHONPATH=src python3 -c 'import repro.core, numpy as np
+#   from repro.core.snoop_filter import *
+#   a = make_skewed_stream(32000, 4096, write_ratio=0.1, seed=3)
+#   r = simulate_sf(*a, SFConfig(capacity=819, policy="fifo"),
+#                   CacheConfig(capacity=819))
+#   print(int(r.bandwidth_MBps), int(r.bisnp_events),
+#         int(r.invalidated_lines), int(r.total_time_ps),
+#         int(np.asarray(r.latency_ps).sum()))'
+# for each policy, and for Fig. 15 with make_sequential_stream(32000, 4096,
+# n_requesters=2, write_ratio=0.5, seed=5), SFConfig(capacity=819,
+# policy="blp", invblk_max=L, bus_MBps=12_000, writeback_ps=30_000) and
+# n_requesters=2 (the configurations of benchmarks/bench_snoop_filter.py
+# and bench_invblk.py).
+SF_N, SF_FOOT = 32_000, 4_096
+FIG14_REF = {
+    "fifo": (1453, 4586, 4586, 1408659000, 1408659000),
+    "lru": (1453, 4586, 4586, 1408659000, 1408659000),
+    "lfi": (1809, 3200, 3200, 1131981000, 1131981000),
+    "lifo": (2070, 2485, 2485, 989031000, 989031000),
+    "mru": (2070, 2485, 2485, 989031000, 989031000),
+}
+FIG15_REF = {
+    1: (591, 22043, 22043, 3460622257, 6921225180),
+    2: (646, 15679, 22044, 3168247590, 6336425847),
+    3: (655, 13559, 22049, 3122257590, 6244446513),
+    4: (652, 12496, 22048, 3137285589, 6274437845),
+}
+# requests per stream of the kernel-against-plain families (the plain step
+# loop runs a few dozen small launches and a few host reads a request)
+SF_CASE_N = 2_000
+# requests of the `simulate_coupled` runs held against the CPU
+COUPLED_N = 600
+# the scan's bytes per request: addr, is_write, rid in (9 B); latency, hit,
+# the two per-step counts out (25 B); plus the state in and out once.  Its
+# operations are not counted: what the function needs of them depends on
+# how the victim scores are kept (a full pass per step, as the kernel does,
+# or kept up to date as entries change), and its pace is set by the
+# dependency from step to step, reported as µs per step beside the bound
+SF_BYTES_PER_STEP = 9 + 25
 SPIN_CYCLES = 200_000_000  # ~0.1 s of device spin at the H100's clocks
 
 
@@ -667,12 +721,235 @@ def run_study(np, torch, P, K, module, name):
          verify_s=log.seconds.get("verify", 0.0),
          simulate_s=log.seconds.get("simulate", 0.0),
          route_s=log.seconds.get("route", 0.0),
+         sf_scan_s=log.seconds.get("sf_scan", 0.0),
+         sf_scans=len(log.scans),
          schedules=len(log.runs),
          launches=sum(r.launches for r in log.runs),
          rounds={r.label: r.schedule.rounds for r in log.runs},
          members_checked=routes["oracle"] + routes["cpu_at_budget"],
          checked_by=routes, check_s=time.perf_counter() - t0)
     return rows, log
+
+
+# ---------------------------------------------------------------------------
+# coherence: the snoop-filter scan kernel and the coherence studies
+# ---------------------------------------------------------------------------
+
+def sf_cases(np, torch, PS):
+    """(label, `simulate_sf` keyword arguments) of the kernel-against-plain
+    families at n `SF_CASE_N` on the card: all six policies, 1, 2 and 4
+    requesters, InvBlk 1-4 on a finite bus, a state too large for shared
+    memory, fabric latencies."""
+    def skewed(n_req, seed):
+        return dict(zip(("addr", "is_write", "req_id"), PS.make_skewed_stream(
+            SF_CASE_N, 1024, write_ratio=0.3, n_requesters=n_req, seed=seed,
+            device="cuda")), n_requesters=n_req)
+
+    def cfg(policy, **kw):
+        return dict(sf_cfg=PS.SFConfig(capacity=102, policy=policy,
+                                       footprint_lines=1024, **kw),
+                    cache_cfg=PS.CacheConfig(capacity=102))
+
+    cases = []
+    for i, (pol, n_req) in enumerate(
+            [(p, 2) for p in PS.POLICIES]
+            + [("fifo", 1), ("blp", 1), ("lfi", 4), ("mru", 4)]):
+        cases.append((f"{pol}/R{n_req}", dict(
+            **skewed(n_req, i), **cfg(pol, invblk_max=2 if pol == "blp"
+                                      else 1), return_events=True)))
+    seq = dict(zip(("addr", "is_write", "req_id"), PS.make_sequential_stream(
+        SF_CASE_N, 1024, n_requesters=2, write_ratio=0.5, seed=5,
+        device="cuda")), n_requesters=2)
+    for length in (1, 2, 3, 4):
+        cases.append((f"blp/invblk{length}/bus", dict(
+            **seq, **cfg("blp", invblk_max=length, bus_MBps=12_000,
+                         writeback_ps=30_000), return_events=True)))
+    # a footprint whose state does not fit in shared memory: the kernel
+    # then works on the state in device memory
+    big = 65_536
+    cases.append(("fifo/R2/device_memory_state", dict(
+        zip(("addr", "is_write", "req_id"), PS.make_skewed_stream(
+            SF_CASE_N, big, write_ratio=0.3, n_requesters=2, seed=9,
+            device="cuda")), n_requesters=2,
+        sf_cfg=PS.SFConfig(capacity=102, footprint_lines=big),
+        cache_cfg=PS.CacheConfig(capacity=102), return_events=True)))
+    rng = np.random.default_rng(3)
+    for pol in ("fifo", "lfi", "blp"):
+        fab = torch.from_numpy(rng.integers(40_000, 900_000, SF_CASE_N)).cuda()
+        cases.append((f"{pol}/R2/fabric", dict(
+            **skewed(2, 40), **cfg(pol, invblk_max=2 if pol == "blp" else 1),
+            fabric_lat_ps=fab, return_events=True)))
+    return cases
+
+
+def sf_diff(torch, got, want):
+    """Largest difference between two scans' outputs and final states
+    (every field; the dtypes and shapes must match)."""
+    (g_out, g_state), (w_out, w_state) = got, want
+    pairs = [(g_out[f], w_out[f]) for f in w_out] + list(zip(g_state,
+                                                             w_state))
+    check(set(g_out) == set(w_out), "sf_scan: output fields differ")
+    worst = 0
+    for x, y in pairs:
+        check(x.dtype == y.dtype and x.shape == y.shape,
+              f"sf_scan: {x.dtype}{tuple(x.shape)} against "
+              f"{y.dtype}{tuple(y.shape)}")
+        if x.numel():
+            worst = max(worst, int((x.long() - y.long()).abs().max()))
+    return worst
+
+
+def phase_sf_vs_plain(np, torch, PS, SFK, SFR):
+    """`sf_scan` against its plain version on the card, bit for bit, on the
+    `sf_cases` families, and a run chunked in four (the state threaded)
+    against the monolithic one.  Returns the largest difference."""
+    worst, plain_s, steps = 0, 0.0, 0
+    cases = sf_cases(np, torch, PS)
+    for label, kw in cases:
+        job = PS.scan_job(**kw)
+        got = SFK.sf_scan_kernel([job])[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = SFR.sf_scan_ref([job])[0]
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        steps += int(job.addr.shape[0])
+        err = sf_diff(torch, got, want)
+        check(err == 0, f"sf_scan {label}: differs from the plain version "
+                        f"by {err}")
+        worst = max(worst, err)
+    # chunked against monolithic (kernel), and the monolithic kernel run
+    # against the plain version above (the "lfi/R2" case)
+    kw = dict(cases[2][1], return_state=True)
+    mono = PS.simulate_sf(**kw)
+    state, lat = None, []
+    q = SF_CASE_N // 4
+    for lo in range(0, SF_CASE_N, q):
+        part = dict(kw, addr=kw["addr"][lo:lo + q],
+                    is_write=kw["is_write"][lo:lo + q],
+                    req_id=kw["req_id"][lo:lo + q], init_state=state)
+        res, _, state = PS.simulate_sf(**part)
+        lat.append(res.latency_ps)
+    check(torch.equal(torch.cat(lat), mono[0].latency_ps)
+          and all(torch.equal(a, b) for a, b in zip(state, mono[2])),
+          "sf_scan: the chunked run differs from the monolithic one")
+    emit(phase="kernel_vs_plain", kernel="sf_scan", n=SF_CASE_N,
+         cases=[c[0] for c in cases] + ["lfi/R2/chunked4"],
+         max_abs_err=worst, plain_ms_per_step=plain_s * 1e3 / steps)
+    return worst
+
+
+def sf_bound_ms(n, smem_bytes):
+    """(least time on the card in ms, what bounds it) for one stream: its
+    bytes, the stream in and the outputs out, the state in and out once."""
+    nbytes = n * SF_BYTES_PER_STEP + 2 * smem_bytes
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def sf_timing(np, torch, PS, SFK, SFR):
+    """The kernel on a full-size Fig. 14 stream (fifo, n 32,000), alone and
+    with the five policies in one launch; the plain version once on the
+    same stream (host clock: it is host-bound), equal to the kernel's."""
+    cap = int(0.2 * SF_FOOT)
+    stream = PS.make_skewed_stream(SF_N, SF_FOOT, hot_frac=0.1,
+                                   hot_ratio=0.9, write_ratio=0.1, seed=3,
+                                   device="cuda")
+    jobs = [PS.scan_job(*stream, PS.SFConfig(capacity=cap, policy=p,
+                                             footprint_lines=SF_FOOT),
+                        PS.CacheConfig(capacity=cap))
+            for p in ("fifo", "lru", "lfi", "lifo", "mru")]
+    job = jobs[0]
+    ms, host_ms = time_cuda(torch, lambda: SFK.sf_scan_kernel([job]), 3)
+    ms5, _ = time_cuda(torch, lambda: SFK.sf_scan_kernel(jobs), 2)
+    got = SFK.sf_scan_kernel([job])[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = SFR.sf_scan_ref([job])[0]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = sf_diff(torch, got, want)
+    check(err == 0, f"sf_scan: the full-size stream differs from the plain "
+                    f"version by {err}")
+    bound, by = sf_bound_ms(SF_N, SFK.smem_bytes(job.cfg))
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+               library_ms=None)
+    emit(phase="kernel_timing", kernel="sf_scan", n=SF_N,
+         five_policies_one_launch_ms=ms5, us_per_step=ms * 1e3 / SF_N,
+         host_ms_per_call=host_ms, smem_bytes=SFK.smem_bytes(job.cfg),
+         max_abs_err=err, **row)
+    return err, row
+
+
+def sf_rows_against_reference(name, log, want):
+    """Each full-size scan of the Fig. 14 / Fig. 15 study against the JAX
+    package's integers."""
+    check(len(log.scans) == len(want), f"{name}: {len(log.scans)} scans")
+    for (label, res), key in zip(log.scans, want):
+        got = (int(res.bandwidth_MBps), int(res.bisnp_events),
+               int(res.invalidated_lines), int(res.total_time_ps),
+               int(res.latency_ps.sum()))
+        check(got == want[key], f"{label}: {got} against the reference's "
+                                f"{want[key]}")
+        emit(phase="sf_against_reference", study=name, scan=label,
+             bandwidth_MBps=got[0], bisnp_events=got[1],
+             invalidated_lines=got[2], total_time_ps=got[3],
+             latency_sum_ps=got[4])
+
+
+def coupled_on_card(np, torch, P, PS):
+    """`simulate_coupled` (one member of `coupled_fixpoint`, its passes
+    through `fabric_pass`) on the card in both fan-outs, undamped and
+    damped, with background demand at 0.6 of the device link, against the
+    same run on the CPU: every field equal, no pass answered by the host
+    oracle.  At this load the fixpoint does not settle within its
+    iterations, so each run also takes the final pass."""
+    from repro_torch.core.coherence_traffic import simulate_coupled
+    from repro_torch.studies import coherence_fabric as CF
+
+    graph, spec, bg_nodes = CF.build_coherence_fabric(2)
+    cfg = PS.SFConfig(capacity=102, policy="lifo", footprint_lines=1024)
+    cache = PS.CacheConfig(capacity=102)
+    streams = {d: PS.make_skewed_stream(COUPLED_N, 1024, write_ratio=0.2,
+                                        n_requesters=2, seed=7, device=d)
+               for d in ("cuda", "cpu")}
+    span = int(PS.simulate_sf(*streams["cpu"], cfg, cache,
+                              n_requesters=2).total_time_ps)
+    bgs = {d: CF._background(graph, bg_nodes, spec.dev_node, 0.6, span, d)
+           for d in streams}
+    for fanout in ("chain", "concurrent"):
+        for damping in (False, True):
+            what = f"{fanout}/{'damped' if damping else 'undamped'}"
+            kw = dict(n_requesters=2, options=P.SimOptions(damping=damping),
+                      max_iters=16 if damping else 8,
+                      tol_ps=2_000 if damping else 0, fanout=fanout)
+            t0 = time.perf_counter()
+            got = simulate_coupled(*streams["cuda"], cfg, cache, graph, spec,
+                                   background=bgs["cuda"], device="cuda",
+                                   **kw)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            want = simulate_coupled(*streams["cpu"], cfg, cache, graph, spec,
+                                    background=bgs["cpu"], device="cpu", **kw)
+            check(not got.used_oracle and not want.used_oracle,
+                  f"coupled/{what}: the host oracle answered")
+            check((got.iters, got.converged, got.damped, got.rounds)
+                  == (want.iters, want.converged, want.damped, want.rounds)
+                  and np.array_equal(got.residual_ps, want.residual_ps),
+                  f"coupled/{what}: the iterations differ from the CPU's")
+            for name, a, b in (
+                    ("fabric_lat_ps", got.fabric_lat_ps, want.fabric_lat_ps),
+                    ("latency_ps", got.sf.latency_ps, want.sf.latency_ps),
+                    ("bisnp_lat_ps", got.bisnp_lat_ps, want.bisnp_lat_ps),
+                    ("fabric_issue_ps", got.fabric_issue_ps,
+                     want.fabric_issue_ps),
+                    *((f, getattr(got.schedule, f), getattr(want.schedule, f))
+                      for f in ("arrive", "start", "depart"))):
+                check(torch.equal(a.cpu(), b),
+                      f"coupled/{what}: {name} differs from the CPU's")
+            emit(phase="coupled_on_card", case=what, n=COUPLED_N,
+                 iters=got.iters, converged=got.converged, damped=got.damped,
+                 rounds=got.rounds, residual_ps=got.residual_ps.tolist(),
+                 card_s=card_s)
 
 
 def stacked_round_vs_plain(torch, K, ref, run):
@@ -1329,11 +1606,16 @@ def main() -> int:
     from repro_torch.kernels.flit_pack.ops import MAX_PAYLOAD_B
     from repro_torch.kernels.link_contention import kernel as LK, ref as LR
     from repro_torch.kernels.link_contention import ops as LO
+    from repro_torch.core import snoop_filter as PS
     from repro_torch.kernels.serve_round import kernel as K, ref
+    from repro_torch.kernels.sf_scan import kernel as SFK, ref as SFR
     from repro_torch.kernels.ssd_chunk import kernel as SK, ref as SR
-    from repro_torch.studies import (full_duplex, link_explorer,
+    from repro_torch.studies import (coherence_fabric, coherence_modes,
+                                     full_duplex, invblk, link_explorer,
                                      link_layer, link_reliability, routing,
-                                     topology, traces, validation)
+                                     topology, topology_explorer, traces,
+                                     validation)
+    from repro_torch.studies import snoop_filter as sf_study
 
     # phase 0: the card
     smi = subprocess.run(
@@ -1349,10 +1631,10 @@ def main() -> int:
     # (one nvcc process per source, all started together)
     t0 = time.perf_counter()
     sources = [K._SOURCE, LK._SOURCE, FK._SOURCE, FA._SOURCE, FA._SOURCE_TC,
-               RK._SOURCE, SK._SOURCE, SK._SOURCE_TC]
+               RK._SOURCE, SK._SOURCE, SK._SOURCE_TC, SFK._SOURCE]
     _build.build_all(sources)
     for load in (K._lib, LK._lib, FK._lib, FA._lib, FA._lib_tc, RK._lib,
-                 SK._lib, SK._lib_tc):
+                 SK._lib, SK._lib_tc, SFK._lib):
         load()
     emit(phase="build", sources=[str(x.relative_to(ROOT)) for x in sources],
          seconds=time.perf_counter() - t0)
@@ -1364,7 +1646,9 @@ def main() -> int:
                       (FA._SOURCE_TC, {f"D{d}": FA._lib_tc(
                           ).flash_attention_tc_smem(d) for d in (64, 128,
                                                                  256)}),
-                      (SK._SOURCE_TC, SK._lib_tc().ssd_chunk_tc_smem())):
+                      (SK._SOURCE_TC, SK._lib_tc().ssd_chunk_tc_smem()),
+                      (SFK._SOURCE, {"opt_in_limit": SFK._lib(
+                          ).sf_scan_max_smem(0)})):
         log = _build.LOGS.get(src)
         emit(phase="ptxas", source=str(src.relative_to(ROOT)),
              dynamic_smem_bytes=smem,
@@ -1379,6 +1663,9 @@ def main() -> int:
     worst_flash, flash_timings = phase_flash_vs_plain(torch, FA, FAR)
     worst_rglru, rglru_timing = phase_rglru_vs_plain(torch, RK, RR)
     worst_ssd, ssd_timings = phase_ssd_vs_plain(torch, SK, SR)
+    worst_sf = phase_sf_vs_plain(np, torch, PS, SFK, SFR)
+    err, sf_time = sf_timing(np, torch, PS, SFK, SFR)
+    worst_sf = max(worst_sf, err)
 
     # warm up the CUDA libraries on a tiny workload (not part of the run)
     _, tiny = topology.workload(topology.build_topo("chain", 2), 2,
@@ -1511,6 +1798,45 @@ def main() -> int:
                         for f in topology.FABRICS},
          unconverged_schedules=unconverged)
 
+    # phase 5c: device-handled coherence at the reference's full sizes:
+    # Fig. 14 and Fig. 15 (the snoop-filter scan) against the JAX package's
+    # integers, the coupled studies (the scan and the fused serve round on
+    # every fixpoint iteration) with every converged schedule against the
+    # oracle; both counts read around them
+    K.LAUNCHES["serve_round"] = 0
+    K.LAUNCHES["serve_scan"] = 0
+    SFK.LAUNCHES["sf_scan"] = 0
+    coherence = {}
+    for name, module in (("snoop_filter", sf_study), ("invblk", invblk),
+                         ("coherence_fabric", coherence_fabric),
+                         ("coherence_modes", coherence_modes)):
+        coherence[name] = run_study(np, torch, P, K, module, name)
+    # `simulate_coupled` itself, on the card against the CPU
+    coupled_on_card(np, torch, P, PS)
+    # the explorer's victim-policy sweep (`topology_explorer.main` runs it)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        topology_explorer.snoop_filter_sweep("cuda")
+    sf_launches = SFK.LAUNCHES["sf_scan"]
+    coherence_launches = K.LAUNCHES["serve_round"]
+    check(sf_launches > 0, "the coherence studies never launched sf_scan")
+    check(coherence_launches > 0,
+          "the coherence studies never launched serve_round")
+    launches += coherence_launches
+    scan_launches += K.LAUNCHES["serve_scan"]
+    sf_rows_against_reference("snoop_filter", coherence["snoop_filter"][1],
+                              FIG14_REF)
+    sf_rows_against_reference("invblk", coherence["invblk"][1], FIG15_REF)
+    derived = {r.name: r.derived for r in coherence["coherence_fabric"][0]}
+    for gate in ("divergence_gate", "fanout_gate"):
+        check("gate=True" in derived[f"coherence_fabric/{gate}"],
+              f"coherence_fabric/{gate}: {derived}")
+    emit(phase="coherence", explorer_sweep=printed.getvalue().splitlines(),
+         sf_scan_launches=sf_launches,
+         serve_round_launches=coherence_launches,
+         fig14={r.name: r.derived for r in coherence["snoop_filter"][0]},
+         fig15={r.name: r.derived for r in coherence["invblk"][0]})
+
     # phase 6: depart_times on real converged rounds (its path), against
     # the serve-scan kernel's departures
     cases = [(n, wl.hops, wl.channels, sched) for n, wl, sched in runs
@@ -1604,6 +1930,12 @@ def main() -> int:
              replaces="src/repro/kernels/rglru_scan/kernel.py:62",
              launches=rg_launches["rglru_scan"], max_abs_err=worst_rglru,
              **rglru_timing, shape="(1, 4096, 2560) float32"),
+        dict(name="sf_scan", route="cuda",
+             source="src/repro_torch/kernels/sf_scan/csrc/sf_scan.cu",
+             replaces="src/repro/core/snoop_filter.py:210",
+             launches=sf_launches, max_abs_err=worst_sf, **sf_time,
+             shape=f"one Fig. 14 stream (fifo): n {SF_N}, SF and cache 819 "
+                   f"lines, footprint {SF_FOOT}"),
         *[dict(name=name, route="cuda",
                source=f"src/repro_torch/kernels/ssd_chunk/csrc/{name}.cu",
                replaces="src/repro/kernels/ssd_chunk/kernel.py:82",

@@ -38,6 +38,17 @@ from .traces import (  # noqa: F401
     ARRIVAL_PATTERNS, WORKLOADS, arrival_times, request_stream, tenant_mix,
 )
 from .routing import route_and_simulate, STRATEGIES  # noqa: F401
+from . import coherence_traffic, snoop_filter  # noqa: F401
+from .snoop_filter import (  # noqa: F401
+    POLICIES, SFConfig, CacheConfig, SFEvents, SFResult, SFState,
+    owner_count, sf_init_state, simulate_sf, simulate_sf_many,
+    make_skewed_stream, make_sequential_stream,
+)
+from .coherence_traffic import (  # noqa: F401
+    CoherenceFabricSpec, CoherenceLowering, CoherenceStream, CoupledResult,
+    FANOUT_MODES, bisnp_latencies, coherence_issue, concat_background,
+    lower_coherence, pad_rows, simulate_coupled,
+)
 
 __all__ = [
     # topology / link layer
@@ -58,6 +69,13 @@ __all__ = [
     "WORKLOADS", "arrival_times", "request_stream", "tenant_mix",
     # routing
     "route_and_simulate", "STRATEGIES",
+    # device coherence: the snoop filter and its fabric coupling
+    "POLICIES", "SFConfig", "CacheConfig", "SFEvents", "SFResult", "SFState",
+    "owner_count", "sf_init_state", "simulate_sf", "simulate_sf_many",
+    "make_skewed_stream", "make_sequential_stream", "CoherenceFabricSpec",
+    "CoherenceLowering", "CoherenceStream", "CoupledResult", "FANOUT_MODES",
+    "bisnp_latencies", "coherence_issue", "concat_background",
+    "lower_coherence", "pad_rows", "simulate_coupled",
     # oracle / verification
     "join_depth", "simulate_ref", "ref_schedule", "Finding", "VerifyError",
     "VerifyReport", "verify_workload", "assert_valid", "verify_built",
@@ -66,5 +84,6 @@ __all__ = [
     "issue_from_array", "schedule_to_numpy",
     # submodules
     "topology", "engine", "devices", "link_layer", "calibration", "verify",
-    "ref_des", "convert", "traces", "routing", "vcs",
+    "ref_des", "convert", "traces", "routing", "vcs", "snoop_filter",
+    "coherence_traffic",
 ]

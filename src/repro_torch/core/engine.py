@@ -579,11 +579,22 @@ def simulate_auto(hops: Hops, channels: Channels, issue_ps: torch.Tensor,
 
         verify.assert_valid(hops, channels, issue_ps, carry=carry,
                             max_rounds=opts.max_rounds or None)
-    sched = simulate(hops, channels, issue_ps, opts, carry=carry)
-    if opts.check == "extend" and not sched.converged:
+    return settle(hops, channels, issue_ps,
+                  simulate(hops, channels, issue_ps, opts, carry=carry),
+                  opts, carry=carry)
+
+
+def settle(hops: Hops, channels: Channels, issue_ps: torch.Tensor,
+           sched: Schedule, options: SimOptions, *,
+           carry: StreamCarry | None = None) -> tuple[Schedule, bool]:
+    """What `simulate_auto` does with the fixpoint's schedule ``sched`` of
+    these tables: run it on ("extend") or answer with the oracle where it
+    did not converge, as ``options.check`` says ("static" settles as
+    "oracle").  Returns (schedule, used_oracle)."""
+    if options.check == "extend" and not sched.converged:
         sched = _iterate(hops, channels, issue_ps, sched.arrive,
                          sched.rounds, EXTEND_FACTOR * sched.rounds, carry)
-    if opts.check == "off" or sched.converged:
+    if options.check == "off" or sched.converged:
         return sched, False
     from . import ref_des  # local import: the oracle is pure Python
 

@@ -5,10 +5,13 @@ the reference's ``benchmarks/bench_*.py`` rows (``name``, host µs of the
 step, the ``derived`` payload with its pass flags).  A `StudyLog`, when the
 caller passes one, keeps what the study did on the way: host seconds per
 phase (``lower`` — `build_workload` and the reliability sampling and
-marker insertion; ``route`` — the routing study's lowering and route
-choice; ``verify``; ``simulate``) and every schedule it resolved, with the
-tables it came from and the serve-scan launches it took, so a caller can
-time the phases apart and hold each schedule against the oracle.
+marker insertion, or a coherence study's stream and event lowering;
+``route`` — the routing study's lowering and route choice; ``verify``;
+``sf_scan`` — the coherence studies' snoop-filter scans; ``simulate``) and
+every schedule it resolved, with the tables it came from and the
+serve-scan launches it took, so a caller can time the phases apart and
+hold each schedule against the oracle.  The coherence studies also keep
+their `SFResult`s (``scans``).
 """
 
 from __future__ import annotations
@@ -78,6 +81,7 @@ class StudyLog:
     launches: Callable[[], int] = lambda: 0
     seconds: dict = field(default_factory=dict)
     runs: list = field(default_factory=list)
+    scans: list = field(default_factory=list)  # (label, SFResult)
     _inner: list = field(default_factory=list, repr=False)
 
     @contextlib.contextmanager

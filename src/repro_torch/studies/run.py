@@ -22,10 +22,14 @@ MODULES = (
     ("validation", "repro_torch.studies.validation"),
     ("topology", "repro_torch.studies.topology"),
     ("routing", "repro_torch.studies.routing"),
+    ("snoop_filter", "repro_torch.studies.snoop_filter"),
+    ("invblk", "repro_torch.studies.invblk"),
     ("full_duplex", "repro_torch.studies.full_duplex"),
     ("link_layer", "repro_torch.studies.link_layer"),
     ("link_reliability", "repro_torch.studies.link_reliability"),
+    ("coherence_fabric", "repro_torch.studies.coherence_fabric"),
     ("traces", "repro_torch.studies.traces"),
+    ("coherence_modes", "repro_torch.studies.coherence_modes"),
 )
 
 

@@ -1,8 +1,9 @@
-"""ESF design-space exploration on the port: sweep fabrics and routing
-strategies.
+"""ESF design-space exploration on the port: sweep fabrics, snoop-filter
+victim policies and routing strategies.
 
-The counterpart of the fabric parts of ``examples/topology_explorer.py``;
-it reproduces the paper's §V exploration loop.  On the card by default:
+The counterpart of ``examples/topology_explorer.py``: the bandwidth sweep
+over fabrics, the DCOH victim-policy sweep and the routing demo, the
+paper's §V exploration loop.  On the card by default:
 
     PYTHONPATH=src python -m repro_torch.studies.topology_explorer [--device cpu]
 """
@@ -15,6 +16,8 @@ import numpy as np
 
 from ..core import RequesterSpec, build_workload, request_stats
 from ..core.engine import simulate
+from ..core.snoop_filter import (CacheConfig, SFConfig, make_skewed_stream,
+                                 simulate_sf)
 from ..core.topology import TOPOLOGY_BUILDERS, spine_leaf
 from .routing import run_strategy
 
@@ -43,12 +46,21 @@ def bandwidth_sweep(device="cuda"):
               f"   mean latency {float(r['mean_latency_ps']) / 1000:6.0f} ns")
 
 
-def snoop_filter_sweep():
-    """The DCOH victim-policy sweep waits for the port of
-    ``core/snoop_filter.py`` (ROADMAP Queue 1, item 3: coherence)."""
-    raise NotImplementedError(
-        "snoop_filter_sweep needs core/snoop_filter.py, which the port does "
-        "not have yet (ROADMAP Queue 1, item 3: coherence)")
+def snoop_filter_sweep(device="cuda"):
+    print("\n== DCOH victim policy sweep (skewed 90/10 stream) ==")
+    footprint, n = 2048, 8000
+    cap = int(0.2 * footprint)
+    addr, wr, rid = make_skewed_stream(n, footprint, seed=3, device=device)
+    base = None
+    for pol in ("fifo", "lru", "lfi", "lifo", "mru"):
+        res = simulate_sf(addr, wr, rid,
+                          SFConfig(capacity=cap, policy=pol,
+                                   footprint_lines=footprint),
+                          CacheConfig(capacity=cap))
+        bw = float(res.bandwidth_MBps)
+        base = base or bw
+        print(f"  {pol:5s} bandwidth {bw / base:5.2f}x fifo   "
+              f"BISnp {int(res.bisnp_events):6d}")
 
 
 def adaptive_routing_demo(device="cuda"):
@@ -61,6 +73,7 @@ def adaptive_routing_demo(device="cuda"):
 
 def main(device="cuda") -> None:
     bandwidth_sweep(device)
+    snoop_filter_sweep(device)
     adaptive_routing_demo(device)
 
 

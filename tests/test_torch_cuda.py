@@ -1,8 +1,8 @@
 """PyTorch port on a CUDA card: the hand-written kernels against their plain
-versions, the engine (one run and a stacked sweep), adaptive routing and
-a Fig. 16/17 study run on the card against the same on the CPU, and the
-smoke models of recurrentgemma-2b and mamba2-1.3b (prefill and decode) on
-the card against the same models on the CPU.
+versions, the engine (one run and a stacked sweep), adaptive routing, a
+Fig. 16/17 study and `simulate_coupled` run on the card against the same on
+the CPU, and the smoke models of recurrentgemma-2b and mamba2-1.3b (prefill
+and decode) on the card against the same models on the CPU.
 
 Every test here is marked ``cuda`` and skips without a card (the CUDA
 kernel has no CPU mode).  The file imports neither JAX nor the reference
@@ -579,3 +579,96 @@ def test_cuda_mamba_model_equals_cpu(card):
         cl, cc = TF.decode_step(cpu, cc, tok, pos)
         assert torch.allclose(gl.cpu().float(), cl.float(), atol=5e-2,
                               rtol=5e-2), i
+
+
+def _sf_outputs(res, ev, state):
+    return [*res, *ev, *state]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["lfi", "blp_bus", "global_state"])
+def test_cuda_sf_scan_equals_cpu(card, case):
+    """The snoop-filter scan kernel bit-equal to the plain version on the
+    CPU: a policy with fabric latencies and a chunked run threading the
+    state, InvBlk 4 on a finite bus, and a footprint whose state does not
+    fit in shared memory (the kernel then works in device memory)."""
+    from repro_torch.core import snoop_filter as PS
+    from repro_torch.kernels.sf_scan import kernel as SFK
+
+    foot = 65_536 if case == "global_state" else 512
+    cfg = PS.SFConfig(capacity=64, footprint_lines=foot,
+                      policy="lfi" if case == "lfi" else "blp",
+                      invblk_max=1 if case == "lfi" else 4,
+                      bus_MBps=12_000 if case == "blp_bus" else 0)
+    assert (SFK.smem_bytes(PS.scan_config(cfg, PS.CacheConfig(64), 2))
+            > SFK._lib().sf_scan_max_smem(0)) == (case == "global_state")
+    stream = (PS.make_sequential_stream(900, foot, n_requesters=2,
+                                        write_ratio=0.5, seed=1,
+                                        device="cpu")
+              if case == "blp_bus" else
+              PS.make_skewed_stream(900, foot, write_ratio=0.3,
+                                    n_requesters=2, seed=2, device="cpu"))
+    fab = torch.from_numpy(np.random.default_rng(0).integers(
+        50_000, 500_000, 900)) if case == "lfi" else None
+    kw = dict(n_requesters=2, return_events=True, return_state=True)
+    want = PS.simulate_sf(*stream, cfg, PS.CacheConfig(64),
+                          fabric_lat_ps=fab, **kw)
+    before = SFK.LAUNCHES["sf_scan"]
+    got = PS.simulate_sf(*(x.to(card) for x in stream), cfg,
+                         PS.CacheConfig(64), fabric_lat_ps=None if fab is None
+                         else fab.to(card), **kw)
+    assert SFK.LAUNCHES["sf_scan"] - before == 1
+    for g, w in zip(_sf_outputs(*got), _sf_outputs(*want)):
+        assert torch.equal(g.cpu(), w)
+    if case == "lfi":
+        state = None
+        for lo in range(0, 900, 300):
+            part = [x[lo:lo + 300].to(card) for x in stream]
+            res, ev, state = PS.simulate_sf(
+                *part, cfg, PS.CacheConfig(64), init_state=state,
+                fabric_lat_ps=fab[lo:lo + 300].to(card), **kw)
+            assert torch.equal(res.latency_ps.cpu(),
+                               want[0].latency_ps[lo:lo + 300])
+        for g, w in zip(state, want[2]):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("damping", [False, True])
+@pytest.mark.parametrize("fanout", ["chain", "concurrent"])
+def test_cuda_simulate_coupled_equals_cpu(card, fanout, damping):
+    """`simulate_coupled` with background demand on the card (its scans
+    through `sf_scan`, its fabric passes through the fused serve round)
+    equal to the same run on the CPU, iteration for iteration, and no pass
+    answered by the host oracle."""
+    from repro_torch.core import snoop_filter as PS
+    from repro_torch.core.coherence_traffic import simulate_coupled
+    from repro_torch.studies import coherence_fabric as CF
+
+    graph, spec, bg_nodes = CF.build_coherence_fabric(2)
+    cfg = PS.SFConfig(capacity=51, policy="lifo", footprint_lines=512)
+    cache = PS.CacheConfig(capacity=51)
+    stream = PS.make_skewed_stream(400, 512, write_ratio=0.2, n_requesters=2,
+                                   seed=7, device="cpu")
+    span = int(PS.simulate_sf(*stream, cfg, cache,
+                              n_requesters=2).total_time_ps)
+    kw = dict(n_requesters=2, options=P.SimOptions(damping=damping),
+              max_iters=12 if damping else 6, tol_ps=2_000 if damping else 0,
+              fanout=fanout)
+    runs = [simulate_coupled(
+        *(x.to(dev) for x in stream), cfg, cache, graph, spec,
+        background=CF._background(graph, bg_nodes, spec.dev_node, 0.6, span,
+                                  dev), device=dev, **kw)
+        for dev in (card, "cpu")]
+    got, want = runs
+    assert not got.used_oracle and not want.used_oracle
+    assert ((got.iters, got.converged, got.damped, got.rounds)
+            == (want.iters, want.converged, want.damped, want.rounds))
+    assert np.array_equal(got.residual_ps, want.residual_ps)
+    for a, b in ((got.fabric_lat_ps, want.fabric_lat_ps),
+                 (got.sf.latency_ps, want.sf.latency_ps),
+                 (got.bisnp_lat_ps, want.bisnp_lat_ps),
+                 (got.fabric_issue_ps, want.fabric_issue_ps),
+                 (got.schedule.start, want.schedule.start),
+                 (got.schedule.depart, want.schedule.depart)):
+        assert torch.equal(a.cpu(), b)

@@ -55,6 +55,7 @@ MAX_PAIRS = 2        # fabric scale (requester/memory pairs)
 N_PER_PAIR = 3       # topology requests per requester/memory pair
 RING_ROUNDS = 2      # round budget of the flooded ring's fixpoint
 PER_REQ = 20         # trace-replay requests per requester
+N_SNOOP = 900        # the explorer's policy-sweep requests
 N_HOST, N_NOISY = 20, 25
 
 
@@ -206,8 +207,9 @@ def test_run_cli_prints_the_rows(monkeypatch, capsys):
     assert lines[1:-1] == [r.csv() for r in rows]
     assert lines[-1].startswith("total_wall_s,")
     assert [name for name, _ in PRUN.MODULES] == [
-        "validation", "topology", "routing", "full_duplex", "link_layer",
-        "link_reliability", "traces"]
+        "validation", "topology", "routing", "snoop_filter", "invblk",
+        "full_duplex", "link_layer", "link_reliability", "coherence_fabric",
+        "traces", "coherence_modes"]
     with pytest.raises(SystemExit):
         PRUN.main(["--only", "no_such_study", "--device", "cpu"])
 
@@ -220,6 +222,9 @@ def _printed(fn, *args):
 
 
 def test_explorer_prints_what_the_example_prints(monkeypatch):
+    """Each of the explorer's sweeps prints what the example's prints, with
+    the fabric scale, the routing demo and the policy sweep's stream
+    (8,000 requests, cut to ``N_SNOOP``) cut the same way on both sides."""
     spec = importlib.util.spec_from_file_location(
         "topology_explorer_example", REPO / "examples" / "topology_explorer.py")
     ex = importlib.util.module_from_spec(spec)
@@ -229,11 +234,15 @@ def test_explorer_prints_what_the_example_prints(monkeypatch):
     _cut_routing(RRO, monkeypatch)
     _cut_routing(PRO, monkeypatch)
     monkeypatch.setattr(PEX, "run_strategy", PRO.run_strategy)
-    for name in ("bandwidth_sweep", "adaptive_routing_demo"):
+    for mod in (ex, PEX):
+        def cut_stream(args, kw):
+            args[0] = N_SNOOP
+            return args, kw
+        _cut(monkeypatch, mod, "make_skewed_stream", cut_stream)
+    for name in ("bandwidth_sweep", "snoop_filter_sweep",
+                 "adaptive_routing_demo"):
         assert _printed(getattr(PEX, name), "cpu") == \
             _printed(getattr(ex, name)), name
-    with pytest.raises(NotImplementedError, match="item 3"):
-        PEX.snoop_filter_sweep()
 
 
 def test_studies_import_no_jax_and_no_reference():
@@ -245,6 +254,11 @@ def test_studies_import_no_jax_and_no_reference():
         "import repro_torch.studies.topology_explorer\n"
         "import repro_torch.core.traces, repro_torch.core.routing\n"
         "import repro_torch.core.vcs\n"
+        "import repro_torch.studies.snoop_filter, repro_torch.studies.invblk\n"
+        "import repro_torch.studies.coherence_fabric\n"
+        "import repro_torch.studies.coherence_modes\n"
+        "import repro_torch.core.coherence_traffic\n"
+        "import repro_torch.kernels.sf_scan.ops\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or\n"
         "             m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
         "assert not bad, bad\n")

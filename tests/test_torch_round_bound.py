@@ -3,10 +3,10 @@
 Sufficiency, as `test_round_bound.py` holds it for the reference: on random
 demand, fork/join DAGs and warm-carried windows, both engines compute the
 same `round_bound`, and the port's `simulate` converges within it with zero
-residual, equal to the reference's run.  The reference's streamed case
-(`streaming.simulate_stream`) and its coherence lowerings
-(`coherence_traffic.lower_coherence`) have no port yet; their sufficiency
-cases wait for those modules.
+residual, equal to the reference's run; so do the coherence lowerings
+(`coherence_traffic.lower_coherence`, chain and concurrent fan-out).  The
+reference's streamed case (`streaming.simulate_stream`) has no port yet;
+its sufficiency case waits for that module.
 
 Insufficiency, a reference-side limit that the port reproduces: on the
 paper's ring at scale 16 with 120 requests per pair, both engines need 83
@@ -80,6 +80,45 @@ def test_bound_sufficient_warm_carry(family, seed):
         hops, ch, issue = _join_case(seed)
         carry = _carry_np(ch.bw_MBps.shape[0], hops.channel.shape[0], seed)
     port, bound = _sufficient(hops, ch, issue, carry=carry)
+    assert port.converged and port.residual_ps == 0
+    assert port.rounds <= bound
+
+
+@pytest.mark.parametrize("fanout", ["chain", "concurrent"])
+def test_bound_sufficient_coherence_lowering(fanout):
+    """`test_round_bound.py::test_bound_sufficient_coherence_lowering` on
+    the port: the lowered event log of a 160-request stream converges
+    within the bound, equal to the reference's run of the same tables."""
+    import numpy as np
+
+    from repro.core import coherence_traffic as RC
+    from repro.core import snoop_filter as RS
+    from repro_torch.core import coherence_traffic as PC
+    from repro_torch.core import snoop_filter as PS
+    from test_torch_coherence import _graphs
+
+    (rg, rspec), (pg, pspec) = _graphs(n_req=2)
+    stream = tuple(np.asarray(x) for x in RS.make_skewed_stream(
+        160, 64, write_ratio=0.4, n_requesters=2, seed=9))
+    rcfg = RS.SFConfig(capacity=24, policy="fifo", footprint_lines=64)
+    _, rev = RS.simulate_sf(*(jnp.asarray(x) for x in stream), rcfg,
+                            RS.CacheConfig(capacity=24), n_requesters=2,
+                            return_events=True)
+    rlow = RC.lower_coherence(rg, rspec, rcfg, *stream,
+                              rev, fanout=fanout)
+    pcfg = PS.SFConfig(capacity=24, policy="fifo", footprint_lines=64)
+    _, pev = PS.simulate_sf(*(torch.from_numpy(np.array(x))
+                              for x in stream), pcfg,
+                            PS.CacheConfig(capacity=24), n_requesters=2,
+                            return_events=True)
+    plow = PC.lower_coherence(pg, pspec, pcfg, *stream, pev, fanout=fanout)
+    issue = PC.coherence_issue(plow, pev.fab_issue_ps)
+    bound = P.round_bound(plow.hops)
+    assert bound == RE.round_bound(rlow.hops)
+    ref = RE.simulate(rlow.hops, RE.make_channels(rg),
+                      RC.coherence_issue(rlow, rev.fab_issue_ps))
+    port = P.simulate(plow.hops, P.make_channels(pg, device="cpu"), issue)
+    _schedules_equal(ref, port)
     assert port.converged and port.residual_ps == 0
     assert port.rounds <= bound
 
