@@ -43,9 +43,18 @@ paths through them:
     bit, Fig. 14/15 against the JAX package's integers), every coupled
     fabric pass through the fused serve round and against the oracle, and
     `simulate_coupled` itself against its CPU run;
+  * the telemetry layer (`core.telemetry`): `fabric_metrics` on the main
+    path's converged schedules (its retraining replay is one fused
+    serve-round launch) against the same call on the CPU, the telemetry
+    study (`studies.telemetry`) against the JAX package's rows, and the SF
+    counters of Fig. 14's card events against the JAX package's;
   * mamba2-1.3b at its published width (48 SSD layers, d_model 2048,
     1.344 B parameters) behind the same server, prompts of 1 to 16,384
     tokens, whose prefills run the tensor-core SSD chunk kernel (bf16).
+
+Before any of that it logs the host's numpy and C library and holds every
+synthetic trace the studies replay (`core.traces.generate`) against the
+JAX package's, by sha256.
 
 flash_attention and ssd_chunk each have a tensor-core kernel (bf16) and a
 CUDA-core one (float32); both are held against the plain versions and
@@ -66,8 +75,10 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import hashlib
 import io
 import json
+import platform
 import re
 import subprocess
 import sys
@@ -168,6 +179,167 @@ FIG15_REF = {
     2: (646, 15679, 22044, 3168247590, 6336425847),
     3: (655, 13559, 22049, 3122257590, 6244446513),
     4: (652, 12496, 22048, 3137285589, 6274437845),
+}
+# The synthetic traces the port's studies replay, as the `traces.generate`
+# arguments (name, n, footprint_lines, seed) of the traces study (Fig. 18/19,
+# Fig. 20a, Fig. 20b) and of the coupled study's trace mode, each with the
+# sha256 of its addresses (int64, little-endian) then its is_write flags
+# (one byte each), made from the JAX package on the CPU with numpy 2.0.2 by
+#   PYTHONPATH=src python3 -c 'import hashlib, numpy as np
+#   from repro.core.traces import generate
+#   t = generate(name, n, footprint_lines, seed)
+#   print(hashlib.sha256(t["addr"].astype("<i8").tobytes()
+#                        + t["is_write"].astype(np.uint8).tobytes())
+#         .hexdigest())'
+# for each key.  The redis trace's zipf ranks differ between numpy builds
+# unless the port draws them with numpy 2.0.2's loop (`traces._zipf`).
+TRACE_SHA256 = {
+    ("xsbench", 3200, 16384, 1):
+        "016c759230d51bb9e00d8ac70b0d0b391d0d9b8f9e44c17651170ad62cecaac0",
+    ("btree", 3200, 16384, 1):
+        "135474ec15f6c9507d5c3e0a3687d878712d481e03c5f811c0ae117097525736",
+    ("liblinear", 3200, 16384, 1):
+        "a613ee88b7c8af707bdca122dc132f9ac41e9a4acab47ea045fb9e39bd250988",
+    ("redis", 3200, 16384, 1):
+        "22161c03163c664bd147456c1621dc9937be38b917664b9f1c9f441c47ffbcf4",
+    ("silo", 3200, 16384, 1):
+        "812ede6eb35de7f89d781b85d2be6855edc6f8cec6feb47292cab02db606930e",
+    ("xsbench", 6000, 16384, 2):
+        "4461965f33ba585e163339ec939427dc7620a212b801c8d36ac4b107883357f1",
+    ("btree", 6000, 16384, 2):
+        "4ab95380d20d8693d1a6c5b9481bbc39b3d5d18f377b6c4459f863de0a60fe43",
+    ("liblinear", 6000, 16384, 2):
+        "546d3eb86d64284653805e6e6625fa84275f9dd9fc4473c4ed9a4c733abfe393",
+    ("redis", 6000, 16384, 2):
+        "86cd51b33e0b3f7a5b8ac9f942f4412cdefd8c85e80c90f9b982e4dd9ce26175",
+    ("silo", 6000, 16384, 2):
+        "c96befdc2f80d30f1e681c88efc29f9a54871efb8291359105047760bf4eceb5",
+    ("silo", 6000, 16384, 4):
+        "5ab377abe245653b01e094cde45d400111bd5a182818ab7aea22b8078d202025",
+    ("xsbench", 800, 1024, 3):
+        "b76b3f5ac93359280c43d827aef72e541d7162dddc184b58168436c1870d14f6",
+    ("silo", 800, 1024, 3):
+        "da8be97606cec7e0a6db6059d606c8584124a81b3ff3b8e19425a386de9dc479",
+}
+# The JAX package's `benchmarks.bench_traces.run(quick=False)` rows, name
+# and derived, made on the CPU with numpy 2.0.2 (PYTHONPATH=src:. python3
+# -c 'import benchmarks.bench_traces as B
+# print([(r.name, r.derived) for r in B.run(quick=False)])').
+TRACES_REF = (
+    ("fig18_19/xsbench/chain",
+     "thr_vs_chain=1.00;lat_vs_chain=1.00;paper_thr=1.00;paper_lat=1.00"),
+    ("fig18_19/xsbench/tree",
+     "thr_vs_chain=1.08;lat_vs_chain=1.07;paper_thr=1.00;paper_lat=1.00"),
+    ("fig18_19/xsbench/ring",
+     "thr_vs_chain=1.85;lat_vs_chain=0.58;paper_thr=1.72;paper_lat=0.57"),
+    ("fig18_19/xsbench/spine_leaf",
+     "thr_vs_chain=3.67;lat_vs_chain=0.27;paper_thr=2.27;paper_lat=0.44"),
+    ("fig18_19/xsbench/fully_connected",
+     "thr_vs_chain=6.20;lat_vs_chain=0.13;paper_thr=3.63;paper_lat=0.28"),
+    ("fig18_19/btree/chain",
+     "thr_vs_chain=1.00;lat_vs_chain=1.00;paper_thr=1.00;paper_lat=1.00"),
+    ("fig18_19/btree/tree",
+     "thr_vs_chain=1.08;lat_vs_chain=1.07;paper_thr=1.00;paper_lat=1.00"),
+    ("fig18_19/btree/ring",
+     "thr_vs_chain=1.85;lat_vs_chain=0.57;paper_thr=1.72;paper_lat=0.57"),
+    ("fig18_19/btree/spine_leaf",
+     "thr_vs_chain=3.67;lat_vs_chain=0.27;paper_thr=2.27;paper_lat=0.44"),
+    ("fig18_19/btree/fully_connected",
+     "thr_vs_chain=6.30;lat_vs_chain=0.14;paper_thr=3.63;paper_lat=0.28"),
+    ("fig18_19/liblinear/chain",
+     "thr_vs_chain=1.00;lat_vs_chain=1.00;paper_thr=1.00;paper_lat=1.00"),
+    ("fig18_19/liblinear/tree",
+     "thr_vs_chain=1.08;lat_vs_chain=1.07;paper_thr=1.00;paper_lat=1.00"),
+    ("fig18_19/liblinear/ring",
+     "thr_vs_chain=1.86;lat_vs_chain=0.57;paper_thr=1.72;paper_lat=0.57"),
+    ("fig18_19/liblinear/spine_leaf",
+     "thr_vs_chain=3.71;lat_vs_chain=0.27;paper_thr=2.27;paper_lat=0.44"),
+    ("fig18_19/liblinear/fully_connected",
+     "thr_vs_chain=6.50;lat_vs_chain=0.13;paper_thr=3.63;paper_lat=0.28"),
+    ("fig18_19/redis/chain",
+     "thr_vs_chain=1.00;lat_vs_chain=1.00;paper_thr=1.00;paper_lat=1.00"),
+    ("fig18_19/redis/tree",
+     "thr_vs_chain=1.08;lat_vs_chain=1.09;paper_thr=1.00;paper_lat=1.00"),
+    ("fig18_19/redis/ring",
+     "thr_vs_chain=1.72;lat_vs_chain=0.60;paper_thr=1.72;paper_lat=0.57"),
+    ("fig18_19/redis/spine_leaf",
+     "thr_vs_chain=3.21;lat_vs_chain=0.30;paper_thr=2.27;paper_lat=0.44"),
+    ("fig18_19/redis/fully_connected",
+     "thr_vs_chain=3.99;lat_vs_chain=0.16;paper_thr=3.63;paper_lat=0.28"),
+    ("fig18_19/silo/chain",
+     "thr_vs_chain=1.00;lat_vs_chain=1.00;paper_thr=1.00;paper_lat=1.00"),
+    ("fig18_19/silo/tree",
+     "thr_vs_chain=1.08;lat_vs_chain=1.06;paper_thr=1.00;paper_lat=1.00"),
+    ("fig18_19/silo/ring",
+     "thr_vs_chain=1.84;lat_vs_chain=0.58;paper_thr=1.72;paper_lat=0.57"),
+    ("fig18_19/silo/spine_leaf",
+     "thr_vs_chain=3.66;lat_vs_chain=0.27;paper_thr=2.27;paper_lat=0.44"),
+    ("fig18_19/silo/fully_connected",
+     "thr_vs_chain=6.06;lat_vs_chain=0.14;paper_thr=3.63;paper_lat=0.28"),
+    ("fig20a/xsbench",
+     "mix_degree=0.02;fullduplex_speedup=1.63"),
+    ("fig20a/btree",
+     "mix_degree=0.08;fullduplex_speedup=1.70"),
+    ("fig20a/liblinear",
+     "mix_degree=0.18;fullduplex_speedup=1.86"),
+    ("fig20a/redis",
+     "mix_degree=0.30;fullduplex_speedup=2.06"),
+    ("fig20a/silo",
+     "mix_degree=0.44;fullduplex_speedup=2.35"),
+    ("fig20a/monotone_in_mix",
+     "monotone=True"),
+    ("fig20b/mix_bandwidth_slope",
+     "rel_slope_per_0.1_mix=+0.126;paper=+0.09;n_windows=9"),
+)
+# The redis half-duplex bus of Fig. 20a (n 6,000) converges in this many
+# rounds past its 23-round bound (the port's CPU run; the JAX package's
+# `simulate_auto` answers it with its oracle).
+REDIS_BUS_ROUNDS = 110
+# The JAX package's `benchmarks.bench_telemetry.run(quick=False)` rows but
+# the last (`telemetry/metrics_per_sweep` needs the trace export, not ported
+# yet): name, derived and meta, made on the CPU (PYTHONPATH=src:. python3
+# -c 'import benchmarks.bench_telemetry as B
+# print([(r.name, r.derived, r.meta) for r in B.run(quick=False)][:4])').
+TELEMETRY_REF = (
+    ("telemetry/schedule_sweep",
+     "bers=3;rows=600;hops=10028",
+     {'engine_rounds': [7, 16, 22], 'engine_converged': True}),
+    ("telemetry/attribution_ber1e-05",
+     "p50=3310ns;p99=5046ns;p999=5076ns;retrain_stall=1964ns",
+     {'quantiles_ps': [3309568, 5046272, 5076445],
+      'retrain_stall_ps': 1963855,
+      'queue_wait_ps': 1781955390,
+      'peak_backlog': [580, 32, 4, 2, 3, 1, 4, 5, 2, 4, 3, 2, 4, 3]}),
+    ("telemetry/attribution_ber0.0001",
+     "p50=36176ns;p99=70255ns;p999=70311ns;retrain_stall=239175ns",
+     {'quantiles_ps': [36175872, 70254592, 70310745],
+      'retrain_stall_ps': 239174695,
+      'queue_wait_ps': 22927879790,
+      'peak_backlog': [595, 146, 10, 5, 9, 3, 10, 10, 11, 10, 2, 3, 4, 3]}),
+    ("telemetry/attribution_ber0.0003",
+     "p50=169869ns;p99=348127ns;p999=352539ns;retrain_stall=1150658ns",
+     {'quantiles_ps': [169869312, 348127232, 352538600],
+      'retrain_stall_ps': 1150657935,
+      'queue_wait_ps': 100319609935,
+      'peak_backlog': [599, 64, 6, 7, 5, 2, 4, 4, 5, 4, 2, 1, 1, 2]}),
+)
+# The JAX package's `telemetry.sf_telemetry` of Fig. 14's five scans, per
+# policy: (fanout_hist, bisnp_legs, invblk_lines, wb_lines, hit_rate), made
+# on the CPU with
+#   PYTHONPATH=src python3 -c 'import repro.core
+#   from repro.core.snoop_filter import *
+#   from repro.core.telemetry import sf_telemetry
+#   a = make_skewed_stream(32000, 4096, write_ratio=0.1, seed=3)
+#   _, ev = simulate_sf(*a, SFConfig(capacity=819, policy="fifo"),
+#                       CacheConfig(capacity=819), return_events=True)
+#   print(sf_telemetry(ev, n_requesters=1))'
+# for each policy.
+FIG14_SF_REF = {
+    "fifo": ([27414, 4586], 4586, 4586, 459, 0.83109375),
+    "lru": ([27414, 4586], 4586, 4586, 459, 0.83109375),
+    "lfi": ([28800, 3200], 3200, 3200, 309, 0.87440625),
+    "lifo": ([29515, 2485], 2485, 2485, 217, 0.89675),
+    "mru": ([29515, 2485], 2485, 2485, 217, 0.89675),
 }
 # requests per stream of the kernel-against-plain families (the plain step
 # loop runs a few dozen small launches and a few host reads a request)
@@ -729,6 +901,153 @@ def run_study(np, torch, P, K, module, name):
          members_checked=routes["oracle"] + routes["cpu_at_budget"],
          checked_by=routes, check_s=time.perf_counter() - t0)
     return rows, log
+
+
+def trace_sha256(trace):
+    """sha256 of a trace's addresses (int64, little-endian) then its
+    is_write flags (one byte each), as `TRACE_SHA256` records them."""
+    import numpy as np
+
+    return hashlib.sha256(
+        np.ascontiguousarray(trace["addr"], "<i8").tobytes()
+        + np.ascontiguousarray(trace["is_write"], np.uint8).tobytes()
+    ).hexdigest()
+
+
+def phase_traces_pinned(TR):
+    """Every trace the studies replay against the JAX package's, by
+    sha256 (`TRACE_SHA256`); a mismatch names the trace."""
+    for (name, n, foot, seed), want in TRACE_SHA256.items():
+        got = trace_sha256(TR.generate(name, n=n, footprint_lines=foot,
+                                       seed=seed))
+        check(got == want,
+              f"trace {name} (n {n}, footprint {foot}, seed {seed}): "
+              f"sha256 {got}, the JAX package's {want}")
+    emit(phase="traces_pinned", traces=[list(k) for k in TRACE_SHA256],
+         equal=True)
+
+
+def rows_against_reference(study, rows, want, with_meta=False):
+    """A study's rows against the JAX package's, name and derived (and
+    meta) letter for letter."""
+    got = [(r.name, r.derived) + ((r.meta,) if with_meta else ())
+           for r in rows]
+    check(len(got) == len(want),
+          f"{study}: {len(got)} rows, the reference {len(want)}")
+    for g, w in zip(got, want):
+        check(g == tuple(w), f"{study}: {g} against the reference's {w}")
+    emit(phase="rows_against_reference", study=study, rows=len(got),
+         with_meta=with_meta, equal=True)
+
+
+# ---------------------------------------------------------------------------
+# telemetry: fabric_metrics on the main path's schedules, the SF counters
+# ---------------------------------------------------------------------------
+
+TELEMETRY_PATHS = ("chain", "long_span", "markers")
+
+
+def metrics_diff(torch, got, want, what):
+    """Every field of two `fabric_metrics` results held: integers equal,
+    float64 equal bit for bit (compared as int64 words)."""
+    def same(g, w, name):
+        g = g.cpu()
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{name}: {g.dtype}{tuple(g.shape)} against "
+              f"{w.dtype}{tuple(w.shape)}")
+        if w.dtype == torch.float64:
+            g, w = g.view(torch.int64), w.view(torch.int64)
+        check(torch.equal(g, w), f"{name} differs from the CPU's")
+
+    fields = 0
+    for key, val in want.items():
+        if isinstance(val, torch.Tensor):
+            same(got[key], val, f"{what}.{key}")
+            fields += 1
+        elif isinstance(val, tuple):
+            for f in val._fields:
+                same(getattr(got[key], f), getattr(val, f),
+                     f"{what}.{key}.{f}")
+                fields += 1
+        else:
+            check(got[key] == val, f"{what}.{key}: {got[key]} against {val}")
+    return fields
+
+
+def telemetry_on_path(torch, P, TM, K, runs):
+    """`fabric_metrics(check=True)` once on each converged main-path
+    schedule of `TELEMETRY_PATHS` on the card, its serve-round launches
+    counted (the retraining replay, one for the attribution and the blame
+    together, where the tables carry retraining), held field for field
+    against the same call on the CPU."""
+    out = {}
+    for name, wl, sched in runs:
+        if name not in TELEMETRY_PATHS:
+            continue
+        before = K.LAUNCHES["serve_round"]
+        got = TM.fabric_metrics(wl.hops, wl.channels, sched, wl.issue_ps,
+                                check=True)
+        torch.cuda.synchronize()
+        launches = K.LAUNCHES["serve_round"] - before
+        want_launches = 0 if wl.hops.retrain_after_ps is None else 1
+        check(launches == want_launches,
+              f"telemetry/{name}: {launches} serve_round launches, "
+              f"expected {want_launches}")
+        cpu_sched = sched._replace(**{f: getattr(sched, f).cpu() for f in (
+            "arrive", "start", "depart", "complete")})
+        t0 = time.perf_counter()
+        want = TM.fabric_metrics(
+            P.hops_from_arrays(wl.hops, device="cpu"),
+            P.channels_from_arrays(wl.channels, device="cpu"), cpu_sched,
+            P.issue_from_array(wl.issue_ps, device="cpu"), check=True)
+        cpu_s = time.perf_counter() - t0
+        fields = metrics_diff(torch, got, want, f"telemetry/{name}")
+        att, blame = got["attribution"], got["blame"]
+        out[name] = dict(
+            K=int(wl.hops.channel.numel()), launches=launches,
+            fields_equal_cpu=fields, cpu_s=cpu_s,
+            conservation_residual_ps=int(
+                TM.conservation_residual(att).abs().max()),
+            blame_residual_ps=int(TM.blame_conservation_residual(blame)),
+            latency_quantiles_ps=got["latency_quantiles_ps"].tolist(),
+            blame_ps={f: int(getattr(blame, f).sum())
+                      for f in blame._fields},
+            peak_backlog_max=int(got["channels"].peak_backlog.max()),
+            max_utilization=float(got["channels"].utilization.max()))
+    return out
+
+
+def time_fabric_metrics(torch, TM, wl, sched):
+    """Host ms of `fabric_metrics(check=True)` (three calls after a warm
+    one, each to a synchronize), and the device busy ms and idle share of
+    one call under `torch.profiler`."""
+    def call():
+        TM.fabric_metrics(wl.hops, wl.channels, sched, wl.issue_ps,
+                          check=True)
+
+    call()
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    return dict(host_ms=host, **profile_device(torch, call))
+
+
+def sf_telemetry_against_reference(TM, log):
+    """`sf_telemetry` of each Fig. 14 scan's card events against the JAX
+    package's (`FIG14_SF_REF`)."""
+    for policy, want in FIG14_SF_REF.items():
+        t = TM.sf_telemetry(log.events[f"fig14/{policy}"], n_requesters=1)
+        got = (t.fanout_hist.tolist(), int(t.bisnp_legs),
+               int(t.invblk_lines), int(t.wb_lines), float(t.hit_rate))
+        check(got == want, f"sf_telemetry fig14/{policy}: {got} against "
+                           f"the reference's {want}")
+        emit(phase="sf_telemetry", policy=policy, fanout_hist=got[0],
+             bisnp_legs=got[1], invblk_lines=got[2], wb_lines=got[3],
+             hit_rate=got[4], equal_reference=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1607,6 +1926,8 @@ def main() -> int:
     from repro_torch.kernels.link_contention import kernel as LK, ref as LR
     from repro_torch.kernels.link_contention import ops as LO
     from repro_torch.core import snoop_filter as PS
+    from repro_torch.core import telemetry as TM
+    from repro_torch.core import traces as TR
     from repro_torch.kernels.serve_round import kernel as K, ref
     from repro_torch.kernels.sf_scan import kernel as SFK, ref as SFR
     from repro_torch.kernels.ssd_chunk import kernel as SK, ref as SR
@@ -1616,6 +1937,7 @@ def main() -> int:
                                      topology, topology_explorer, traces,
                                      validation)
     from repro_torch.studies import snoop_filter as sf_study
+    from repro_torch.studies import telemetry as telemetry_study
 
     # phase 0: the card
     smi = subprocess.run(
@@ -1626,6 +1948,16 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     emit(phase="device", name=kind, count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    # whether this host's numpy draws the redis trace's zipf ranks as
+    # numpy 2.0.2 does (the port never calls it: `traces._zipf`)
+    seed = 1 + TR.zlib.crc32(b"redis") % 65536
+    emit(phase="host", numpy=np.__version__, libc=list(platform.libc_ver()),
+         python=platform.python_version(),
+         numpy_zipf_equals_2_0_2=bool(np.array_equal(
+             np.random.default_rng(seed).zipf(1.2, 3200),
+             TR._zipf(np.random.default_rng(seed), 1.2, 3200))))
+    # the synthetic traces the studies replay, against the JAX package's
+    phase_traces_pinned(TR)
 
     # phase 1: build every kernel of the path from this checkout's sources
     # (one nvcc process per source, all started together)
@@ -1773,11 +2105,12 @@ def main() -> int:
     # 10-13, 16-20, Table IV), with the serve-round count read around them
     K.LAUNCHES["serve_round"] = 0
     K.LAUNCHES["serve_scan"] = 0
-    paper, unconverged = {}, []
+    paper, paper_logs, unconverged = {}, {}, []
     for name, module in (("validation", validation), ("topology", topology),
                          ("routing", routing), ("full_duplex", full_duplex),
                          ("traces", traces)):
         paper[name], log = run_study(np, torch, P, K, module, name)
+        paper_logs[name] = log
         unconverged += [f"{name}/{r.label}" for r in log.runs
                         if not r.stacked and not r.schedule.converged]
     paper_launches = K.LAUNCHES["serve_round"]
@@ -1793,7 +2126,18 @@ def main() -> int:
         check(got == f"{fig10[fabric]:.2f}",
               f"fig10/{fabric}/scale16: norm_bw={got}, paper_path "
               f"{fig10[fabric]:.2f}")
+    # the traces study (Fig. 18-20) against the JAX package's rows, and the
+    # redis half-duplex bus's rounds
+    rows_against_reference("traces", paper["traces"], TRACES_REF)
+    (redis_bus,) = [r for r in paper_logs["traces"].runs
+                    if r.label == "redis/bus_half/n6000"]
+    check(redis_bus.schedule.rounds == REDIS_BUS_ROUNDS,
+          f"redis/bus_half: {redis_bus.schedule.rounds} rounds, expected "
+          f"{REDIS_BUS_ROUNDS}")
     emit(phase="paper_studies", serve_round_launches=paper_launches,
+         redis_bus_half_rounds=redis_bus.schedule.rounds,
+         fig18_19_redis={r.name: r.derived for r in paper["traces"]
+                         if r.name.startswith("fig18_19/redis/")},
          fig10_scale16={f: norm[f"fig10/{f}/scale16"]
                         for f in topology.FABRICS},
          unconverged_schedules=unconverged)
@@ -1827,6 +2171,7 @@ def main() -> int:
     sf_rows_against_reference("snoop_filter", coherence["snoop_filter"][1],
                               FIG14_REF)
     sf_rows_against_reference("invblk", coherence["invblk"][1], FIG15_REF)
+    sf_telemetry_against_reference(TM, coherence["snoop_filter"][1])
     derived = {r.name: r.derived for r in coherence["coherence_fabric"][0]}
     for gate in ("divergence_gate", "fanout_gate"):
         check("gate=True" in derived[f"coherence_fabric/{gate}"],
@@ -1836,6 +2181,30 @@ def main() -> int:
          serve_round_launches=coherence_launches,
          fig14={r.name: r.derived for r in coherence["snoop_filter"][0]},
          fig15={r.name: r.derived for r in coherence["invblk"][0]})
+
+    # phase 5d: the telemetry layer: fabric_metrics on the main path's
+    # converged schedules (the retraining replay through the fused serve
+    # round) against the CPU, and the telemetry study at the reference's
+    # full size against the JAX package's rows; the serve-round count read
+    # around them
+    K.LAUNCHES["serve_round"] = 0
+    K.LAUNCHES["serve_scan"] = 0
+    on_path = telemetry_on_path(torch, P, TM, K, runs)
+    telemetry_rows, _ = run_study(np, torch, P, K, telemetry_study,
+                                  "telemetry")
+    telemetry_launches = K.LAUNCHES["serve_round"]
+    check(telemetry_launches > 0,
+          "the telemetry phase never launched serve_round")
+    launches += telemetry_launches
+    scan_launches += K.LAUNCHES["serve_scan"]
+    rows_against_reference("telemetry", telemetry_rows, TELEMETRY_REF,
+                           with_meta=True)
+    for name, wl, sched in runs:
+        if name in on_path:
+            emit(phase="telemetry", workload=name, **on_path[name],
+                 **time_fabric_metrics(torch, TM, wl, sched))
+    emit(phase="telemetry_launches", serve_round_launches=telemetry_launches,
+         on_path={n: r["launches"] for n, r in on_path.items()})
 
     # phase 6: depart_times on real converged rounds (its path), against
     # the serve-scan kernel's departures

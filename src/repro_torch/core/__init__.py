@@ -49,6 +49,16 @@ from .coherence_traffic import (  # noqa: F401
     FANOUT_MODES, bisnp_latencies, coherence_issue, concat_background,
     lower_coherence, pad_rows, simulate_coupled,
 )
+from . import telemetry  # noqa: F401
+from .telemetry import (  # noqa: F401
+    LatencyAttribution, ChannelTelemetry, ChannelBlame, WindowedSeries,
+    QuantileSketch, SFTelemetry, attribute_latency, conservation_residual,
+    channel_telemetry, channel_blame, blame_conservation_residual,
+    windowed_series, sketch_new, sketch_update, sketch_merge,
+    sketch_quantile, sketch_quantiles, sf_telemetry, fabric_metrics,
+    StreamTelemetry, stream_telemetry_new, stream_telemetry_fold,
+    stream_telemetry_finalize,
+)
 
 __all__ = [
     # topology / link layer
@@ -76,6 +86,15 @@ __all__ = [
     "CoherenceLowering", "CoherenceStream", "CoupledResult", "FANOUT_MODES",
     "bisnp_latencies", "coherence_issue", "concat_background",
     "lower_coherence", "pad_rows", "simulate_coupled",
+    # telemetry: attribution, channel counters and blame, series, sketches
+    "LatencyAttribution", "ChannelTelemetry", "ChannelBlame",
+    "WindowedSeries", "QuantileSketch", "SFTelemetry", "attribute_latency",
+    "conservation_residual", "channel_telemetry", "channel_blame",
+    "blame_conservation_residual", "windowed_series", "sketch_new",
+    "sketch_update", "sketch_merge", "sketch_quantile", "sketch_quantiles",
+    "sf_telemetry", "fabric_metrics", "StreamTelemetry",
+    "stream_telemetry_new", "stream_telemetry_fold",
+    "stream_telemetry_finalize",
     # oracle / verification
     "join_depth", "simulate_ref", "ref_schedule", "Finding", "VerifyError",
     "VerifyReport", "verify_workload", "assert_valid", "verify_built",
@@ -85,5 +104,5 @@ __all__ = [
     # submodules
     "topology", "engine", "devices", "link_layer", "calibration", "verify",
     "ref_des", "convert", "traces", "routing", "vcs", "snoop_filter",
-    "coherence_traffic",
+    "coherence_traffic", "telemetry",
 ]

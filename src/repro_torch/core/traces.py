@@ -17,11 +17,15 @@ read-dominated; silo the most mixed).
 
 The PyTorch port's copy of ``repro.core.traces``: the generators stay numpy,
 seeded through ``zlib.crc32``, so every array equals the reference's; only
-`request_stream` hands its arrays over as torch tensors on a device.
+`request_stream` hands its arrays over as torch tensors on a device.  The
+zipf ranks come from `_zipf`, a transcription of numpy 2.0.2's
+``Generator.zipf`` on the generator's own doubles, so they do not depend on
+the numpy build of the host that runs the port.
 """
 
 from __future__ import annotations
 
+import math
 import zlib
 
 import numpy as np
@@ -37,6 +41,49 @@ WORKLOADS = {
     "redis":     (0.30, "zipf"),      # YCSB-style mixed GET/SET
     "silo":      (0.45, "oltp"),      # in-memory OLTP, read-modify-write
 }
+
+
+# int64 max as a double (2**63), the bound numpy's C loop compares against
+_INT64_MAX_F = float(np.iinfo(np.int64).max)
+
+
+def _zipf(rng: np.random.Generator, a: float, n: int) -> np.ndarray:
+    """``rng.zipf(a, n)`` as numpy 2.0.2 draws it, on any numpy build.
+
+    numpy's zipf is its own rejection loop over the bit generator's doubles,
+    and numpy versions differ in that loop (newer sources cut ``U`` below),
+    so the same seed gives other ranks elsewhere; everything drawn after the
+    ranks shifts with them.  This is numpy 2.0.2's loop, one pair of
+    ``rng.random()`` doubles per try, with the C library's ``pow``
+    (`math.pow`; numpy's vectorised ``power`` may round its last bit
+    differently).  The doubles are drawn in blocks from a copy of the
+    generator; the generator itself then advances by exactly the pairs the
+    loop used, so the draws after it equal the reference's too."""
+    am1 = a - 1.0
+    b = math.pow(2.0, am1)
+    inv = -1.0 / am1
+    bits = type(rng.bit_generator)()
+    bits.state = rng.bit_generator.state
+    probe = np.random.Generator(bits)
+    out, pairs = [], 0
+    while len(out) < n:
+        d = probe.random(2 * (n - len(out))).tolist()
+        for u01, v in zip(d[::2], d[1::2]):
+            pairs += 1
+            try:
+                x = float(math.floor(math.pow(1.0 - u01, inv)))
+            except OverflowError:  # C's pow gives inf there: rejected
+                continue
+            if x > _INT64_MAX_F or x < 1.0:
+                continue
+            t = math.pow(1.0 + 1.0 / x, am1)
+            if v * x * (t - 1.0) / (b - 1.0) <= t / b:
+                # C's cast of 2**63 to int64 gives int64 min on x86
+                out.append(int(x) if x < _INT64_MAX_F else -(1 << 63))
+                if len(out) == n:
+                    break
+    rng.random(2 * pairs)
+    return np.array(out, dtype=np.int64)
 
 
 def mix_degree(is_write: np.ndarray) -> float:
@@ -68,7 +115,7 @@ def generate(name: str, n: int = 100_000, footprint_lines: int = 1 << 16,
         steps = np.where(jump, rng.integers(0, footprint_lines, n), 1)
         addr = np.cumsum(steps) % footprint_lines
     elif pattern == "zipf":
-        ranks = rng.zipf(1.2, n)
+        ranks = _zipf(rng, 1.2, n)
         addr = (ranks * 2654435761) % footprint_lines
     elif pattern == "oltp":
         # hot rows + uniform tail; read-modify-write pairs

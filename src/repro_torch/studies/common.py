@@ -11,7 +11,8 @@ marker insertion, or a coherence study's stream and event lowering;
 every schedule it resolved, with the tables it came from and the
 serve-scan launches it took, so a caller can time the phases apart and
 hold each schedule against the oracle.  The coherence studies also keep
-their `SFResult`s (``scans``).
+their `SFResult`s (``scans``), and Fig. 14 its `SFEvents` logs
+(``events``).
 """
 
 from __future__ import annotations
@@ -38,6 +39,9 @@ class Row:
     name: str
     us_per_call: float
     derived: str
+    # structured values riding along (convergence counters, quantiles), as
+    # the reference's rows carry them; never printed in the CSV line
+    meta: dict | None = None
 
     def csv(self) -> str:
         return f"{self.name},{self.us_per_call:.3f},{self.derived}"
@@ -82,6 +86,7 @@ class StudyLog:
     seconds: dict = field(default_factory=dict)
     runs: list = field(default_factory=list)
     scans: list = field(default_factory=list)  # (label, SFResult)
+    events: dict = field(default_factory=dict)  # label -> SFEvents
     _inner: list = field(default_factory=list, repr=False)
 
     @contextlib.contextmanager

@@ -28,6 +28,7 @@ MODULES = (
     ("link_layer", "repro_torch.studies.link_layer"),
     ("link_reliability", "repro_torch.studies.link_reliability"),
     ("coherence_fabric", "repro_torch.studies.coherence_fabric"),
+    ("telemetry", "repro_torch.studies.telemetry"),
     ("traces", "repro_torch.studies.traces"),
     ("coherence_modes", "repro_torch.studies.coherence_modes"),
 )

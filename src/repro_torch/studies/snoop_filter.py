@@ -34,9 +34,11 @@ def run_policy(policy: str, n: int, footprint: int, device="cuda",
                                            seed=3, device=device)
     cfg = SFConfig(capacity=cap, policy=policy, footprint_lines=footprint)
     with log.phase("sf_scan"):
-        res = simulate_sf(addr, wr, rid, cfg, CacheConfig(capacity=cap),
-                          n_requesters=1)
+        res, events = simulate_sf(addr, wr, rid, cfg,
+                                  CacheConfig(capacity=cap), n_requesters=1,
+                                  return_events=True)
     log.scans.append((f"fig14/{policy}", res))
+    log.events[f"fig14/{policy}"] = events
     lat = to_host(res.latency_ps)[n // 2:]  # steady-state half
     return {
         "bandwidth_MBps": float(res.bandwidth_MBps),

@@ -1,7 +1,7 @@
 """PyTorch port on a CUDA card: the hand-written kernels against their plain
 versions, the engine (one run and a stacked sweep), adaptive routing, a
-Fig. 16/17 study and `simulate_coupled` run on the card against the same on
-the CPU, and the smoke models of recurrentgemma-2b and mamba2-1.3b (prefill
+Fig. 16/17 study, `simulate_coupled` and `telemetry.fabric_metrics` run on
+the card against the same on the CPU, and the smoke models of recurrentgemma-2b and mamba2-1.3b (prefill
 and decode) on the card against the same models on the CPU.
 
 Every test here is marked ``cuda`` and skips without a card (the CUDA
@@ -257,6 +257,92 @@ def test_cuda_stacked_sweep_equals_cpu(card):
     fh, fc, _ = _flatten_members(*gpu_tables)
     _rounds_equal_plain(fh, fc, [gpu.arrive.reshape(
         -1, gpu.arrive.shape[-1])])
+
+
+def _stochastic_bus(dev):
+    rel = P.FlitConfig("flit256", ber=3e-4, reliability="stochastic",
+                       rel_seed=7, retrain_threshold=2, retrain_ps=500_000)
+    topo = P.with_flit(P.single_bus(n_mems=4, bw_MBps=128_000), rel)
+    spec = P.RequesterSpec(node=0, n_requests=400, targets=[2, 3, 4, 5],
+                           read_ratio=0.5, issue_interval_ps=300,
+                           payload_bytes=944, seed=3)
+    wl = P.build_workload(topo.build(), [spec], warmup_frac=0.0, device=dev)
+    assert wl.hops.retrain_after_ps is not None
+    return wl.hops, wl.channels, wl.issue_ps
+
+
+def _join_tables(dev, seed=5, n=64, h=3, c=3):
+    """Random hop table with a one-layer fork/join group."""
+    rng = np.random.default_rng(seed)
+    ch = P.Channels(*(torch.from_numpy(x).to(dev) for x in (
+        rng.integers(10, 100, c).astype(np.int64) * 1000,
+        np.where(rng.random(c) < .4, rng.integers(100, 4000, c),
+                 0).astype(np.int64),
+        np.zeros(c, np.int64), np.zeros(c, np.int64))))
+    valid = rng.random((n, h)) < .85
+    jid = np.full(n, -1, np.int32)
+    jwait = np.full(n, -1, np.int32)
+    jarity = np.zeros(n, np.int32)
+    members = np.arange(n // 2)[rng.random(n // 2) < 0.6]
+    jid[members] = 0
+    jwait[n // 2] = 0
+    jarity[n // 2] = members.size
+    hops = P.Hops(*(None if x is None else torch.from_numpy(x).to(dev)
+                    for x in (
+        rng.integers(0, c, (n, h)).astype(np.int32),
+        np.where(rng.random((n, h)) < 0.15, 0,
+                 rng.integers(1, 400, (n, h))).astype(np.int64),
+        rng.integers(0, 2, (n, h)).astype(np.int8),
+        np.full((n, h), -1, np.int32),
+        rng.integers(0, 2000, (n, h)).astype(np.int64), valid, valid,
+        None, None, jid, jwait, jarity)))
+    issue = torch.from_numpy(np.sort(rng.integers(0, 5000, n)).astype(
+        np.int64)).to(dev)
+    return hops, ch, issue
+
+
+def _metrics_equal(got, want, what):
+    """Every field of two `fabric_metrics` results: integers equal, float64
+    equal bit for bit."""
+    def same(g, w, name):
+        g = g.cpu()
+        assert g.dtype == w.dtype, name
+        if w.dtype == torch.float64:
+            g, w = g.view(torch.int64), w.view(torch.int64)
+        assert torch.equal(g, w), name
+
+    for key, val in want.items():
+        if isinstance(val, torch.Tensor):
+            same(got[key], val, f"{what}.{key}")
+        elif isinstance(val, tuple):
+            for f in val._fields:
+                same(getattr(got[key], f), getattr(val, f),
+                     f"{what}.{key}.{f}")
+        else:
+            assert got[key] == val, f"{what}.{key}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["stochastic_bus", "joins"])
+def test_cuda_fabric_metrics_equals_cpu(card, case):
+    """`fabric_metrics` on the card equals the CPU run field for field; the
+    stochastic bus replays its retraining round through the fused serve
+    round once, for the attribution and the blame together."""
+    from repro_torch.core import telemetry
+
+    build = _stochastic_bus if case == "stochastic_bus" else _join_tables
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        hops, ch, issue = build(dev)
+        sched = P.simulate(hops, ch, issue)
+        assert sched.converged
+        before = K.LAUNCHES["serve_round"]
+        out[dev.type] = telemetry.fabric_metrics(hops, ch, sched, issue)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["serve_round"] - before == (
+                1 if case == "stochastic_bus" else 0)
+    _metrics_equal(out["cuda"], out["cpu"], case)
 
 
 @pytest.mark.cuda
