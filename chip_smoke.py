@@ -48,6 +48,15 @@ paths through them:
     serve-round launch) against the same call on the CPU, the telemetry
     study (`studies.telemetry`) against the JAX package's rows, and the SF
     counters of Fig. 14's card events against the JAX package's;
+  * the observability back end (`core.critical_path`, `core.trace_export`)
+    on the main path's chain and markers schedules: the backpointer replay
+    (`extract_backpointers(check=True)`, which holds the fused serve round's
+    grants bit for bit), critical paths of a fixed sample of rows, blame,
+    what-ifs and the Perfetto trace with its flows, each held against the
+    same on the port's CPU run; the critical-path study
+    (`studies.critical_path`) and the trace viewer
+    (`studies.fabric_trace_viewer`, its SF scans through `sf_scan`) against
+    the JAX package's rows and printout;
   * mamba2-1.3b at its published width (48 SSD layers, d_model 2048,
     1.344 B parameters) behind the same server, prompts of 1 to 16,384
     tokens, whose prefills run the tensor-core SSD chunk kernel (bf16).
@@ -78,10 +87,12 @@ import gc
 import hashlib
 import io
 import json
+import os
 import platform
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -295,11 +306,10 @@ TRACES_REF = (
 # rounds past its 23-round bound (the port's CPU run; the JAX package's
 # `simulate_auto` answers it with its oracle).
 REDIS_BUS_ROUNDS = 110
-# The JAX package's `benchmarks.bench_telemetry.run(quick=False)` rows but
-# the last (`telemetry/metrics_per_sweep` needs the trace export, not ported
-# yet): name, derived and meta, made on the CPU (PYTHONPATH=src:. python3
-# -c 'import benchmarks.bench_telemetry as B
-# print([(r.name, r.derived, r.meta) for r in B.run(quick=False)][:4])').
+# The JAX package's `benchmarks.bench_telemetry.run(quick=False)` rows: name,
+# derived and meta, made on the CPU (PYTHONPATH=src:. python3 -c 'import
+# benchmarks.bench_telemetry as B
+# print([(r.name, r.derived, r.meta) for r in B.run(quick=False)])').
 TELEMETRY_REF = (
     ("telemetry/schedule_sweep",
      "bers=3;rows=600;hops=10028",
@@ -322,7 +332,99 @@ TELEMETRY_REF = (
       'retrain_stall_ps': 1150657935,
       'queue_wait_ps': 100319609935,
       'peak_backlog': [599, 64, 6, 7, 5, 2, 4, 4, 5, 4, 2, 1, 1, 2]}),
+    ("telemetry/metrics_per_sweep",
+     "conservation=0ps;max_util=0.747;trace_events=9575;trace_valid=True;"
+     "blame_residual=0ps",
+     {'max_utilization': 0.7469352538790311,
+      'blame': {'queue_ps': 100319609935, 'retrain_ps': 1150657935,
+                'wire_ps': 178759000, 'row_extra_ps': 0, 'join_ps': 0,
+                'fixed_ps': 115200000}}),
 )
+# The JAX package's `benchmarks.bench_critical_path.run(quick=False)` first
+# two rows (`_gate_config` on `_coherence_config(False)`, with `leg_blame`,
+# and on `_reliability_config(False)`): name, derived and meta without
+# `host_phases`, made on the CPU (PYTHONPATH=src:. python3 -c 'import
+# benchmarks.bench_critical_path as B
+# print([(r.name, r.derived, {k: v for k, v in r.meta.items()
+#         if k != "host_phases"}) for r in B.run(quick=False)][:2])').  The
+# third row needs the streaming engine, which the port does not have yet.
+CRITICAL_PATH_REF = (
+    ("critical_path/coherence_fabric",
+     "rows=1452;total_ms=0.31;top=fixed@chNone:99%;conservation=exact",
+     {'n_requests': 1452, 'total_ps': 307842600,
+      'by_kind': {'issue': 0, 'join': 0, 'queue': 0, 'retrain': 0,
+                  'wire': 3186600, 'row': 0, 'fixed': 304656000},
+      'by_channel': [362000, 371000, 214000, 442000, 971000, 577000, 0, 0, 0,
+                     0, 0, 0, 249600, 304656000],
+      'top': [{'channel': None, 'kind': 'fixed', 'ps': 304656000,
+               'share': 0.9896},
+              {'channel': 4, 'kind': 'wire', 'ps': 971000, 'share': 0.0032},
+              {'channel': 5, 'kind': 'wire', 'ps': 577000, 'share': 0.0019},
+              {'channel': 3, 'kind': 'wire', 'ps': 442000, 'share': 0.0014},
+              {'channel': 1, 'kind': 'wire', 'ps': 371000, 'share': 0.0012}],
+      'flow_events': 1185, 'busiest_channel': 4,
+      'speedup_if': {
+          '1x': {'saved_ps': 0, 'mean_latency_ps': 212012,
+                 'baseline_mean_latency_ps': 212012},
+          '2x': {'saved_ps': 485500, 'mean_latency_ps': 211678,
+                 'baseline_mean_latency_ps': 212012},
+          '4x': {'saved_ps': 726304, 'mean_latency_ps': 211512,
+                 'baseline_mean_latency_ps': 212012}},
+      'by_switch': {'0': 2937000, '3': 1797600, '1': 733000, '2': 656000,
+                    '4': 0, '5': 0, '6': 0},
+      'leg_blame': {'demand_req': 105271000, 'service': 24249600,
+                    'demand_rsp': 44416000, 'bisnp': 72136000,
+                    'birsp': 61770000, 'writeback': 0, 'protocol': 0,
+                    'background': 0}}),
+    ("critical_path/reliability_bus",
+     "rows=500;retrain_us=10840.0;queue_us=0.0;conservation=exact",
+     {'n_requests': 500, 'total_ps': 13919305145,
+      'by_kind': {'issue': 0, 'join': 0, 'queue': 0, 'retrain': 10840000000,
+                  'wire': 3065141145, 'row': 0, 'fixed': 14164000},
+      'by_channel': [108293000, 13796832000, 0, 0, 0, 0, 8000, 2000, 0, 0, 0,
+                     0, 6145, 0, 14164000],
+      'top': [{'channel': 1, 'kind': 'retrain', 'ps': 10840000000,
+               'share': 0.7788},
+              {'channel': 1, 'kind': 'wire', 'ps': 2956832000,
+               'share': 0.2124},
+              {'channel': 0, 'kind': 'wire', 'ps': 108293000,
+               'share': 0.0078},
+              {'channel': None, 'kind': 'fixed', 'ps': 14164000,
+               'share': 0.001},
+              {'channel': 6, 'kind': 'wire', 'ps': 8000, 'share': 0.0}],
+      'flow_events': 1538, 'busiest_channel': 1,
+      'speedup_if': {
+          '1x': {'saved_ps': 0, 'mean_latency_ps': 27838610,
+                 'baseline_mean_latency_ps': 27838610},
+          '2x': {'saved_ps': 1150716755, 'mean_latency_ps': 25537176,
+                 'baseline_mean_latency_ps': 27838610},
+          '4x': {'saved_ps': 1480368570, 'mean_latency_ps': 24877873,
+                 'baseline_mean_latency_ps': 27838610}},
+      'by_switch': {'1': 13905135000, '0': 13905125000, '4': 16145, '2': 0,
+                    '3': 0, '5': 0}}),
+)
+# What `examples/fabric_trace_viewer.py` prints at full size (n 600), and
+# the sha256 of the trace file it writes, made on the CPU in an empty
+# directory (PYTHONPATH=src python3 examples/fabric_trace_viewer.py
+# --out trace.json; sha256sum trace.json).
+VIEWER_REF = """\
+== where the latency went (all scheduled rows) ==
+  join/fork wait             62.3 us  ( 12.7%)
+  FCFS queueing              16.6 us  (  3.4%)
+  retrain stall               0.0 us  (  0.0%)
+  wire serialization         55.1 us  ( 11.2%)
+  row-buffer extras           0.0 us  (  0.0%)
+  fixed latency             356.7 us  ( 72.7%)
+  latency p50/p99/p99.9: 223 / 373 / 412 ns
+  hottest channel: sw0 -> mem3 at 21.2% (peak backlog 6)
+  coupled fixpoint: 10 iters (cap), residuals [66357, 95045, 94361, 112175, \
+81564, 62977, 59230, 61666, 67566] ps
+
+wrote trace.json: 19268 events on 13 channel tracks - load it at \
+https://ui.perfetto.dev
+"""
+VIEWER_TRACE_SHA256 = (
+    "5c17659fd12b6e72ed667174578f567a8b6f588362b8dbc4112d79212d4e33cd")
 # The JAX package's `telemetry.sf_telemetry` of Fig. 14's five scans, per
 # policy: (fanout_hist, bisnp_legs, invblk_lines, wb_lines, hit_rate), made
 # on the CPU with
@@ -1048,6 +1150,172 @@ def sf_telemetry_against_reference(TM, log):
         emit(phase="sf_telemetry", policy=policy, fanout_hist=got[0],
              bisnp_legs=got[1], invblk_lines=got[2], wb_lines=got[3],
              hit_rate=got[4], equal_reference=True)
+
+
+# ---------------------------------------------------------------------------
+# the observability back end: critical paths, blame, what-ifs, the trace
+# ---------------------------------------------------------------------------
+
+CRITICAL_PATHS = ("chain", "markers")
+# critical paths are asked for every PATH_STRIDE-th row and the row that
+# completes last (120 + 1 rows on the chain): a path walks back through
+# every FCFS predecessor to its own issue time, so under the main path's
+# congestion a path has thousands of edges and all 7,680 would take minutes
+PATH_STRIDE = 64
+BP_ARRAYS = ("issue", "arrive", "start", "depart", "complete", "valid",
+             "serving", "channel", "wire", "row_extra", "fixed", "bind",
+             "qpred_row", "qpred_hop", "rsrc_row", "rsrc_hop", "gate_row")
+
+
+def host_s(fn):
+    """(result, host s) of one host-side call."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def in_temporary_directory():
+    """Run the block in an empty working directory, removed afterwards, so
+    what a study or the viewer writes leaves the checkout clean."""
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            yield
+        finally:
+            os.chdir(cwd)
+
+
+def critical_path_on_path(np, torch, P, CP, TX, runs, cpu_scheds):
+    """The observability back end on the main path's `CRITICAL_PATHS`
+    schedules from the card: `extract_backpointers(check=True)` (its
+    replay holds the fused serve round's start, depart, arrive and join
+    gates bit for bit), the critical paths of a fixed sample of rows, each
+    summing to complete - issue, their blame, `speedup_if` on the sample's
+    busiest channel (0 ps saved at 1x, monotone after), the Perfetto trace
+    with flows and blame and its schema gate; every backpointer array
+    against the extraction on the port's CPU run of the same tables, whose
+    schedule must equal the card's.  Returns one result dict a workload."""
+    out = {}
+    for name, wl, sched in runs:
+        if name not in CRITICAL_PATHS:
+            continue
+        bp, extract_s = host_s(lambda: CP.extract_backpointers(
+            wl.hops, wl.channels, sched, wl.issue_ps, check=True))
+        binds = {k: int((bp.bind == getattr(CP, f"B_{k.upper()}")).sum())
+                 for k in ("arrive", "queue", "retrain")}
+        rows = list(range(0, bp.n, PATH_STRIDE))
+        last = int(np.argmax(bp.complete))
+        if last not in rows:
+            rows.append(last)
+        paths, paths_s = host_s(lambda: CP.critical_paths(bp, rows=rows))
+        for r, path in zip(rows, paths):
+            check(CP.path_total(path) == int(bp.complete[r] - bp.issue[r]),
+                  f"critical_path/{name}: row {r}'s path does not sum to "
+                  f"complete - issue")
+        bl, blame_s = host_s(lambda: CP.blame(bp, rows=rows, paths=paths))
+        check(bl.total_ps == int((bp.complete - bp.issue)[rows].sum())
+              and bl.total_ps == int(bl.table.sum()),
+              f"critical_path/{name}: blame does not conserve")
+        busiest = int(bl.by_channel()[:-1].argmax())
+        what_ifs, saved_prev = {}, -1
+        for factor in (1.0, 2.0, 4.0):
+            w, took = host_s(lambda: CP.speedup_if(bp, busiest, factor))
+            saved = w["saved_ps"]
+            check(saved >= saved_prev and (factor != 1.0 or saved == 0),
+                  f"critical_path/{name}: speedup_if({factor:g}) saved "
+                  f"{saved} ps after {saved_prev}")
+            saved_prev = saved
+            what_ifs[f"{factor:g}x"] = dict(saved_ps=saved, host_s=took)
+        trace, trace_s = host_s(lambda: TX.schedule_trace(
+            wl.hops, wl.channels, sched, flows=bp, blame=bl))
+        errs, validate_s = host_s(lambda: TX.validate_trace(trace))
+        check(errs == [], f"critical_path/{name}: trace violations "
+                          f"{errs[:3]}")
+        # the port's CPU run of the same tables: schedule, then every
+        # backpointer array
+        cpu = cpu_scheds.get(name)
+        cpu_sim_s = 0.0
+        cpu_tables = (P.hops_from_arrays(wl.hops, device="cpu"),
+                      P.channels_from_arrays(wl.channels, device="cpu"),
+                      P.issue_from_array(wl.issue_ps, device="cpu"))
+        if cpu is None:
+            cpu, cpu_sim_s = host_s(lambda: P.simulate(*cpu_tables))
+        for f in ("start", "depart", "arrive", "complete"):
+            check(torch.equal(getattr(cpu, f), getattr(sched, f).cpu()),
+                  f"critical_path/{name}: the CPU schedule differs in {f}")
+        cpu_bp, cpu_extract_s = host_s(lambda: CP.extract_backpointers(
+            *cpu_tables[:2], cpu, cpu_tables[2], check=True))
+        check((cpu_bp.n, cpu_bp.h, cpu_bp.c) == (bp.n, bp.h, bp.c),
+              f"critical_path/{name}: CPU backpointer shape")
+        for f in BP_ARRAYS:
+            a, b = getattr(bp, f), getattr(cpu_bp, f)
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  f"critical_path/{name}: backpointers.{f} differ from the "
+                  f"CPU run's")
+        edges = [len(p) for p in paths]
+        out[name] = dict(
+            rows=bp.n, K=bp.n * bp.h, binds=binds,
+            join_gated_rows=int((bp.gate_row >= 0).sum()),
+            extract_s=extract_s, path_rows=len(rows), last_row=last,
+            edges_per_path_mean=sum(edges) / len(edges),
+            edges_per_path_max=max(edges), paths_s=paths_s,
+            blame_s=blame_s, blame_by_kind=bl.by_kind(),
+            busiest_channel=busiest, speedup_if=what_ifs,
+            trace_events=sum(1 for e in trace["traceEvents"]
+                             if e["ph"] != "M"),
+            trace_flows=sum(1 for e in trace["traceEvents"]
+                            if e["ph"] == "s"),
+            trace_s=trace_s, validate_s=validate_s, trace_violations=0,
+            cpu_simulate_s=cpu_sim_s, cpu_extract_s=cpu_extract_s,
+            backpointer_arrays_equal_cpu=len(BP_ARRAYS))
+    return out
+
+
+def critical_path_study(np, torch, P, K, module):
+    """The critical-path study at full size, in a temporary working
+    directory (it writes its artifact there): rows against
+    `CRITICAL_PATH_REF` without their host phases, the artifact's two
+    entries against the rows' meta."""
+    with in_temporary_directory():
+        rows, log = run_study(np, torch, P, K, module, "critical_path")
+        with open(module.ARTIFACT) as f:
+            artifact = json.load(f)
+    stripped = [type(r)(r.name, r.us_per_call, r.derived,
+                        {k: v for k, v in r.meta.items()
+                         if k != "host_phases"}) for r in rows]
+    rows_against_reference("critical_path", stripped, CRITICAL_PATH_REF,
+                           with_meta=True)
+    for key, row in zip(("coherence_fabric", "reliability_bus"), stripped):
+        check(json.loads(json.dumps(row.meta)) == artifact[key],
+              f"critical_path: artifact {key} differs from its row")
+    return log
+
+
+def trace_viewer_on_card(TV, TX):
+    """The trace viewer at full size (n 600) on the card, in a temporary
+    directory: its printout against the example's (`VIEWER_REF`), its
+    trace file against the example's by sha256 (so the dict equals the
+    example's event for event), and the trace's schema gate."""
+    printed = io.StringIO()
+    with in_temporary_directory():
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            trace = TV.main(["--out", "trace.json", "--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        with open("trace.json", "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+    check(printed.getvalue() == VIEWER_REF,
+          f"trace viewer printed {printed.getvalue()!r}, the example "
+          f"{VIEWER_REF!r}")
+    check(digest == VIEWER_TRACE_SHA256,
+          f"trace viewer's trace sha256 {digest}, the example's "
+          f"{VIEWER_TRACE_SHA256}")
+    check(TX.validate_trace(trace) == [], "trace viewer's trace invalid")
+    return dict(host_s=seconds, printout=printed.getvalue().splitlines(),
+                trace_sha256=digest, trace_events=sum(
+                    1 for e in trace["traceEvents"] if e["ph"] != "M"))
 
 
 # ---------------------------------------------------------------------------
@@ -1925,8 +2193,10 @@ def main() -> int:
     from repro_torch.kernels.flit_pack.ops import MAX_PAYLOAD_B
     from repro_torch.kernels.link_contention import kernel as LK, ref as LR
     from repro_torch.kernels.link_contention import ops as LO
+    from repro_torch.core import critical_path as CP
     from repro_torch.core import snoop_filter as PS
     from repro_torch.core import telemetry as TM
+    from repro_torch.core import trace_export as TX
     from repro_torch.core import traces as TR
     from repro_torch.kernels.serve_round import kernel as K, ref
     from repro_torch.kernels.sf_scan import kernel as SFK, ref as SFR
@@ -1936,6 +2206,8 @@ def main() -> int:
                                      link_layer, link_reliability, routing,
                                      topology, topology_explorer, traces,
                                      validation)
+    from repro_torch.studies import critical_path as critical_path_study_mod
+    from repro_torch.studies import fabric_trace_viewer
     from repro_torch.studies import snoop_filter as sf_study
     from repro_torch.studies import telemetry as telemetry_study
 
@@ -2009,6 +2281,7 @@ def main() -> int:
     K.LAUNCHES["serve_round"] = 0
     K.LAUNCHES["serve_scan"] = 0
     runs = []
+    cpu_scheds = {}
     fig10 = {}
     cpu_threads = torch.get_num_threads()
     for fabric in topology.FABRICS:
@@ -2024,6 +2297,8 @@ def main() -> int:
             check(torch.equal(getattr(cpu, f), getattr(sched, f).cpu()),
                   f"{fabric}: CPU run differs in {f}")
         check(cpu.rounds == sched.rounds, f"{fabric}: CPU rounds differ")
+        if fabric in CRITICAL_PATHS:
+            cpu_scheds[fabric] = cpu
         row.update(fabric=fabric, cpu_s=time.perf_counter() - t0,
                    cpu_threads=cpu_threads,
                    fig10_norm_bw=(row["steady_bandwidth_MBps"]
@@ -2205,6 +2480,34 @@ def main() -> int:
                  **time_fabric_metrics(torch, TM, wl, sched))
     emit(phase="telemetry_launches", serve_round_launches=telemetry_launches,
          on_path={n: r["launches"] for n, r in on_path.items()})
+
+    # phase 5e: the observability back end: critical paths, blame,
+    # what-ifs and the trace export on the main path's chain and markers
+    # schedules (host replays of the card's schedules, held against the CPU
+    # run's), the critical-path study at full size against the JAX
+    # package's rows, and the trace viewer against the example's printout;
+    # the serve-round and sf_scan counts read around them
+    K.LAUNCHES["serve_round"] = 0
+    K.LAUNCHES["serve_scan"] = 0
+    SFK.LAUNCHES["sf_scan"] = 0
+    paths_on_path = critical_path_on_path(np, torch, P, CP, TX, runs,
+                                          cpu_scheds)
+    del cpu_scheds
+    critical_path_study(np, torch, P, K, critical_path_study_mod)
+    viewer = trace_viewer_on_card(fabric_trace_viewer, TX)
+    cp_launches = K.LAUNCHES["serve_round"]
+    cp_sf_launches = SFK.LAUNCHES["sf_scan"]
+    check(cp_launches > 0,
+          "the critical-path phase never launched serve_round")
+    check(cp_sf_launches > 0, "the critical-path phase never launched sf_scan")
+    launches += cp_launches
+    scan_launches += K.LAUNCHES["serve_scan"]
+    sf_launches += cp_sf_launches
+    for name, result in paths_on_path.items():
+        emit(phase="critical_path", workload=name, **result)
+    emit(phase="trace_viewer", **viewer)
+    emit(phase="critical_path_launches", serve_round_launches=cp_launches,
+         sf_scan_launches=cp_sf_launches)
 
     # phase 6: depart_times on real converged rounds (its path), against
     # the serve-scan kernel's departures

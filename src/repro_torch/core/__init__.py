@@ -46,8 +46,9 @@ from .snoop_filter import (  # noqa: F401
 )
 from .coherence_traffic import (  # noqa: F401
     CoherenceFabricSpec, CoherenceLowering, CoherenceStream, CoupledResult,
-    FANOUT_MODES, bisnp_latencies, coherence_issue, concat_background,
-    lower_coherence, pad_rows, simulate_coupled,
+    FANOUT_MODES, LEG_NAMES, bisnp_latencies, coherence_issue,
+    concat_background, hop_legs, leg_blame, lower_coherence, pad_rows,
+    simulate_coupled,
 )
 from . import telemetry  # noqa: F401
 from .telemetry import (  # noqa: F401
@@ -58,6 +59,15 @@ from .telemetry import (  # noqa: F401
     sketch_quantile, sketch_quantiles, sf_telemetry, fabric_metrics,
     StreamTelemetry, stream_telemetry_new, stream_telemetry_fold,
     stream_telemetry_finalize,
+)
+from . import critical_path, trace_export  # noqa: F401
+from .critical_path import (  # noqa: F401
+    KIND_NAMES, Backpointers, Blame, PathEdge, blame, critical_path as
+    extract_critical_path, critical_paths, extract_backpointers, path_total,
+    speedup_if,
+)
+from .trace_export import (  # noqa: F401
+    channel_names, schedule_trace, coupled_trace, validate_trace, write_trace,
 )
 
 __all__ = [
@@ -84,8 +94,9 @@ __all__ = [
     "owner_count", "sf_init_state", "simulate_sf", "simulate_sf_many",
     "make_skewed_stream", "make_sequential_stream", "CoherenceFabricSpec",
     "CoherenceLowering", "CoherenceStream", "CoupledResult", "FANOUT_MODES",
-    "bisnp_latencies", "coherence_issue", "concat_background",
-    "lower_coherence", "pad_rows", "simulate_coupled",
+    "LEG_NAMES", "bisnp_latencies", "coherence_issue", "concat_background",
+    "hop_legs", "leg_blame", "lower_coherence", "pad_rows",
+    "simulate_coupled",
     # telemetry: attribution, channel counters and blame, series, sketches
     "LatencyAttribution", "ChannelTelemetry", "ChannelBlame",
     "WindowedSeries", "QuantileSketch", "SFTelemetry", "attribute_latency",
@@ -95,6 +106,11 @@ __all__ = [
     "sf_telemetry", "fabric_metrics", "StreamTelemetry",
     "stream_telemetry_new", "stream_telemetry_fold",
     "stream_telemetry_finalize",
+    # critical paths, blame and what-ifs; the Perfetto trace export
+    "KIND_NAMES", "Backpointers", "Blame", "PathEdge", "blame",
+    "extract_critical_path", "critical_paths", "extract_backpointers",
+    "path_total", "speedup_if", "channel_names", "schedule_trace",
+    "coupled_trace", "validate_trace", "write_trace",
     # oracle / verification
     "join_depth", "simulate_ref", "ref_schedule", "Finding", "VerifyError",
     "VerifyReport", "verify_workload", "assert_valid", "verify_built",
@@ -104,5 +120,5 @@ __all__ = [
     # submodules
     "topology", "engine", "devices", "link_layer", "calibration", "verify",
     "ref_des", "convert", "traces", "routing", "vcs", "snoop_filter",
-    "coherence_traffic", "telemetry",
+    "coherence_traffic", "telemetry", "critical_path", "trace_export",
 ]

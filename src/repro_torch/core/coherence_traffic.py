@@ -23,8 +23,9 @@ timing model; this module closes the loop against the exact FCFS engine:
 
 Every table equals the reference's; every schedule goes through the port's
 engine (the fused serve-round kernel on the card) and every SF scan through
-`kernels.sf_scan`.  The streaming engine that consumes `CoherenceStream`,
-and `hop_legs` / `leg_blame` (the critical-path view), are not ported yet.
+`kernels.sf_scan`.  `hop_legs` / `leg_blame` map a lowering's hops to
+protocol legs for the critical-path view (`core.critical_path`).  The
+streaming engine that consumes `CoherenceStream` is not ported yet.
 """
 
 from __future__ import annotations
@@ -389,6 +390,75 @@ def bisnp_latencies(sched: Schedule, low: CoherenceLowering) -> torch.Tensor:
         outs.append(a1 - a0)
     return torch.stack(outs, dim=1)
 
+
+
+LEG_DEMAND_REQ, LEG_SERVICE, LEG_DEMAND_RSP, LEG_BISNP, LEG_BIRSP, \
+    LEG_WRITEBACK = range(6)
+LEG_NAMES = ("demand_req", "service", "demand_rsp", "bisnp", "birsp",
+             "writeback")
+
+
+def hop_legs(low: CoherenceLowering) -> np.ndarray:
+    """Protocol-leg code of every physical hop: ``legs[j, k]`` is a
+    `LEG_NAMES` index, -1 for invalid hops and retraining markers.
+
+    Spans come from the lowering's logical layout (`fwd_cols` /
+    `snoop_cols` / `svc_col`) scattered to physical columns through
+    ``col_map``, so marker-shifted rows keep their labels exact.  A
+    payload-carrying BIRsp hop is the dirty-line writeback.  Host numpy,
+    the hop table pulled once from its device."""
+    valid = to_host(low.hops.valid)
+    pay = to_host(low.hops.is_payload)
+    n_rows = valid.shape[0]
+    F, S, svc = low.fwd_cols, low.snoop_cols, low.svc_col
+    h_old = low.col_map.shape[1]
+    logical = np.full((n_rows, h_old), -1, np.int8)
+    if low.fanout == "concurrent":
+        t = low.miss.shape[0]
+        logical[:, :F] = LEG_DEMAND_REQ      # demand + fork request legs
+        logical[:t, svc] = LEG_SERVICE
+        logical[:t, svc + 1:] = LEG_DEMAND_RSP
+        sr = low.snoop_rows[low.snoop_rows >= 0]
+        if sr.size:
+            logical[sr, :S] = LEG_BISNP
+            logical[sr, S:2 * S] = LEG_BIRSP
+            logical[sr, 2 * S:] = -1
+    else:
+        logical[:, :F] = LEG_DEMAND_REQ
+        for k in range(low.n_snoop):
+            lo = F + 2 * k * S
+            logical[:, lo:lo + S] = LEG_BISNP
+            logical[:, lo + S:lo + 2 * S] = LEG_BIRSP
+        logical[:, svc] = LEG_SERVICE
+        logical[:, svc + 1:] = LEG_DEMAND_RSP
+    legs = np.full((n_rows, low.n_cols), -1, np.int8)
+    np.put_along_axis(legs, low.col_map, logical, axis=1)
+    legs = np.where(valid, legs, -1)
+    return np.where((legs == LEG_BIRSP) & pay, LEG_WRITEBACK, legs)
+
+
+def leg_blame(low: CoherenceLowering, paths) -> dict[str, int]:
+    """Critical-path picoseconds per protocol leg.
+
+    ``paths`` is `critical_path.critical_paths` output for the *fabric*
+    schedule the lowering ran in (background rows appended after the
+    coherence rows are fine).  Each edge bills the leg of its gated item;
+    edges on rows past the lowering (background traffic) land in
+    ``"background"``; row-level edges (issue, join) and marker hops land
+    in ``"protocol"``.  Values sum to the summed path totals."""
+    legs = hop_legs(low)
+    out = dict.fromkeys(LEG_NAMES + ("protocol", "background"), 0)
+    for path in paths:
+        for e in path:
+            if e.ps == 0:
+                continue
+            if e.row >= legs.shape[0]:
+                out["background"] += e.ps
+            elif e.hop >= 0 and legs[e.row, e.hop] >= 0:
+                out[LEG_NAMES[int(legs[e.row, e.hop])]] += e.ps
+            else:
+                out["protocol"] += e.ps
+    return out
 
 def coherence_issue(low: CoherenceLowering, fab_issue_ps) -> torch.Tensor:
     """Per-row issue vector of a lowering: fork/BISnp/upgrade rows inherit

@@ -20,8 +20,17 @@ by default (``device="cpu"`` runs the plain PyTorch path):
     retraining-stall gate;
   * `traces`           — ``benchmarks/bench_traces.py``: Fig. 18/19 trace
     replay on five fabrics, Fig. 20a/b duplex speedup and mix slope;
-  * `link_explorer`, `topology_explorer` — ``examples/link_explorer.py`` and
-    the fabric parts of ``examples/topology_explorer.py``;
+  * `snoop_filter`, `invblk`, `coherence_fabric`, `coherence_modes` — Fig.
+    14, Fig. 15 and the coherence benchmarks;
+  * `telemetry`        — ``benchmarks/bench_telemetry.py``: the metric
+    reductions over a BER sweep, with the trace-export row;
+  * `critical_path`    — ``benchmarks/bench_critical_path.py``: blame,
+    what-ifs and the flow trace on the coherence fabric and the
+    reliability bus (its streamed third row waits for the streaming
+    engine);
+  * `link_explorer`, `topology_explorer`, `fabric_trace_viewer` —
+    ``examples/link_explorer.py``, the fabric parts of
+    ``examples/topology_explorer.py``, ``examples/fabric_trace_viewer.py``;
   * `run`              — ``benchmarks/run.py``: the CSV runner over the
     studies above.
 

@@ -29,6 +29,7 @@ MODULES = (
     ("link_reliability", "repro_torch.studies.link_reliability"),
     ("coherence_fabric", "repro_torch.studies.coherence_fabric"),
     ("telemetry", "repro_torch.studies.telemetry"),
+    ("critical_path", "repro_torch.studies.critical_path"),
     ("traces", "repro_torch.studies.traces"),
     ("coherence_modes", "repro_torch.studies.coherence_modes"),
 )

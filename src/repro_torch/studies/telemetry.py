@@ -17,13 +17,10 @@ Acceptance gates (AssertionErrors):
   * ordering — sketch p50 <= p99 <= p99.9, channel utilization in [0, 1];
   * retraining — the retraining stall grows with BER;
   * blame — `channel_blame` conserves on the heaviest member;
-  * pure observer — re-simulating after the telemetry pass is
-    bit-identical.
-
-The reference's fifth row, ``telemetry/metrics_per_sweep``, counts the
-events of the exported Chrome trace (`trace_export.schedule_trace`), which
-the port does not have yet; the row comes with that module (ROADMAP Queue 1
-item 2).
+  * pure observer — re-simulating after the telemetry and trace pass is
+    bit-identical;
+  * trace — the heaviest member's Chrome trace
+    (`trace_export.schedule_trace`) passes `validate_trace`.
 """
 
 from __future__ import annotations
@@ -32,6 +29,7 @@ import torch
 
 from ..core import telemetry as tm
 from ..core import topology as T
+from ..core import trace_export as tx
 from ..core.devices import RequesterSpec, build_workload
 from ..core.engine import (SimOptions, member, round_bound, simulate_stacked,
                            stack_members, to_host)
@@ -126,8 +124,12 @@ def run(quick: bool = False, device="cuda", log=None) -> list[Row]:
     assert ((q[:, 0] <= q[:, 1]) & (q[:, 1] <= q[:, 2])).all(), \
         "quantiles out of order"
 
-    # pure observer: the telemetry pass cannot perturb a schedule
+    # pure observer: the telemetry + trace pass cannot perturb a schedule
     before = sched.complete.clone()
+    last_hops, last_sched = members[-1]
+    trace = tx.schedule_trace(last_hops, ch, last_sched)
+    errs = tx.validate_trace(trace)
+    assert errs == [], f"trace schema violations: {errs[:3]}"
     again = schedule_sweep(stacked, chs, issues)
     assert torch.equal(before, again.complete), \
         "telemetry perturbed the schedule"
@@ -156,8 +158,21 @@ def run(quick: bool = False, device="cuda", log=None) -> list[Row]:
     # from FCFS queueing; identical workload otherwise)
     assert stalls[0] < stalls[-1], "retrain stall did not grow with BER"
     # per-channel blame conserves end to end on the heaviest table
-    last_hops, last_sched = members[-1]
     bl = tm.channel_blame(last_hops, ch, last_sched, issue)
     assert int(tm.blame_conservation_residual(bl)) == 0, \
         "channel_blame does not conserve complete - issue"
+    n_events = sum(1 for e in trace["traceEvents"] if e["ph"] != "M")
+    max_util = float(util.max())
+    rows.append(Row(
+        "telemetry/metrics_per_sweep", t_metrics,
+        f"conservation=0ps;max_util={max_util:.3f};"
+        f"trace_events={n_events};trace_valid=True;blame_residual=0ps",
+        meta={"max_utilization": max_util,
+              "blame": {"queue_ps": int(bl.queue_ps.sum()),
+                        "retrain_ps": int(bl.retrain_ps.sum()),
+                        "wire_ps": int(bl.wire_ps.sum()),
+                        "row_extra_ps": int(bl.row_extra_ps.sum()),
+                        "join_ps": int(bl.join_ps),
+                        "fixed_ps": int(bl.fixed_ps)}},
+    ))
     return rows

@@ -1,7 +1,9 @@
 """PyTorch port on a CUDA card: the hand-written kernels against their plain
 versions, the engine (one run and a stacked sweep), adaptive routing, a
-Fig. 16/17 study, `simulate_coupled` and `telemetry.fabric_metrics` run on
-the card against the same on the CPU, and the smoke models of recurrentgemma-2b and mamba2-1.3b (prefill
+Fig. 16/17 study, `simulate_coupled`, `telemetry.fabric_metrics` and the
+critical-path replay (`critical_path.extract_backpointers`, with its paths,
+blame and trace) run on the card against the same on the CPU, and the smoke
+models of recurrentgemma-2b and mamba2-1.3b (prefill
 and decode) on the card against the same models on the CPU.
 
 Every test here is marked ``cuda`` and skips without a card (the CUDA
@@ -758,3 +760,65 @@ def test_cuda_simulate_coupled_equals_cpu(card, fanout, damping):
                  (got.schedule.start, want.schedule.start),
                  (got.schedule.depart, want.schedule.depart)):
         assert torch.equal(a.cpu(), b)
+
+
+def _rel_tables(dev, seed=3, n=200, h=5, c=4):
+    """The reliability-marker family of ``test_streaming.py`` at a larger
+    size: replay bytes, mixed flit and byte-exact channels, zero-byte
+    link-down markers."""
+    rng = np.random.default_rng(seed)
+    fsize = rng.choice([0, 68, 256], c).astype(np.int64)
+    ch = P.Channels(*(torch.from_numpy(x).to(dev) for x in (
+        rng.integers(10, 100, c).astype(np.int64) * 1000,
+        np.where(rng.random(c) < .5, rng.integers(100, 5000, c),
+                 0).astype(np.int64),
+        np.zeros(c, np.int64), np.zeros(c, np.int64), fsize,
+        np.where(fsize == 68, 64,
+                 np.where(fsize == 256, 236, 0)).astype(np.int64),
+        np.zeros(c, np.int64))))
+    valid = rng.random((n, h)) < .85
+    hops = P.Hops(*(torch.from_numpy(x).to(dev) for x in (
+        rng.integers(0, c, (n, h)).astype(np.int32),
+        rng.integers(0, 1200, (n, h)).astype(np.int64),
+        rng.integers(0, 2, (n, h)).astype(np.int8),
+        np.full((n, h), -1, np.int32),
+        rng.integers(0, 2000, (n, h)).astype(np.int64), valid, valid,
+        np.where(rng.random((n, h)) < .3,
+                 rng.integers(0, 8, (n, h)) * 256, 0).astype(np.int64),
+        np.where(rng.random((n, h)) < .2,
+                 rng.integers(1, 4, (n, h)) * 100_000, 0).astype(np.int64))))
+    issue = torch.from_numpy(np.sort(rng.integers(0, 50_000, n)).astype(
+        np.int64)).to(dev)
+    return hops, ch, issue
+
+
+@pytest.mark.cuda
+def test_cuda_backpointers_equal_cpu(card):
+    """`extract_backpointers(check=True)` on a card schedule of the rel
+    family (its replay holds the fused serve round's grants bit for bit):
+    every backpointer array, the critical paths, the blame and the trace
+    with flows equal to the same on the CPU run."""
+    from repro_torch.core import critical_path as CP
+    from repro_torch.core import trace_export as TX
+
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        hops, ch, issue = _rel_tables(dev)
+        sched = P.simulate(hops, ch, issue)
+        assert sched.converged
+        bp = CP.extract_backpointers(hops, ch, sched, issue, check=True)
+        paths = CP.critical_paths(bp)
+        bl = CP.blame(bp, paths=paths)
+        out[dev.type] = (bp, paths, bl, TX.schedule_trace(
+            hops, ch, sched, flows=bp, blame=bl))
+    (gbp, gpaths, gbl, gtrace), (cbp, cpaths, cbl, ctrace) = (
+        out["cuda"], out["cpu"])
+    assert int((cbp.bind == CP.B_RETRAIN).sum()) > 0
+    for f in ("issue", "arrive", "start", "depart", "valid", "serving",
+              "channel", "wire", "row_extra", "fixed", "bind", "qpred_row",
+              "qpred_hop", "rsrc_row", "rsrc_hop", "gate_row"):
+        a, b = getattr(gbp, f), getattr(cbp, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    assert gpaths == cpaths
+    assert np.array_equal(gbl.table, cbl.table)
+    assert gtrace == ctrace and TX.validate_trace(gtrace) == []

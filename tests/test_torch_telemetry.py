@@ -12,8 +12,9 @@ counters, blame, windowed series, sketches, the stream fold, SF counters,
   same schedule goes to both telemetry layers (`_ref_schedule`);
 * the reference's vmapped BER sweep is held member by member against the
   port's reductions over `simulate_stacked` members;
-* the trace export of ``test_telemetry_is_pure_observer`` is not ported
-  yet; its counterpart runs `fabric_metrics` and re-simulates.
+* ``test_telemetry_is_pure_observer``'s counterpart runs `fabric_metrics`
+  and re-simulates (the trace export is held in
+  ``test_torch_critical_path.py``).
 
 Tolerance: exact.  Integers are equal; float64 fields (utilization, busy
 fraction, in-flight, hit rate) are equal bit for bit, since both sides
@@ -298,15 +299,16 @@ def test_stacked_ber_sweep_equals_reference_vmap():
 
 
 def test_study_rows_equal_reference():
-    """`studies.telemetry.run(quick=True)` gives the reference bench's
-    first four rows: names, ``derived`` and ``meta`` letter for letter."""
+    """`studies.telemetry.run(quick=True)` gives the reference bench's five
+    rows, ``telemetry/metrics_per_sweep`` (the trace's event count) among
+    them: names, ``derived`` and ``meta`` letter for letter."""
     import benchmarks.bench_telemetry as RB
     from repro_torch.studies import telemetry as PB
 
     got = PB.run(quick=True, device="cpu")
     want = RB.run(quick=True)
-    assert [r.name for r in want] == [r.name for r in got] + [
-        "telemetry/metrics_per_sweep"]
+    assert [r.name for r in want] == [r.name for r in got]
+    assert got[-1].name == "telemetry/metrics_per_sweep"
     for g, w in zip(got, want):
         assert (g.name, g.derived, g.meta) == (w.name, w.derived, w.meta)
 
