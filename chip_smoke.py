@@ -57,6 +57,16 @@ paths through them:
     (`studies.critical_path`) and the trace viewer
     (`studies.fabric_trace_viewer`, its SF scans through `sf_scan`) against
     the JAX package's rows and printout;
+  * the streaming windowed engine (`core.streaming`): the streaming study
+    (`studies.streaming`, 1.2 M requests through 65,536-row windows, each
+    window's fixpoint through the fused serve round) against the JAX
+    package's rows; phase 4b's markers tables in issue order streamed
+    through 1,024-row windows (rows carried across window edges, the
+    retraining replay once a window) and a Fig. 14-sized coherence stream
+    (one `sf_scan` launch a chunk, from the carried SF state), each
+    against its monolithic card schedule bit for bit; the verifier smoke
+    (`analysis.verify_smoke`) on card lowerings against the JAX package's
+    printout;
   * mamba2-1.3b at its published width (48 SSD layers, d_model 2048,
     1.344 B parameters) behind the same server, prompts of 1 to 16,384
     tokens, whose prefills run the tensor-core SSD chunk kernel (bf16).
@@ -340,14 +350,14 @@ TELEMETRY_REF = (
                 'wire_ps': 178759000, 'row_extra_ps': 0, 'join_ps': 0,
                 'fixed_ps': 115200000}}),
 )
-# The JAX package's `benchmarks.bench_critical_path.run(quick=False)` first
-# two rows (`_gate_config` on `_coherence_config(False)`, with `leg_blame`,
-# and on `_reliability_config(False)`): name, derived and meta without
-# `host_phases`, made on the CPU (PYTHONPATH=src:. python3 -c 'import
+# The JAX package's `benchmarks.bench_critical_path.run(quick=False)` rows
+# (`_gate_config` on `_coherence_config(False)`, with `leg_blame`, and on
+# `_reliability_config(False)`; the streamed blame gate on 8,000 rows in
+# 512-row windows): name, derived and meta without `host_phases`, made on
+# the CPU (PYTHONPATH=src:. python3 -c 'import
 # benchmarks.bench_critical_path as B
 # print([(r.name, r.derived, {k: v for k, v in r.meta.items()
-#         if k != "host_phases"}) for r in B.run(quick=False)][:2])').  The
-# third row needs the streaming engine, which the port does not have yet.
+#         if k != "host_phases"}) for r in B.run(quick=False)])').
 CRITICAL_PATH_REF = (
     ("critical_path/coherence_fabric",
      "rows=1452;total_ms=0.31;top=fixed@chNone:99%;conservation=exact",
@@ -402,7 +412,55 @@ CRITICAL_PATH_REF = (
                  'baseline_mean_latency_ps': 27838610}},
       'by_switch': {'1': 13905135000, '0': 13905125000, '4': 16145, '2': 0,
                     '3': 0, '5': 0}}),
+    ("critical_path/streaming_blame_gate", "windows=16;blame=bitexact",
+     {'windows': 16,
+      'blame': {'queue_ps': [900500, 897500, 785000, 776000, 749988000],
+                'retrain_ps': [0, 0, 0, 0, 0],
+                'wire_ps': [5200000, 5224000, 5194000, 5194000, 7994500],
+                'row_extra_ps': [0, 0, 0, 0, 27840000], 'join_ps': 0,
+                'fixed_ps': 48000000}}),
 )
+# The JAX package's `benchmarks.bench_streaming.run(quick=False)` rows: name,
+# derived without `req_per_s` (a host rate) and meta without `host_phases`,
+# made on the CPU (PYTHONPATH=src:. python3 -c 'import
+# benchmarks.bench_streaming as B
+# print([(r.name, ";".join(p for p in r.derived.split(";")
+#                          if not p.startswith("req_per_s=")),
+#         {k: v for k, v in r.meta.items() if k != "host_phases"})
+#        for r in B.run(quick=False)])').
+STREAMING_REF = (
+    ("streaming/windowed_trace",
+     "n=1200000;window=65536;p50=108ns;p99=215ns;p999=231ns",
+     {'n_requests': 1200000, 'window_rows': 65536, 'windows': 19,
+      'carried_peak': 0, 'oracle_windows': 0,
+      'quantiles_ps': [107520, 215040, 231424],
+      'max_utilization': 0.7461081371475746, 'span_ps': 7199894000,
+      'rounds_sum': 209, 'rounds_max': 11, 'windows_converged': 19,
+      'peak_backlog': [2, 2, 2, 2, 46],
+      'blame': {'queue_ps': [138744500, 128077000, 119027000, 116795000,
+                             112735190500],
+                'retrain_ps': [0, 0, 0, 0, 0],
+                'wire_ps': [779988000, 780018000, 779997000, 779994000,
+                            1199995500],
+                'row_extra_ps': [0, 0, 0, 0, 4171904000], 'join_ps': 0,
+                'fixed_ps': 7200000000}}),
+    ("streaming/equivalence_gate",
+     "rows=2000;windows=8;bitexact=True;blame=bitexact;peak_backlog=bitexact",
+     {'windows': 8, 'carried_peak': 0, 'rounds_sum': 64, 'rounds_max': 9,
+      'windows_converged': 8}),
+)
+# What `python -m repro.analysis.verify_smoke` prints (the JAX package on
+# the CPU).
+VERIFY_SMOKE_REF = """\
+verify_smoke: static verification of every lowering path
+  demand/tree                  ok  (200 rows x 48 channels)
+  demand/single_bus            ok  (200 rows x 11 channels)
+  reliability/stochastic       ok  (600 rows x 14 channels)
+  coherence/chain              ok  (300 rows x 7 channels)
+  coherence/concurrent         ok  (465 rows x 7 channels)
+  streaming/windows            ok  (4 windows)
+verify_smoke: clean
+"""
 # What `examples/fabric_trace_viewer.py` prints at full size (n 600), and
 # the sha256 of the trace file it writes, made on the CPU in an empty
 # directory (PYTHONPATH=src python3 examples/fabric_trace_viewer.py
@@ -1276,8 +1334,9 @@ def critical_path_on_path(np, torch, P, CP, TX, runs, cpu_scheds):
 def critical_path_study(np, torch, P, K, module):
     """The critical-path study at full size, in a temporary working
     directory (it writes its artifact there): rows against
-    `CRITICAL_PATH_REF` without their host phases, the artifact's two
-    entries against the rows' meta."""
+    `CRITICAL_PATH_REF` without their host phases (the third, the blame
+    folded through the streaming engine), the artifact's three entries
+    against the rows' meta."""
     with in_temporary_directory():
         rows, log = run_study(np, torch, P, K, module, "critical_path")
         with open(module.ARTIFACT) as f:
@@ -1287,7 +1346,8 @@ def critical_path_study(np, torch, P, K, module):
                          if k != "host_phases"}) for r in rows]
     rows_against_reference("critical_path", stripped, CRITICAL_PATH_REF,
                            with_meta=True)
-    for key, row in zip(("coherence_fabric", "reliability_bus"), stripped):
+    for key, row in zip(("coherence_fabric", "reliability_bus",
+                         "streaming_smoke"), stripped, strict=True):
         check(json.loads(json.dumps(row.meta)) == artifact[key],
               f"critical_path: artifact {key} differs from its row")
     return log
@@ -1316,6 +1376,161 @@ def trace_viewer_on_card(TV, TX):
     return dict(host_s=seconds, printout=printed.getvalue().splitlines(),
                 trace_sha256=digest, trace_events=sum(
                     1 for e in trace["traceEvents"] if e["ph"] != "M"))
+
+
+# ---------------------------------------------------------------------------
+# the streaming windowed engine
+# ---------------------------------------------------------------------------
+
+# phase 4b's markers tables, in issue order, stream through windows of this
+# many rows: under its congestion most rows are still in flight at a window
+# edge, so the carried suffixes, join seeds and down-until frontier all work
+CARRY_WINDOW_ROWS = 1_024
+# the coherence stream of tests/test_streaming.py's star fabric at Fig. 14's
+# sizes: requests, footprint lines, SF and cache lines, requests a chunk
+COH_STREAM = dict(n=32_000, footprint=4_096, capacity=819, chunk=4_000)
+
+
+def stream_against_monolithic(SST, what, hops, ch, issue, mono, res):
+    """`studies.streaming.stream_matches_monolithic` (every settled item,
+    completion and gated arrival, the blame and the peak backlog against
+    the monolithic schedule, bit for bit), and the run's figures."""
+    SST.stream_matches_monolithic(hops, ch, issue, mono, res, what)
+    valid = hops.valid
+    return dict(rows=int(valid.shape[0]), items=int(valid.sum()),
+                windows=res.windows, carried_peak=res.carried_peak,
+                oracle_windows=res.oracle_windows, rounds_sum=res.rounds,
+                rounds_max=res.state.rounds_max,
+                monolithic_rounds=mono.rounds,
+                retrain_ps=int(res.summary()["blame"]["retrain_ps"].sum()),
+                host_s_by_step=dict(res.state.seconds))
+
+
+def streaming_on_card(np, torch, P, K, module):
+    """The streaming study at full size (`run_study`: the 2,000-row gate's
+    monolithic schedule against the oracle), its rows against
+    `STREAMING_REF` (derived without ``req_per_s``, meta without the host
+    phases), host ms a window by step, and the device's busy share over
+    one headline window."""
+    from repro_torch.core import streaming as S
+
+    rows, log = run_study(np, torch, P, K, module, "streaming")
+    stripped = [type(r)(r.name, r.us_per_call,
+                        ";".join(p for p in r.derived.split(";")
+                                 if not p.startswith("req_per_s=")),
+                        {k: v for k, v in r.meta.items()
+                         if k != "host_phases"}) for r in rows]
+    rows_against_reference("streaming", stripped, STREAMING_REF,
+                           with_meta=True)
+    head = rows[0]
+    windows = head.meta["windows"]
+    ch = module._channels("cuda")
+    window = head.meta["window_rows"]
+    prof = profile_device(torch, lambda: S.simulate_stream(
+        module._trace(window, window, "cuda"), ch))
+    return dict(
+        req_per_s=float(re.search(r"req_per_s=(\d+)", head.derived)[1]),
+        host_s=head.us_per_call / 1e6, windows=windows,
+        rounds_per_window=head.meta["rounds_sum"] / windows,
+        host_ms_per_window={step: log.seconds[f"stream.{step}"] * 1e3
+                            / windows for step in S.STEPS},
+        one_window=prof)
+
+
+def carry_path_congested(torch, P, K, SST, wl):
+    """Phase 4b's markers tables with the rows put in issue order (one
+    stable argsort applied to every field) streamed through
+    `CARRY_WINDOW_ROWS`-row windows on the card, against the card's
+    monolithic schedule of the same ordered tables; the retraining replay
+    runs once a window."""
+    from repro_torch.core import streaming as S
+
+    order = torch.argsort(wl.issue_ps, stable=True)
+    hops = P.Hops(*(None if x is None else x[order] for x in wl.hops))
+    issue = wl.issue_ps[order]
+    mono = P.simulate(hops, wl.channels, issue)
+    check(mono.converged, "carry path: the monolithic run did not converge")
+    before = K.LAUNCHES["serve_round"]
+    state = S.StreamState(wl.channels)
+    state.sync = torch.cuda.synchronize
+    t0 = time.perf_counter()
+    res = S.simulate_stream(S.stream_windows(hops, issue, CARRY_WINDOW_ROWS),
+                            wl.channels, state, collect_schedule=True)
+    host_s = time.perf_counter() - t0
+    replays = K.LAUNCHES["serve_round"] - before - res.rounds
+    out = stream_against_monolithic(SST, "carry path", hops, wl.channels,
+                                    issue, mono, res)
+    check(res.carried_peak > 0, "carry path: no row carried across a window")
+    check(out["retrain_ps"] > 0, "carry path: no retraining stall folded")
+    check(replays == res.windows,
+          f"carry path: {replays} retraining replays in {res.windows} "
+          f"windows")
+    return dict(out, window_rows=CARRY_WINDOW_ROWS, host_s=host_s,
+                stall_replay_launches=replays,
+                serve_round_launches=res.rounds + replays)
+
+
+def coherence_stream_on_card(np, P, PS, SFK, SST):
+    """`COH_STREAM`: the star fabric's chain lowering streamed chunk by
+    chunk (`CoherenceStream`: one `sf_scan` launch a chunk, resumed from
+    the carried SF state) against the monolithic scan, lowering and
+    schedule of the whole stream, bit for bit."""
+    from repro_torch.core import coherence_traffic as CT
+    from repro_torch.core import streaming as S
+
+    kinds = [P.SWITCH, P.REQUESTER, P.REQUESTER, P.MEMORY]
+    links = [P.LinkSpec(i, 0, 64_000, 26_000) for i in (1, 2, 3)]
+    graph = P.Topology(np.asarray(kinds, np.int64), links,
+                       name="star").build()
+    spec = CT.CoherenceFabricSpec(dev_node=3, req_nodes=(1, 2))
+    n, chunk = COH_STREAM["n"], COH_STREAM["chunk"]
+    cfg = PS.SFConfig(capacity=COH_STREAM["capacity"],
+                      footprint_lines=COH_STREAM["footprint"], policy="lru")
+    cache = PS.CacheConfig(capacity=COH_STREAM["capacity"])
+    addr, wr, rid = PS.make_skewed_stream(n, COH_STREAM["footprint"],
+                                          write_ratio=0.1, n_requesters=2,
+                                          seed=3, device="cuda")
+    before = SFK.LAUNCHES["sf_scan"]
+    t0 = time.perf_counter()
+    _, ev = PS.simulate_sf(addr, wr, rid, cfg, cache, n_requesters=2,
+                           return_events=True)
+    low = CT.lower_coherence(graph, spec, cfg, addr, wr, rid, ev,
+                             fanout="chain", device="cuda")
+    issue = CT.coherence_issue(low, ev.fab_issue_ps)
+    cs = CT.CoherenceStream(addr, wr, rid, cfg, cache, graph, spec,
+                            chunk=chunk, n_requesters=2, fanout="chain",
+                            device="cuda")
+    ch = cs.channels()
+    mono = P.simulate(low.hops, ch, issue)
+    check(mono.converged, "coherence stream: the monolithic run did not "
+                          "converge")
+    mono_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = S.simulate_stream(cs, ch, collect_schedule=True)
+    stream_s = time.perf_counter() - t0
+    scans = SFK.LAUNCHES["sf_scan"] - before
+    out = stream_against_monolithic(SST, "coherence stream", low.hops, ch,
+                                    issue, mono, res)
+    check(cs.n_done == n, f"coherence stream: {cs.n_done} of {n} requests")
+    check(scans == -(-n // chunk) + 1,
+          f"coherence stream: {scans} sf_scan launches for "
+          f"{-(-n // chunk)} chunks and the monolithic scan")
+    return dict(out, n=n, chunk=chunk, sf_scan_launches=scans,
+                monolithic_s=mono_s, stream_s=stream_s)
+
+
+def verify_smoke_on_card(VS):
+    """`repro_torch.analysis.verify_smoke` with every lowering built on the
+    card: it must succeed and print what the JAX package's prints."""
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = VS.main(device="cuda")
+    seconds = time.perf_counter() - t0
+    check(rc == 0 and printed.getvalue() == VERIFY_SMOKE_REF,
+          f"verify_smoke returned {rc} and printed {printed.getvalue()!r}, "
+          f"the reference {VERIFY_SMOKE_REF!r}")
+    return dict(host_s=seconds, printout=printed.getvalue().splitlines())
 
 
 # ---------------------------------------------------------------------------
@@ -2209,7 +2424,9 @@ def main() -> int:
     from repro_torch.studies import critical_path as critical_path_study_mod
     from repro_torch.studies import fabric_trace_viewer
     from repro_torch.studies import snoop_filter as sf_study
+    from repro_torch.studies import streaming as streaming_study
     from repro_torch.studies import telemetry as telemetry_study
+    from repro_torch.analysis import verify_smoke as VS
 
     # phase 0: the card
     smi = subprocess.run(
@@ -2508,6 +2725,37 @@ def main() -> int:
     emit(phase="trace_viewer", **viewer)
     emit(phase="critical_path_launches", serve_round_launches=cp_launches,
          sf_scan_launches=cp_sf_launches)
+
+    # phase 5f: the streaming windowed engine: the streaming study at full
+    # size (1.2 M requests through 65,536-row windows) against the JAX
+    # package's rows, the congested carry path (phase 4b's markers tables
+    # in issue order) and a Fig. 14-sized coherence stream each against its
+    # monolithic card schedule, and the verifier smoke on card lowerings;
+    # the serve-round and sf_scan counts read around them
+    K.LAUNCHES["serve_round"] = 0
+    K.LAUNCHES["serve_scan"] = 0
+    SFK.LAUNCHES["sf_scan"] = 0
+    t0 = time.perf_counter()
+    stream = streaming_on_card(np, torch, P, K, streaming_study)
+    (markers_wl,) = [wl for name, wl, _ in runs if name == "markers"]
+    carry = carry_path_congested(torch, P, K, streaming_study, markers_wl)
+    coh_stream = coherence_stream_on_card(np, P, PS, SFK, streaming_study)
+    smoke = verify_smoke_on_card(VS)
+    stream_launches = K.LAUNCHES["serve_round"]
+    stream_sf_launches = SFK.LAUNCHES["sf_scan"]
+    check(stream_launches > 0,
+          "the streaming phase never launched serve_round")
+    check(stream_sf_launches > 0, "the streaming phase never launched sf_scan")
+    launches += stream_launches
+    scan_launches += K.LAUNCHES["serve_scan"]
+    sf_launches += stream_sf_launches
+    emit(phase="streaming", **stream)
+    emit(phase="stream_carry_path", **carry)
+    emit(phase="coherence_stream", **coh_stream)
+    emit(phase="verify_smoke", **smoke)
+    emit(phase="streaming_launches", serve_round_launches=stream_launches,
+         sf_scan_launches=stream_sf_launches,
+         host_s=time.perf_counter() - t0)
 
     # phase 6: depart_times on real converged rounds (its path), against
     # the serve-scan kernel's departures

@@ -69,6 +69,10 @@ from .critical_path import (  # noqa: F401
 from .trace_export import (  # noqa: F401
     channel_names, schedule_trace, coupled_trace, validate_trace, write_trace,
 )
+from . import streaming  # noqa: F401
+from .streaming import (  # noqa: F401
+    StreamResult, StreamState, simulate_stream, stream_windows,
+)
 
 __all__ = [
     # topology / link layer
@@ -111,6 +115,8 @@ __all__ = [
     "extract_critical_path", "critical_paths", "extract_backpointers",
     "path_total", "speedup_if", "channel_names", "schedule_trace",
     "coupled_trace", "validate_trace", "write_trace",
+    # streaming windowed simulation
+    "StreamState", "StreamResult", "simulate_stream", "stream_windows",
     # oracle / verification
     "join_depth", "simulate_ref", "ref_schedule", "Finding", "VerifyError",
     "VerifyReport", "verify_workload", "assert_valid", "verify_built",
@@ -121,4 +127,5 @@ __all__ = [
     "topology", "engine", "devices", "link_layer", "calibration", "verify",
     "ref_des", "convert", "traces", "routing", "vcs", "snoop_filter",
     "coherence_traffic", "telemetry", "critical_path", "trace_export",
+    "streaming",
 ]

@@ -24,8 +24,9 @@ timing model; this module closes the loop against the exact FCFS engine:
 Every table equals the reference's; every schedule goes through the port's
 engine (the fused serve-round kernel on the card) and every SF scan through
 `kernels.sf_scan`.  `hop_legs` / `leg_blame` map a lowering's hops to
-protocol legs for the critical-path view (`core.critical_path`).  The
-streaming engine that consumes `CoherenceStream` is not ported yet.
+protocol legs for the critical-path view (`core.critical_path`).
+`CoherenceStream` feeds the streaming engine (`core.streaming.
+simulate_stream`).
 """
 
 from __future__ import annotations
@@ -730,9 +731,9 @@ def simulate_coupled(addr, is_write, rid, sf_cfg: SFConfig,
 
 
 class CoherenceStream:
-    """Chunked ``(hops, issue_ps)`` source for a streaming engine — the
-    §V-E-scale front end of the coherence machinery (the reference's
-    `CoherenceStream`; the port's `simulate_stream` is still to come).
+    """Chunked ``(hops, issue_ps)`` source for `streaming.simulate_stream`
+    — the §V-E-scale front end of the coherence machinery (the reference's
+    `CoherenceStream`).
 
     Iterates the request stream ``chunk`` requests at a time; each chunk
     resumes the SF scan from the carried `SFState` (bit-exact with the

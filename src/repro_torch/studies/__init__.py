@@ -26,8 +26,9 @@ by default (``device="cpu"`` runs the plain PyTorch path):
     reductions over a BER sweep, with the trace-export row;
   * `critical_path`    — ``benchmarks/bench_critical_path.py``: blame,
     what-ifs and the flow trace on the coherence fabric and the
-    reliability bus (its streamed third row waits for the streaming
-    engine);
+    reliability bus, and the streamed blame gate;
+  * `streaming`        — ``benchmarks/bench_streaming.py``: 1.2M requests
+    through 64k-row windows at flat memory, with its equivalence gate;
   * `link_explorer`, `topology_explorer`, `fabric_trace_viewer` —
     ``examples/link_explorer.py``, the fabric parts of
     ``examples/topology_explorer.py``, ``examples/fabric_trace_viewer.py``;

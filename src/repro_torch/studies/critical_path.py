@@ -16,17 +16,18 @@ observability layer promises (AssertionErrors):
     blame counter track passes `validate_trace` with zero violations;
   * **what-ifs**: `speedup_if` is exact at ``factor == 1`` (zero saved
     ps) and monotone in the factor on the busiest channel;
+  * **streamed blame**: the windowed `StreamTelemetry` blame fold equals
+    monolithic `channel_blame` bit for bit on the streaming study's config;
   * **protocol legs**: `coherence_traffic.leg_blame` buckets the
     coherence config's paths into BISnp/BIRsp/writeback/demand legs and
     conserves the summed path totals.
 
 Rows: ``critical_path/coherence_fabric`` (snooped misses on the star
-coherence fabric, the scan through `kernels.sf_scan`) and
+coherence fabric, the scan through `kernels.sf_scan`),
 ``critical_path/reliability_bus`` (the §IV bus under a stochastic flit
-link, where RETRAIN edges bind).  The reference's third row,
-``critical_path/streaming_blame_gate``, folds windowed blame through the
-streaming engine (`core.streaming`), which the port does not have yet; it
-comes with that module.
+link, where RETRAIN edges bind) and ``critical_path/streaming_blame_gate``
+(the blame folded window by window through `core.streaming`, 512-row
+windows of the streaming study's trace).
 
 Writes the aggregated blame tables, top-k bottlenecks, per-switch rollup
 and what-if results to ``blame-critical-path.json`` in the working
@@ -51,11 +52,16 @@ from ..core.engine import make_channels, simulate
 from ..core.link_layer import FlitConfig
 from ..core.snoop_filter import (CacheConfig, SFConfig,
                                  make_sequential_stream, simulate_sf)
+from ..core.streaming import simulate_stream, stream_windows
+from ..core.telemetry import channel_blame
 from ..core.trace_export import (channel_names, schedule_trace,
                                  validate_trace)
 from ..core.verify import verify_built
 from .coherence_fabric import build_coherence_fabric
 from .common import Row, StudyLog, Timer
+from .streaming import _blame_equal, _blame_json
+from .streaming import _channels as _stream_channels
+from .streaming import _chunk as _stream_chunk
 
 ARTIFACT = "blame-critical-path.json"
 
@@ -203,6 +209,26 @@ def run(quick: bool = False, device="cuda", log=None) -> list[Row]:
         f"retrain_us={rbl.by_kind()['retrain'] / 1e6:.1f};"
         f"queue_us={rbl.by_kind()['queue'] / 1e6:.1f};conservation=exact",
         meta=rentry))
+
+    # ---- streaming smoke: windowed blame fold == monolithic --------------
+    with log.phase("build"):
+        sch = _stream_channels(device)
+        shops, sissue = _stream_chunk(0, 2000 if quick else 8000, 0, seed=0,
+                                      device=device)
+    with Timer() as t, log.phase("execute"):
+        mono = log.simulate("streaming_smoke/monolithic", simulate, shops,
+                            sch, sissue)
+        assert mono.converged
+        mb = channel_blame(shops, sch, mono, sissue)
+        out = simulate_stream(stream_windows(shops, sissue, 512), sch)
+        sb = out.summary()["blame"]
+    _blame_equal(sb, mb, "!= monolithic channel_blame")
+    artifact["streaming_smoke"] = {"windows": out.windows,
+                                   "blame": _blame_json(sb)}
+    rows.append(Row(
+        "critical_path/streaming_blame_gate", t.us,
+        f"windows={out.windows};blame=bitexact",
+        meta=artifact["streaming_smoke"]))
 
     host_phases = {k: round(v, 6) for k, v in sorted(log.seconds.items())}
     artifact["kinds"] = list(KIND_NAMES)

@@ -30,6 +30,7 @@ MODULES = (
     ("coherence_fabric", "repro_torch.studies.coherence_fabric"),
     ("telemetry", "repro_torch.studies.telemetry"),
     ("critical_path", "repro_torch.studies.critical_path"),
+    ("streaming", "repro_torch.studies.streaming"),
     ("traces", "repro_torch.studies.traces"),
     ("coherence_modes", "repro_torch.studies.coherence_modes"),
 )

@@ -2,8 +2,8 @@
 
 ``repro_torch.core.critical_path`` and ``trace_export`` held to
 ``repro.core.critical_path`` and ``trace_export`` on the same inputs on the
-CPU, with the families of ``tests/test_critical_path.py`` that do not
-stream and the trace families of ``tests/test_telemetry.py``:
+CPU, with the families of ``tests/test_critical_path.py`` and the trace
+families of ``tests/test_telemetry.py``:
 
 * the random, reliability-marker and fork/join cases of
   ``test_streaming`` (fixed seeds) cross over with
@@ -16,8 +16,16 @@ stream and the trace families of ``tests/test_telemetry.py``:
   what-if) on the port, the pure-observer check, and ``check=True``
   raising the reference's message on a corrupted schedule;
 * `hop_legs` / `leg_blame` on both fan-outs of a coherence lowering;
+* the streamed families at fixed seeds x windows x families: the port's
+  streamed blame and peak backlog (`core.streaming`) equal the reference's
+  monolithic `channel_blame` and `channel_telemetry`.  `_reliability_case`
+  seeds 86 and 236 build a link-down marker on a channel with a turnaround:
+  under the default check both packages reject them at the door with the
+  same ``rel.marker`` finding, and under ``check="oracle"`` their streamed
+  blame equals the monolithic one (this rejection is what fails the
+  reference's Hypothesis test on seed 236, not a divergence of the fold);
 * `studies.critical_path` against ``benchmarks/bench_critical_path.py``'s
-  first two rows and artifact, and `studies.fabric_trace_viewer` against
+  three rows and artifact, and `studies.fabric_trace_viewer` against
   ``examples/fabric_trace_viewer.py`` (printout and trace file), at
   ``--quick``.
 
@@ -43,12 +51,17 @@ import repro.core  # noqa: E402,F401  (x64 for the reference)
 from repro.core import coherence_traffic as RC  # noqa: E402
 from repro.core import critical_path as rcp  # noqa: E402
 from repro.core import engine as RE  # noqa: E402
+from repro.core import streaming as RS  # noqa: E402
+from repro.core import telemetry as rtm  # noqa: E402
+from repro.core import verify as RV  # noqa: E402
 from repro.core import trace_export as rtx  # noqa: E402
 import repro_torch.core as P  # noqa: E402
 from repro_torch.core import coherence_traffic as PC  # noqa: E402
 from repro_torch.core import critical_path as pcp  # noqa: E402
 from repro_torch.core import engine as PE  # noqa: E402
+from repro_torch.core import streaming as PS  # noqa: E402
 from repro_torch.core import trace_export as ptx  # noqa: E402
+from repro_torch.studies.streaming import _blame_equal  # noqa: E402
 from test_streaming import (_join_case, _random_case,  # noqa: E402
                             _reliability_case)
 from test_telemetry import FLIT_CONFIGS, _bus_wl  # noqa: E402
@@ -415,6 +428,100 @@ def test_hop_legs_and_leg_blame_equal_reference(fanout):
 
 
 # ---------------------------------------------------------------------------
+# streamed fold == monolithic blame / peak backlog, on both packages
+# ---------------------------------------------------------------------------
+
+STREAM_SEEDS = (0, 3)
+STREAM_WINDOWS = (1, 7, 1000)
+# the only `_reliability_case` seeds of 0-399 whose tables hold a link-down
+# marker on a channel with a turnaround: the verifier rejects them
+REJECTED_SEEDS = (86, 236)
+_MONO = {}
+
+
+def _mono(family, seed):
+    """The reference's monolithic `channel_blame` and peak backlog of one
+    case, computed once per module (on the `_case` tables and schedule
+    where the case has them)."""
+    key = (family, seed)
+    if key not in _MONO:
+        if key in _CASES or seed in SEEDS:
+            _, (hops, ch, issue, sched, _) = _case(family, seed)
+        else:
+            hops, ch, issue = CASES[family](seed)
+            sched = RE.simulate(hops, ch, jnp.asarray(issue))
+            assert bool(sched.converged)
+        _MONO[key] = (rtm.channel_blame(hops, ch, sched, jnp.asarray(issue)),
+                      np.asarray(rtm.channel_telemetry(hops, ch,
+                                                       sched).peak_backlog))
+    return _MONO[key]
+
+
+def _stream_port(family, seed, window, options=None):
+    ph, pc, pi = _port(*CASES[family](seed))
+    return PS.simulate_stream(PS.stream_windows(ph, pi, window), pc,
+                              options=options)
+
+
+@pytest.mark.parametrize("window", STREAM_WINDOWS)
+@pytest.mark.parametrize("family,seed", [(f, s) for f in sorted(CASES)
+                                         for s in STREAM_SEEDS])
+def test_streamed_blame_equals_monolithic(family, seed, window):
+    """`test_critical_path.py::test_streamed_blame_equals_monolithic` at
+    fixed seeds: the port's streamed blame equals the reference's
+    monolithic `channel_blame` bit for bit."""
+    _blame_equal(_stream_port(family, seed, window).summary()["blame"],
+                 _mono(family, seed)[0])
+
+
+@pytest.mark.parametrize("window", STREAM_WINDOWS)
+@pytest.mark.parametrize("family,seed", [(f, s) for f in sorted(CASES)
+                                         for s in STREAM_SEEDS])
+def test_streamed_peak_backlog_equals_monolithic(family, seed, window):
+    got = _stream_port(family, seed, window).summary()["peak_backlog"]
+    assert np.array_equal(got, _mono(family, seed)[1])
+
+
+def test_stream_fixpoint_diagnostics():
+    s = _stream_port("random", 2, 5).summary()
+    assert s["windows_converged"] == s["windows"]
+    assert s["rounds_sum"] >= s["windows"] >= 1
+    assert 1 <= s["rounds_max"] <= s["rounds_sum"]
+
+
+@pytest.mark.parametrize("window", (1, 5, 64))
+@pytest.mark.parametrize("seed", REJECTED_SEEDS)
+def test_rejected_reliability_seeds_raise_as_reference(seed, window):
+    """Under the default ``check="static"`` both packages verify every
+    chunk at the door and reject these seeds with the same ``rel.marker``
+    finding (a link-down marker on a channel with a turnaround), at the
+    same row, hop and channel of the same chunk."""
+    hops, ch, issue = _reliability_case(seed)
+    with pytest.raises(RV.VerifyError) as ref:
+        RS.simulate_stream(RS.stream_windows(hops, issue, window), ch)
+    with pytest.raises(P.VerifyError) as port:
+        _stream_port("rel", seed, window)
+    assert ref.value.report.findings[0].code == "rel.marker"
+    assert port.value.report.findings == ref.value.report.findings
+    assert str(port.value) == str(ref.value)
+
+
+@pytest.mark.parametrize("window", (1, 2, 5, 64))
+@pytest.mark.parametrize("seed", REJECTED_SEEDS)
+def test_rejected_reliability_seeds_blame_under_oracle_check(seed, window):
+    """With ``SimOptions(check="oracle")`` (no verifier) the streamed blame
+    of these seeds equals the reference's monolithic `channel_blame`: the
+    reference-side failure of ``test_streamed_blame_equals_monolithic`` is
+    the verifier's rejection, not a divergence of the fold."""
+    s = _stream_port("rel", seed, window,
+                     P.SimOptions(check="oracle")).summary()
+    mb, peak = _mono("rel", seed)
+    _blame_equal(s["blame"], mb)
+    assert np.array_equal(s["peak_backlog"], peak)
+    assert int(mb.retrain_ps.sum()) > 0
+
+
+# ---------------------------------------------------------------------------
 # the study and the trace viewer, against the reference's bench and example
 # ---------------------------------------------------------------------------
 
@@ -424,8 +531,8 @@ def _without_phases(meta):
 
 def test_study_rows_and_artifact_equal_reference(tmp_path, monkeypatch):
     """`studies.critical_path.run(quick=True)` gives the reference bench's
-    first two rows (names, ``derived``, ``meta`` but the host phases) and
-    the same artifact entries; the third row needs streaming."""
+    three rows (names, ``derived``, ``meta`` but the host phases) and the
+    same artifact entries, the streamed blame gate's included."""
     import benchmarks.bench_critical_path as RB
     from repro_torch.studies import critical_path as PB
 
@@ -437,15 +544,16 @@ def test_study_rows_and_artifact_equal_reference(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path / "ref")
     want = RB.run(quick=True)
     ref_art = json.loads(Path(RB.ARTIFACT).read_text())
-    assert [r.name for r in want] == [r.name for r in got] + [
-        "critical_path/streaming_blame_gate"]
+    assert [r.name for r in got] == [r.name for r in want]
+    assert got[-1].name == "critical_path/streaming_blame_gate"
     for g, w in zip(got, want):
         assert (g.name, g.derived, _without_phases(g.meta)) == \
             (w.name, w.derived, _without_phases(w.meta))
         assert set(g.meta["host_phases"]) <= {
             "lower", "sf_scan", "verify", "simulate", "execute", "build"}
-    assert set(port_art) == set(ref_art) - {"streaming_smoke"}
-    for key in ("coherence_fabric", "reliability_bus", "kinds"):
+    assert set(port_art) == set(ref_art)
+    for key in ("coherence_fabric", "reliability_bus", "streaming_smoke",
+                "kinds"):
         assert port_art[key] == ref_art[key], key
 
 

@@ -822,3 +822,90 @@ def test_cuda_backpointers_equal_cpu(card):
     assert gpaths == cpaths
     assert np.array_equal(gbl.table, cbl.table)
     assert gtrace == ctrace and TX.validate_trace(gtrace) == []
+
+
+def _stream_tables(family, dev, seed=5, n=120, h=4, c=4):
+    """Tables of the random, reliability-marker (`_rel_tables`) and
+    fork/join families of ``test_streaming.py`` on ``dev``: turnarounds, a
+    row-managed channel, zero-byte hops, and for ``"join"`` a layered
+    fork/join DAG."""
+    if family == "rel":
+        return _rel_tables(dev, seed=seed, n=n, h=h, c=c)
+    rng = np.random.default_rng(seed)
+    rowm = np.arange(c) == c - 1
+    ch = P.Channels(*(torch.from_numpy(x).to(dev) for x in (
+        rng.integers(10, 100, c).astype(np.int64) * 1000,
+        np.where(rng.random(c) < .5, rng.integers(100, 5000, c),
+                 0).astype(np.int64),
+        np.where(rowm, 1000, 0).astype(np.int64),
+        np.where(rowm, 9000, 0).astype(np.int64))))
+    chan = rng.integers(0, c, (n, h)).astype(np.int32)
+    nbytes = np.where(rng.random((n, h)) < 0.2, 0,
+                      rng.integers(1, 300, (n, h))).astype(np.int64)
+    valid = rng.random((n, h)) < .85
+    join = {}
+    if family == "join":
+        jid = np.full(n, -1, np.int32)
+        jwait = np.full(n, -1, np.int32)
+        jarity = np.zeros(n, np.int32)
+        layers = np.split(np.arange(n), [n // 3, 2 * n // 3])
+        grp = 0
+        for up, dn in zip(layers[:-1], layers[1:]):
+            for w in dn[rng.random(dn.shape[0]) < 0.5]:
+                members = up[(rng.random(up.shape[0]) < 0.1)
+                             & (jid[up] < 0)]
+                if members.size:
+                    jid[members] = grp
+                    jwait[w], jarity[w] = grp, members.size
+                    grp += 1
+        join = {k: torch.from_numpy(v).to(dev) for k, v in
+                (("join_id", jid), ("join_wait", jwait),
+                 ("join_arity", jarity))}
+    hops = P.Hops(*(torch.from_numpy(x).to(dev) for x in (
+        chan, nbytes, rng.integers(0, 2, (n, h)).astype(np.int8),
+        np.where(chan == c - 1, rng.integers(0, 3, (n, h)),
+                 -1).astype(np.int32),
+        rng.integers(0, 2000, (n, h)).astype(np.int64), valid, valid)),
+        **join)
+    issue = torch.from_numpy(np.sort(rng.integers(0, 50_000, n)).astype(
+        np.int64)).to(dev)
+    return hops, ch, issue
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["random", "rel", "join"])
+def test_cuda_stream_equals_monolithic_and_cpu(card, family):
+    """`simulate_stream` on the card: every settled item's start, depart
+    and arrive, every completion and gated first-hop arrival, the blame and
+    the peak backlog equal the card's monolithic schedule, and the CPU
+    stream's ``collected`` and summary; the fused serve round launches once
+    per window round, plus one retraining replay per window with retraining
+    tables."""
+    from repro_torch.core import streaming as PS
+    from repro_torch.studies.streaming import stream_matches_monolithic
+
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        hops, ch, issue = _stream_tables(family, dev)
+        mono = P.simulate(hops, ch, issue)
+        assert mono.converged
+        before = K.LAUNCHES["serve_round"]
+        res = PS.simulate_stream(PS.stream_windows(hops, issue, 7), ch,
+                                 collect_schedule=True)
+        launches = K.LAUNCHES["serve_round"] - before
+        stream_matches_monolithic(hops, ch, issue, mono, res, dev.type)
+        out[dev.type] = (res, launches)
+    (gres, glaunch), (cres, _) = out["cuda"], out["cpu"]
+    for key, want in cres.collected.items():
+        assert np.array_equal(gres.collected[key], want), key
+    gs, cs = gres.summary(), cres.summary()
+    for key, want in cs.items():
+        if key == "blame":
+            for b, w in want.items():
+                assert np.array_equal(np.asarray(gs[key][b]),
+                                      np.asarray(w)), b
+        else:
+            assert np.array_equal(np.asarray(gs[key]), np.asarray(want)), key
+    assert gres.oracle_windows == 0 and gres.carried_peak > 0
+    replays = gres.windows if family == "rel" else 0
+    assert glaunch == gres.rounds + replays

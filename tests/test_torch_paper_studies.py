@@ -209,7 +209,8 @@ def test_run_cli_prints_the_rows(monkeypatch, capsys):
     assert [name for name, _ in PRUN.MODULES] == [
         "validation", "topology", "routing", "snoop_filter", "invblk",
         "full_duplex", "link_layer", "link_reliability", "coherence_fabric",
-        "telemetry", "critical_path", "traces", "coherence_modes"]
+        "telemetry", "critical_path", "streaming", "traces",
+        "coherence_modes"]
     with pytest.raises(SystemExit):
         PRUN.main(["--only", "no_such_study", "--device", "cpu"])
 
@@ -263,6 +264,8 @@ def test_studies_import_no_jax_and_no_reference():
         "import repro_torch.studies.critical_path\n"
         "import repro_torch.studies.fabric_trace_viewer\n"
         "import repro_torch.core.critical_path, repro_torch.core.trace_export\n"
+        "import repro_torch.core.streaming, repro_torch.studies.streaming\n"
+        "import repro_torch.analysis, repro_torch.analysis.verify_smoke\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or\n"
         "             m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
         "assert not bad, bad\n")

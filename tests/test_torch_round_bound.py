@@ -4,15 +4,16 @@ Sufficiency, as `test_round_bound.py` holds it for the reference: on random
 demand, fork/join DAGs and warm-carried windows, both engines compute the
 same `round_bound`, and the port's `simulate` converges within it with zero
 residual, equal to the reference's run; so do the coherence lowerings
-(`coherence_traffic.lower_coherence`, chain and concurrent fan-out).  The
-reference's streamed case (`streaming.simulate_stream`) has no port yet;
-its sufficiency case waits for that module.
+(`coherence_traffic.lower_coherence`, chain and concurrent fan-out), and
+so does every window of a carried stream (`streaming.simulate_stream`),
+whose result reports the unified diagnostics.
 
 Insufficiency, a reference-side limit that the port reproduces: on the
 paper's ring at scale 16 with 120 requests per pair, both engines need 83
 rounds against a computed bound of 71.  Tolerance: exact.
 """
 
+import numpy as np
 import pytest
 from _hyp_compat import given, settings, st  # optional-hypothesis shim
 
@@ -22,7 +23,9 @@ import jax.numpy as jnp  # noqa: E402
 
 import repro.core  # noqa: E402,F401  (x64 for the reference)
 from repro.core import engine as RE  # noqa: E402
+from repro.core import streaming as RS  # noqa: E402
 import repro_torch.core as P  # noqa: E402
+from repro_torch.core import streaming as PS  # noqa: E402
 from test_engine import _join_case, _random_case  # noqa: E402
 from test_torch_engine import _carry_np, _port, _schedules_equal  # noqa: E402
 from test_torch_lowering import _both  # noqa: E402
@@ -89,8 +92,6 @@ def test_bound_sufficient_coherence_lowering(fanout):
     """`test_round_bound.py::test_bound_sufficient_coherence_lowering` on
     the port: the lowered event log of a 160-request stream converges
     within the bound, equal to the reference's run of the same tables."""
-    import numpy as np
-
     from repro.core import coherence_traffic as RC
     from repro.core import snoop_filter as RS
     from repro_torch.core import coherence_traffic as PC
@@ -121,6 +122,50 @@ def test_bound_sufficient_coherence_lowering(fanout):
     _schedules_equal(ref, port)
     assert port.converged and port.residual_ps == 0
     assert port.rounds <= bound
+
+
+def _streams(hops, ch, issue, window, options=None):
+    """The port's and the reference's streamed runs of one case."""
+    h, c, i = _port(hops, ch, issue)
+    port = PS.simulate_stream(PS.stream_windows(h, i, window), c,
+                              options=None if options is None
+                              else P.SimOptions(**options))
+    ref = RS.simulate_stream(RS.stream_windows(hops, np.asarray(issue),
+                                               window), ch,
+                             options=None if options is None
+                             else RE.SimOptions(**options))
+    return port, ref
+
+
+def test_bound_sufficient_stream_carry():
+    """`test_round_bound.py::test_bound_sufficient_stream_carry`: every
+    window of a carried fork/join stream converges within its computed
+    bound, with the reference's rounds."""
+    port, ref = _streams(*_join_case(5), 7)
+    assert port.converged and port.oracle_windows == 0
+    assert port.residual_ps == 0
+    assert (port.rounds, port.state.rounds_max, port.windows) == \
+        (ref.rounds, ref.state.rounds_max, ref.windows)
+
+
+def test_one_options_object_threads_through_simulate_stream():
+    """The stream part of `test_round_bound.py::
+    test_one_options_object_threads_through_every_entry_point`."""
+    hops, ch, issue, _ = _random_case(2)
+    port, ref = _streams(hops, ch, issue, 9, dict(check="oracle"))
+    assert port.converged and ref.converged
+    assert port.rounds == ref.rounds
+
+
+def test_stream_result_reports_unified_diagnostics():
+    """The stream part of `test_round_bound.py::
+    test_unified_result_diagnostics`."""
+    hops, ch, issue, _ = _random_case(5)
+    port, ref = _streams(hops, ch, issue, 11)
+    for field in ("rounds", "converged", "residual_ps"):
+        assert hasattr(port, field)
+        assert getattr(port, field) == getattr(ref, field), field
+    assert port.rounds == port.state.rounds_sum
 
 
 def test_ring_paper_scale_exceeds_bound():

@@ -8,7 +8,9 @@ finding: code, message and row/hop/channel coordinates.  The coherence and
 stream families verify reference-built tables carried across with
 `convert` (and the reference's ``SFEvents`` as they are).  Lowerings the
 port builds itself verify clean, and ``simulate_auto(check="static")``
-raises `VerifyError` exactly where the reference's does.
+raises `VerifyError` exactly where the reference's does.  The port's
+verifier smoke (`repro_torch.analysis.verify_smoke`) prints what the
+reference's does.
 """
 
 import numpy as np
@@ -291,3 +293,19 @@ def test_stream_windows_through_convert():
         assert rep.ok
         assert rep.findings == RV.verify_workload(
             h, wl.channels, issue, monotone_issue=True).findings
+
+
+def test_verify_smoke_prints_what_the_reference_prints(capsys):
+    """``python -m repro_torch.analysis.verify_smoke --device cpu``: every
+    lowering the port builds verifies clean, and the printout equals
+    ``python -m repro.analysis.verify_smoke``'s line for line."""
+    from repro.analysis import verify_smoke as RSM
+    from repro_torch.analysis import verify_smoke as PSM
+
+    assert PSM.main(device="cpu") == 0
+    got = capsys.readouterr().out
+    assert RSM.main() == 0
+    want = capsys.readouterr().out
+    assert got == want
+    assert got.splitlines()[-1] == "verify_smoke: clean"
+    assert "streaming/windows            ok  (4 windows)" in got
