@@ -508,10 +508,13 @@ SF_CASE_N = 2_000
 COUPLED_N = 600
 # the scan's bytes per request: addr, is_write, rid in (9 B); latency, hit,
 # the two per-step counts out (25 B); plus the state in and out once.  Its
-# operations are not counted: what the function needs of them depends on
-# how the victim scores are kept (a full pass per step, as the kernel does,
-# or kept up to date as entries change), and its pace is set by the
-# dependency from step to step, reported as µs per step beside the bound
+# operations are not counted: the kernel keeps its maps, counts and (fifo,
+# lifo, lru, mru) order list up to date as entries change, so a step's
+# work depends on its case (a few lookups on a hit; the list's end, or a
+# warp search of the SF for lfi and blp, on a victim step), and its pace
+# is set by the chain of dependent shared-memory accesses from step to
+# step, reported beside the bound as µs per step, the step mix and the µs
+# a step of each kind takes
 SF_BYTES_PER_STEP = 9 + 25
 SPIN_CYCLES = 200_000_000  # ~0.1 s of device spin at the H100's clocks
 
@@ -1541,7 +1544,9 @@ def sf_cases(np, torch, PS):
     """(label, `simulate_sf` keyword arguments) of the kernel-against-plain
     families at n `SF_CASE_N` on the card: all six policies, 1, 2 and 4
     requesters, InvBlk 1-4 on a finite bus, a state too large for shared
-    memory, fabric latencies."""
+    memory, fabric latencies, 4 requesters with writes at a small cache
+    (write conflicts on hits), and the blp run that ends at line ``F - 1``
+    (the reference's duplicate scatter into ``present``)."""
     def skewed(n_req, seed):
         return dict(zip(("addr", "is_write", "req_id"), PS.make_skewed_stream(
             SF_CASE_N, 1024, write_ratio=0.3, n_requesters=n_req, seed=seed,
@@ -1567,7 +1572,7 @@ def sf_cases(np, torch, PS):
             **seq, **cfg("blp", invblk_max=length, bus_MBps=12_000,
                          writeback_ps=30_000), return_events=True)))
     # a footprint whose state does not fit in shared memory: the kernel
-    # then works on the state in device memory
+    # then works on the state in device memory, its maps in a workspace
     big = 65_536
     cases.append(("fifo/R2/device_memory_state", dict(
         zip(("addr", "is_write", "req_id"), PS.make_skewed_stream(
@@ -1581,6 +1586,23 @@ def sf_cases(np, torch, PS):
         cases.append((f"{pol}/R2/fabric", dict(
             **skewed(2, 40), **cfg(pol, invblk_max=2 if pol == "blp" else 1),
             fabric_lat_ps=fab, return_events=True)))
+    # 4 requesters, half writes, over a hot set a small cache shares
+    cases.append(("fifo/R4/writes/small_cache", dict(
+        zip(("addr", "is_write", "req_id"), PS.make_skewed_stream(
+            SF_CASE_N, 256, write_ratio=0.5, n_requesters=4, seed=11,
+            device="cuda")), n_requesters=4,
+        sf_cfg=PS.SFConfig(capacity=24, footprint_lines=256),
+        cache_cfg=PS.CacheConfig(capacity=24), return_events=True)))
+    # lines 6 and 7 fill an SF of 2; line 0 evicts the run 6..7 with
+    # InvBlk 4, whose clipped offsets repeat line 7 = F - 1, which keeps its
+    # presence bit (tests/test_torch_snoop_filter.py's construction)
+    cases.append(("blp/invblk4/last_line", dict(
+        addr=torch.tensor([6, 7, 0, 6], dtype=torch.int32, device="cuda"),
+        is_write=torch.zeros(4, dtype=torch.bool, device="cuda"),
+        req_id=torch.zeros(4, dtype=torch.int32, device="cuda"),
+        n_requesters=1, sf_cfg=PS.SFConfig(capacity=2, policy="blp",
+                                           invblk_max=4, footprint_lines=8),
+        cache_cfg=PS.CacheConfig(capacity=2), return_events=True)))
     return cases
 
 
@@ -1603,8 +1625,12 @@ def sf_diff(torch, got, want):
 
 def phase_sf_vs_plain(np, torch, PS, SFK, SFR):
     """`sf_scan` against its plain version on the card, bit for bit, on the
-    `sf_cases` families, and a run chunked in four (the state threaded)
-    against the monolithic one.  Returns the largest difference."""
+    `sf_cases` families; two runs chunked in four, each chunk resumed from
+    the carried state and held against the plain version from the same
+    state, their concatenation against the monolithic run; two runs from
+    edited carried states (the order list's tie rule, and the search where
+    the list cannot keep its order); and the state check refusing a
+    repeated tag.  Returns the largest difference."""
     worst, plain_s, steps = 0, 0.0, 0
     cases = sf_cases(np, torch, PS)
     for label, kw in cases:
@@ -1620,49 +1646,139 @@ def phase_sf_vs_plain(np, torch, PS, SFK, SFR):
         check(err == 0, f"sf_scan {label}: differs from the plain version "
                         f"by {err}")
         worst = max(worst, err)
-    # chunked against monolithic (kernel), and the monolithic kernel run
-    # against the plain version above (the "lfi/R2" case)
-    kw = dict(cases[2][1], return_state=True)
-    mono = PS.simulate_sf(**kw)
-    state, lat = None, []
-    q = SF_CASE_N // 4
-    for lo in range(0, SF_CASE_N, q):
-        part = dict(kw, addr=kw["addr"][lo:lo + q],
-                    is_write=kw["is_write"][lo:lo + q],
-                    req_id=kw["req_id"][lo:lo + q], init_state=state)
-        res, _, state = PS.simulate_sf(**part)
-        lat.append(res.latency_ps)
-    check(torch.equal(torch.cat(lat), mono[0].latency_ps)
-          and all(torch.equal(a, b) for a, b in zip(state, mono[2])),
-          "sf_scan: the chunked run differs from the monolithic one")
+    # chunked in four from the carried state: lfi with 2 requesters, and
+    # blp InvBlk 4 with 2 requesters on the finite bus
+    named = dict(cases)
+    chunked = []
+    for label in ("lfi/R2", "blp/invblk4/bus"):
+        kw = dict(named[label], return_state=True)
+        mono = PS.simulate_sf(**kw)
+        state, lat = None, []
+        q = SF_CASE_N // 4
+        for lo in range(0, SF_CASE_N, q):
+            part = dict(kw, addr=kw["addr"][lo:lo + q],
+                        is_write=kw["is_write"][lo:lo + q],
+                        req_id=kw["req_id"][lo:lo + q], init_state=state)
+            if state is not None:
+                job = PS.scan_job(**part)
+                err = sf_diff(torch, SFK.sf_scan_kernel([job])[0],
+                              SFR.sf_scan_ref([job])[0])
+                check(err == 0, f"sf_scan {label}: the chunk at {lo}, from "
+                                f"the carried state, differs by {err}")
+            res, _, state = PS.simulate_sf(**part)
+            lat.append(res.latency_ps)
+        check(torch.equal(torch.cat(lat), mono[0].latency_ps)
+              and all(torch.equal(a, b) for a, b in zip(state, mono[2])),
+              f"sf_scan {label}: the chunked run differs from the monolithic "
+              f"one")
+        chunked.append(f"{label}/chunked4")
+    # fifo, lifo, lru and mru take their victim from the order list; from
+    # carried states (the first half's, edited): three entries tied at the
+    # victim's stamp (mru), and a `seq` not above every stamp (fifo), where
+    # the steps search instead
+    for label, edit in (("mru/R2", "tied"), ("fifo/R2", "seq")):
+        kw = named[label]
+        half = SF_CASE_N // 2
+        part = {f: kw[f][:half] for f in ("addr", "is_write", "req_id")}
+        state = [x.clone() for x in SFR.sf_scan_ref(
+            [PS.scan_job(**dict(kw, **part))])[0][1]]
+        stamp = state[6] if label.startswith("mru") else state[5]
+        valid = (state[2] >= 0).nonzero().flatten()
+        if edit == "tied":
+            stamp[valid[-3:]] = stamp[valid].max()
+        else:
+            state[11] = stamp[valid].max().clone()
+        job = PS.scan_job(**dict(
+            kw, init_state=PS.SFState(*state),
+            **{f: kw[f][half:] for f in ("addr", "is_write", "req_id")}))
+        err = sf_diff(torch, SFK.sf_scan_kernel([job])[0],
+                      SFR.sf_scan_ref([job])[0])
+        check(err == 0, f"sf_scan {label}: from the carried state ({edit}) "
+                        f"differs by {err}")
+        chunked.append(f"{label}/carried_{edit}")
+    # a starting state with a line held twice (two SF entries, or two slots
+    # of one cache row) is refused before the launch
+    refused = []
+    base = PS.scan_job(**named["fifo/R2"])
+    for what, field, fix in (
+            ("sf_entries", 2, lambda t: t.__setitem__(slice(0, 2), 5)),
+            ("cache_row", 0, lambda t: t[1].__setitem__(slice(0, 2), 7))):
+        state = [x.clone() for x in base.state]
+        fix(state[field])
+        before = SFK.LAUNCHES["sf_scan"]
+        try:
+            SFK.sf_scan_kernel([base._replace(state=tuple(state))])
+        except ValueError as exc:
+            refused.append(f"{what}: {exc}")
+        check(len(refused) and refused[-1].startswith(what)
+              and SFK.LAUNCHES["sf_scan"] == before,
+              f"sf_scan launched on a state with a repeated tag ({what})")
     emit(phase="kernel_vs_plain", kernel="sf_scan", n=SF_CASE_N,
-         cases=[c[0] for c in cases] + ["lfi/R2/chunked4"],
+         cases=[c[0] for c in cases] + chunked, refused=refused,
          max_abs_err=worst, plain_ms_per_step=plain_s * 1e3 / steps)
     return worst
 
 
-def sf_bound_ms(n, smem_bytes):
+def sf_bound_ms(SFK, n, cfg):
     """(least time on the card in ms, what bounds it) for one stream: its
-    bytes, the stream in and the outputs out, the state in and out once."""
-    nbytes = n * SF_BYTES_PER_STEP + 2 * smem_bytes
+    bytes, the stream in and the outputs out, the state in and out once
+    (the kernel's shared memory less the maps, bitmaps and order links it
+    builds there, which never leave the chip)."""
+    state = SFK.smem_bytes(cfg) - 4 * SFK.work_words(cfg)
+    nbytes = n * SF_BYTES_PER_STEP + 2 * state
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def sf_step_mix(outs):
+    """A stream's steps by case, from its event outputs: cache hits,
+    misses that need no victim, victim steps (an SF miss with the SF full),
+    write conflicts (hits or misses)."""
+    hit, nv = outs["cache_hit"], outs["need_victim"]
+    return dict(hits=int(hit.sum()), misses_without_victim=int(
+        (~hit & ~nv).sum()), victim_steps=int(nv.sum()),
+        conflicts=int(outs["conflict"].sum()))
 
 
 def sf_timing(np, torch, PS, SFK, SFR):
     """The kernel on a full-size Fig. 14 stream (fifo, n 32,000), alone and
-    with the five policies in one launch; the plain version once on the
-    same stream (host clock: it is host-bound), equal to the kernel's."""
+    with the five policies in one launch, and on the full-size Fig. 15
+    stream at InvBlk 4 (held to the JAX package's integers); each stream's
+    step mix, and the µs a step of each kind takes alone; the plain version
+    once on the fifo stream (host clock: it is host-bound), equal to the
+    kernel's."""
     cap = int(0.2 * SF_FOOT)
     stream = PS.make_skewed_stream(SF_N, SF_FOOT, hot_frac=0.1,
                                    hot_ratio=0.9, write_ratio=0.1, seed=3,
                                    device="cuda")
+    policies = ("fifo", "lru", "lfi", "lifo", "mru")
     jobs = [PS.scan_job(*stream, PS.SFConfig(capacity=cap, policy=p,
                                              footprint_lines=SF_FOOT),
                         PS.CacheConfig(capacity=cap))
-            for p in ("fifo", "lru", "lfi", "lifo", "mru")]
+            for p in policies]
     job = jobs[0]
+    fig15 = dict(zip(("addr", "is_write", "req_id"), PS.make_sequential_stream(
+        SF_N, SF_FOOT, n_requesters=2, write_ratio=0.5, seed=5,
+        device="cuda")), n_requesters=2,
+        sf_cfg=PS.SFConfig(capacity=cap, policy="blp", invblk_max=4,
+                           footprint_lines=SF_FOOT, bus_MBps=12_000,
+                           writeback_ps=30_000),
+        cache_cfg=PS.CacheConfig(capacity=cap))
+    job15 = PS.scan_job(**fig15)
     ms, host_ms = time_cuda(torch, lambda: SFK.sf_scan_kernel([job]), 3)
     ms5, _ = time_cuda(torch, lambda: SFK.sf_scan_kernel(jobs), 2)
+    ms15, _ = time_cuda(torch, lambda: SFK.sf_scan_kernel([job15]), 3)
+    res = PS.simulate_sf(**fig15)
+    got15 = (int(res.bandwidth_MBps), int(res.bisnp_events),
+             int(res.invalidated_lines), int(res.total_time_ps),
+             int(res.latency_ps.sum()))
+    check(got15 == FIG15_REF[4], f"sf_scan: the Fig. 15 InvBlk-4 stream "
+                                 f"gives {got15}, the reference "
+                                 f"{FIG15_REF[4]}")
+    mixes = SFK.sf_scan_kernel([j._replace(events=True) for j in jobs]
+                               + [job15._replace(events=True)])
+    mix = {f"fig14/{p}": sf_step_mix(outs)
+           for p, (outs, _) in zip(policies, mixes)}
+    mix["fig15/invblk4"] = sf_step_mix(mixes[-1][0])
     got = SFK.sf_scan_kernel([job])[0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1672,12 +1788,37 @@ def sf_timing(np, torch, PS, SFK, SFR):
     err = sf_diff(torch, got, want)
     check(err == 0, f"sf_scan: the full-size stream differs from the plain "
                     f"version by {err}")
-    bound, by = sf_bound_ms(SF_N, SFK.smem_bytes(job.cfg))
+    # each kind of step alone: 32,000 requests of one requester over
+    # Fig. 14's 4,096 lines, every step after the first 1,024 (hits) or 819
+    # (the others) of that kind: hits (cache and SF of 2,048), victims from
+    # fifo's order list and from lfi's search (SF and cache 819), misses to
+    # a full cache row (SF of 4,096, cache 819)
+    ar = torch.arange(SF_N, dtype=torch.int32, device="cuda")
+    one = (torch.zeros(SF_N, dtype=torch.bool, device="cuda"),
+           torch.zeros(SF_N, dtype=torch.int32, device="cuda"))
+    kinds = {
+        "hits": (ar % 1024, 2048, 2048, "fifo"),
+        "victims_fifo_list": (ar % SF_FOOT, cap, cap, "fifo"),
+        "victims_lfi_search": (ar % SF_FOOT, cap, cap, "lfi"),
+        "misses_full_row": (ar % SF_FOOT, SF_FOOT, cap, "fifo")}
+    us_per_step = {}
+    for kind, (addr, cs, cc, pol) in kinds.items():
+        kind_job = PS.scan_job(addr, *one, PS.SFConfig(
+            capacity=cs, policy=pol, footprint_lines=SF_FOOT),
+            PS.CacheConfig(capacity=cc))
+        us_per_step[kind] = time_cuda(
+            torch, lambda j=kind_job: SFK.sf_scan_kernel([j]),
+            2)[0] * 1e3 / SF_N
+    bound, by = sf_bound_ms(SFK, SF_N, job.cfg)
     row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                library_ms=None)
     emit(phase="kernel_timing", kernel="sf_scan", n=SF_N,
-         five_policies_one_launch_ms=ms5, us_per_step=ms * 1e3 / SF_N,
-         host_ms_per_call=host_ms, smem_bytes=SFK.smem_bytes(job.cfg),
+         five_policies_one_launch_ms=ms5, fig15_invblk4_ms=ms15,
+         us_per_step_by_kind=us_per_step,
+         fig15_invblk4_bound_ms=sf_bound_ms(SFK, SF_N, job15.cfg)[0],
+         us_per_step=ms * 1e3 / SF_N, host_ms_per_call=host_ms,
+         smem_bytes=SFK.smem_bytes(job.cfg),
+         fig15_smem_bytes=SFK.smem_bytes(job15.cfg), step_mix=mix,
          max_abs_err=err, **row)
     return err, row
 

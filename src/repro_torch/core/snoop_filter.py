@@ -10,9 +10,9 @@ policies: FIFO, LRU, LFI, LIFO, MRU and block-length-prioritized (blp).
 
 The protocol is sequential.  The reference runs it as one ``lax.scan``,
 which XLA compiles into one device loop; here it runs through
-`kernels.sf_scan`: a hand-written CUDA kernel (one thread block walks one
-request stream, its state in shared memory) when the tensors lie on the
-card, the plain PyTorch step loop when they lie on the CPU.  Both are
+`kernels.sf_scan`: a hand-written CUDA kernel (one warp walks one request
+stream, its state and line-indexed maps in shared memory) when the tensors
+lie on the card, the plain PyTorch step loop when they lie on the CPU.  Both are
 bit-equal to the reference: every quantity is an integer.
 
 Fabric coupling hooks (`core.coherence_traffic`), as in the reference:

@@ -38,6 +38,19 @@ The same function runs on the card, where it is the yardstick the CUDA
 kernel (`kernel.sf_scan_kernel`) is held against bit for bit; both take a
 list of `ScanJob`s.  It is slow there: a few dozen small launches and a
 few host reads a step.
+
+`sf_scan_indexed` is the CUDA kernel's algorithm in plain Python, for the
+CPU tests: a line-indexed map of the SF (``line -> entry``) and one per
+cache row (``line -> slot``), two-level bitmaps of the free SF entries and
+of each row's empty slots (lowest index by ``ffs``), running counts of the
+free entries and of requester 0's SF and cache lines, an order list of the
+entries by stamp whose end is the fifo, lifo, lru or mru victim, and a
+search (the lfi or blp victim, the least-recent slot of a full row) only on
+the steps that need one, split into 32 lanes' partials combined as the
+warp combines them.  The maps rest on two invariants that the
+reference keeps: valid SF tags are unique, and so are a cache row's valid
+tags; `check_states` (called by the kernel's wrapper and by
+`sf_scan_indexed`) raises on a starting state that breaks them.
 """
 
 from __future__ import annotations
@@ -50,8 +63,8 @@ import torch
 POLICY_CODES = {"fifo": 0, "lru": 1, "lfi": 2, "lifo": 3, "mru": 4, "blp": 5}
 BIG = 1 << 40
 SMALL = 1 << 36
-# InvBlk runs clear at most this many lines (the kernel keeps the cleared
-# lines of a step in one 64-bit mask); CXL's InvBlk has 1 to 4
+# InvBlk runs clear at most this many lines (the port's bound on the
+# configurations it takes); CXL's InvBlk has 1 to 4
 MAX_INVBLK = 64
 # requester ids are bits of an int32 owner mask
 MAX_REQUESTERS = 31
@@ -346,3 +359,475 @@ def scan_one(addr, is_write, rid, state, cfg: ScanConfig, fab=None,
                     torch.tensor(clock, dtype=torch.int64, device=dev),
                     scalar(bus_free), scalar(seq), scalar(bisnp),
                     scalar(inval))
+
+
+def check_states(jobs: list[ScanJob]):
+    """Raise ``ValueError`` on a job whose starting state breaks what the
+    line-indexed maps rest on: a valid tag (``>= 0``) outside ``[0, F)``,
+    a line held by two SF entries, or a line held by two slots of one
+    cache row.  The reference never makes such a state (its tags are
+    addresses in ``[0, F)``, an SF upsert reuses the line's live entry, a
+    cache row is filled only on a miss).  A few tensor ops a job on the
+    state's device and one read back for all the jobs."""
+    flags = []
+    for job in jobs:
+        foot = job.cfg.footprint
+        cache_tag, sf_tag = job.state[0], job.state[2]
+        flags.append(torch.stack([
+            (sf_tag >= foot).any() | (cache_tag >= foot).any(),
+            _repeats(sf_tag.reshape(1, -1), foot),
+            _repeats(cache_tag, foot)]))
+    if not flags:
+        return
+    for k, (outside, sf_rep, row_rep) in enumerate(
+            torch.stack(flags).tolist()):
+        if outside:
+            raise ValueError(f"sf_scan job {k}: a tag outside "
+                             f"[0, {jobs[k].cfg.footprint})")
+        if sf_rep:
+            raise ValueError(f"sf_scan job {k}: a line held by two SF "
+                             f"entries")
+        if row_rep:
+            raise ValueError(f"sf_scan job {k}: a line held by two slots "
+                             f"of one cache row")
+
+
+def _repeats(tags, foot):
+    """Whether a row of ``tags`` ((rows, n)) holds a line in [0, foot)
+    twice (one count per row and line, negative tags counted nowhere)."""
+    rows = tags.shape[0]
+    t = tags.long()
+    idx = torch.where((t >= 0) & (t < foot), t, foot) + (
+        torch.arange(rows, device=t.device)[:, None] * (foot + 1))
+    counts = torch.zeros(rows * (foot + 1), dtype=torch.int32,
+                         device=t.device)
+    counts.scatter_add_(0, idx.flatten(),
+                        torch.ones(idx.numel(), dtype=torch.int32,
+                                   device=t.device))
+    return (counts.view(rows, foot + 1)[:, :foot] > 1).any()
+
+
+LANES = 32
+_NONE = (1 << 63) - 1  # "no index" of a lane with no candidate
+
+
+def _ffs(x: int) -> int:
+    """Index of the lowest set bit of ``x`` (> 0)."""
+    return (x & -x).bit_length() - 1
+
+
+def _i64(x: int) -> int:
+    """``x`` wrapped to int64, as the kernel's int64 arithmetic wraps."""
+    return (x + (1 << 63)) % (1 << 64) - (1 << 63)
+
+
+class _Bits:
+    """The kernel's two-level bitmap over n bits: ``lo[k]`` holds bits
+    ``32k .. 32k + 31``, bit ``k & 31`` of ``hi[k >> 5]`` says whether
+    ``lo[k]`` is nonzero, so the lowest set bit takes two reads (one more
+    per 1,024 bits before it)."""
+
+    def __init__(self, flags):
+        n_lo = -(-len(flags) // 32)
+        self.lo = [0] * n_lo
+        self.hi = [0] * -(-n_lo // 32)
+        for i, f in enumerate(flags):
+            if f:
+                self.set(i)
+
+    def set(self, i):
+        self.lo[i >> 5] |= 1 << (i & 31)
+        self.hi[i >> 10] |= 1 << ((i >> 5) & 31)
+
+    def clear(self, i):
+        self.lo[i >> 5] &= ~(1 << (i & 31))
+        if not self.lo[i >> 5]:
+            self.hi[i >> 10] &= ~(1 << ((i >> 5) & 31))
+
+    def lowest(self) -> int:
+        for k, h in enumerate(self.hi):
+            if h:
+                w = (k << 5) + _ffs(h)
+                return (w << 5) + _ffs(self.lo[w])
+        return -1
+
+    def any(self) -> bool:
+        return any(self.hi)
+
+
+def _lane_min(n, lane, key):
+    """A lane's share of a search, as the kernel takes it: the first
+    minimum of ``key(k)`` over items lane, lane + 32, ... < n, kept in four
+    running minima (each takes every fourth of them, the tail the first)
+    merged by (key, index)."""
+    m = [(_NONE, _NONE)] * 4
+    k = lane
+    while k + 3 * LANES < n:
+        for u in range(4):
+            v = key(k + u * LANES)
+            if v < m[u][0]:
+                m[u] = (v, k + u * LANES)
+        k += 4 * LANES
+    while k < n:
+        v = key(k)
+        if v < m[0][0]:
+            m[0] = (v, k)
+        k += LANES
+    return min(m)
+
+
+def _warp_min(parts):
+    """The 32 lanes' partials combined as the kernel's xor butterfly does:
+    at each distance every lane keeps the lesser of its own tuple and lane
+    ``l ^ m``'s ((key, index, ...): ties to the lower index)."""
+    for m in (16, 8, 4, 2, 1):
+        parts = [min(parts[ln], parts[ln ^ m]) for ln in range(LANES)]
+    assert all(p == parts[0] for p in parts)
+    return parts[0]
+
+
+def sf_scan_indexed(jobs: list[ScanJob], *, check: bool = False) -> list:
+    """The CUDA kernel's algorithm on the CPU, job by job: per job what
+    `scan_one` returns, bit for bit.  With ``check`` it asserts after
+    every step that each map, bitmap and running count equals a recount of
+    the arrays.  Raises as `check_states` does on a state the maps cannot
+    hold."""
+    check_states(jobs)
+    return [_scan_indexed(job, check) for job in jobs]
+
+
+def _scan_indexed(job: ScanJob, check: bool):
+    cfg = job.cfg
+    check_config(cfg)
+    dev = job.addr.device
+    R, Cc, Cs, F = (cfg.n_requesters, cfg.cache_capacity, cfg.sf_capacity,
+                    cfg.footprint)
+    maxlen, policy = cfg.maxlen, cfg.policy
+    (cache_tag, cache_seq, sf_tag, sf_owner, sf_dirty, sf_ins, sf_acc, lfi,
+     present, clock) = (x.flatten().tolist() for x in job.state[:10])
+    bus_free, seq, bisnp, inval = (int(x) for x in job.state[10:])
+    own_mask = (1 << R) - 1
+
+    # the preamble: maps, bitmaps and running counts from the state
+    sf_map = [-1] * F
+    cmap = [-1] * (R * F)
+    for e, tag in enumerate(sf_tag):
+        if tag >= 0:
+            sf_map[tag] = e
+    for k, tag in enumerate(cache_tag):
+        if tag >= 0:
+            cmap[(k // Cc) * F + tag] = k % Cc
+    sf_bits = _Bits([tag < 0 for tag in sf_tag])
+    c_bits = [_Bits([tag < 0 for tag in cache_tag[rr * Cc:(rr + 1) * Cc]])
+              for rr in range(R)]
+    n_free = sum(tag < 0 for tag in sf_tag)
+    own0 = sum(tag >= 0 and o & 1 for tag, o in zip(sf_tag, sf_owner))
+    cached0 = sum(tag >= 0 for tag in cache_tag[:Cc])
+    # the order list (fifo, lifo: insertion stamps; lru, mru: access
+    # stamps): the valid entries by (stamp, index), the index descending for
+    # lifo and mru, so the victim is the head (fifo, lru) or the tail; kept
+    # only where every valid stamp is below ``seq``
+    by_acc = policy in (POLICY_CODES["lru"], POLICY_CODES["mru"])
+    desc = policy in (POLICY_CODES["lifo"], POLICY_CODES["mru"])
+    stamp = sf_acc if by_acc else sf_ins
+    use_list = policy not in (POLICY_CODES["lfi"], POLICY_CODES["blp"]) \
+        and all(tag < 0 or st < seq for tag, st in zip(sf_tag, stamp))
+    links = _order(sf_tag, stamp, desc) if use_list else None
+
+    def run_of(tag):
+        # consecutive present lines after ``tag``, the reference's chain
+        # (a clipped gather and the ``< F`` test)
+        run = 1
+        for d in range(1, maxlen):
+            if run == d and present[min(max(tag + d, 0), F - 1)] \
+                    and tag + d < F:
+                run += 1
+        return run
+
+    def score_of(e, run):
+        if policy == POLICY_CODES["fifo"]:
+            return sf_ins[e]
+        if policy == POLICY_CODES["lifo"]:
+            return -sf_ins[e]
+        if policy == POLICY_CODES["lru"]:
+            return sf_acc[e]
+        if policy == POLICY_CODES["mru"]:
+            return -sf_acc[e]
+        if policy == POLICY_CODES["lfi"]:
+            cnt = lfi[min(max(sf_tag[e], 0), F - 1)]
+            return _i64(cnt * BIG + (SMALL - sf_ins[e]))
+        return _i64(-(run * BIG + sf_ins[e]))
+
+    def invalidate(rr, c, line):
+        nonlocal cached0
+        cache_tag[rr * Cc + c] = -1
+        cache_seq[rr * Cc + c] = 0
+        cmap[rr * F + line] = -1
+        c_bits[rr].set(c)
+        cached0 -= rr == 0
+
+    A, W, Rq = job.addr.tolist(), job.is_write.tolist(), job.rid.tolist()
+    fab = job.fab.tolist() if job.fab is not None else None
+    fields = OUT_FIELDS + (EVENT_FIELDS if job.events else ())
+    outs = {f: [] for f in fields}
+    for i in range(len(A)):
+        a, w, r = A[i], W[i], Rq[i]
+        rbit = 1 << r
+        # ---- phase A, lane 0: one lookup each -------------------------
+        t = clock[r]
+        hit = cmap[r * F + a] >= 0
+        e = sf_map[a]
+        sf_hit = e >= 0
+        owners = sf_owner[e] if sf_hit else 0
+        others = owners & ~rbit
+        conflict = sf_hit and w and others != 0
+        need_victim = not sf_hit and n_free == 0
+
+        # ---- a join for the victim: every lane searches its share -----
+        victim = None
+        if need_victim and (not use_list or check):
+            victim = _warp_min([
+                _lane_min(Cs, ln, lambda k: score_of(
+                    k, run_of(sf_tag[k]) if policy == POLICY_CODES["blp"]
+                    else 1))
+                for ln in range(LANES)])[1]
+        if need_victim and use_list:
+            # the list's end, which is what the search finds
+            assert victim in (None, links.tail if desc else links.head)
+            victim = links.tail if desc else links.head
+
+        # ---- phase B1, lane 0: the victim's clear, the conflict -------
+        n_clear = n_dirty = vmask = v_len = 0
+        if need_victim:
+            v_tag = sf_tag[victim]
+            v_len = min(run_of(v_tag), maxlen)
+            for d in range(v_len):
+                line = v_tag + d
+                e3 = sf_map[line]
+                if e3 < 0:
+                    continue
+                n_clear += 1
+                n_dirty += sf_dirty[e3]
+                vmask |= sf_owner[e3]
+                own0 -= sf_owner[e3] & 1
+                sf_tag[e3], sf_owner[e3], sf_dirty[e3] = -1, 0, False
+                sf_ins[e3] = sf_acc[e3] = 0
+                sf_map[line] = -1
+                sf_bits.set(e3)
+                n_free += 1
+                if use_list:
+                    links.unlink(e3)
+                for rr in range(R):
+                    c = cmap[rr * F + line]
+                    if c >= 0:
+                        invalidate(rr, c, line)
+            # presence through indices clipped to F - 1, one offset after
+            # another, the last offset to reach an index writing it (each
+            # index keeps the value gathered before the writes)
+            for j in range(maxlen):
+                k = min(max(v_tag + j, 0), F - 1)
+                if k < F - 1 or j == maxlen - 1:
+                    present[k] = present[k] and not j < v_len
+        if conflict:
+            for rr in range(R):
+                if rr != r and cmap[rr * F + a] >= 0:
+                    invalidate(rr, cmap[rr * F + a], a)
+            # the conflict owner, through the old tag (no clear on a
+            # conflict)
+            own0 += (rbit & 1) - (owners & 1)
+            sf_owner[e] = rbit
+
+        # ---- a join for the least-recent slot, where a miss finds its
+        # row full after the clear (the clear only empties slots, so a full
+        # row is as the step found it)
+        lru = None
+        if not hit and not c_bits[r].any():
+            lru = _warp_min([
+                _lane_min(Cc, ln, lambda c: cache_seq[r * Cc + c])
+                for ln in range(LANES)])
+
+        # ---- phase B2, lane 0: the fill, the upsert, the clocks --------
+        # ---- a join for the least-recent slot, where a miss finds its
+        # row full after the clear (the clear only empties slots, so a full
+        # row is as the step found it)
+        lru = None
+        if not hit and not c_bits[r].any():
+            lru = _warp_min([
+                _lane_min(Cc, ln, lambda c: cache_seq[r * Cc + c])
+                for ln in range(LANES)])
+
+        # ---- phase B2, lane 0: the fill, the upsert, the clocks --------
+        do_bisnp = need_victim or conflict
+        extra = max(v_len - 1, 0)
+        lat_bisnp = (cfg.bisnp_rtt_ps if do_bisnp else 0) + (
+            extra * cfg.t_cache_ps + extra * extra * cfg.probe_conflict_ps
+            if need_victim else 0)
+        t_hit = t + cfg.t_hit_ps
+        t_bus_ready = max(t_hit, bus_free)
+        bus_occupancy = _i32(cfg.transfer_ps * (1 + v_len))
+        if hit:
+            latency = cfg.t_hit_ps
+        elif fab is None:
+            latency = (cfg.t_hit_ps + (t_bus_ready - t_hit) + cfg.transfer_ps
+                       + cfg.miss_path_ps + cfg.t_sf_ps + lat_bisnp
+                       + n_dirty * cfg.writeback_ps)
+        else:
+            latency = cfg.t_hit_ps + fab[i] + cfg.t_sf_ps
+
+        # cache: the hit slot (0 if the line was invalidated), else the
+        # lowest empty slot, else the least recent one
+        if hit:
+            slot = max(cmap[r * F + a], 0)
+        else:
+            slot = c_bits[r].lowest()
+            if slot < 0:
+                slot = lru[1]
+        k = r * Cc + slot
+        if cache_tag[k] != a:
+            if cache_tag[k] >= 0:
+                cmap[r * F + cache_tag[k]] = -1
+            else:
+                c_bits[r].clear(slot)
+                cached0 += r == 0
+            cmap[r * F + a] = slot
+            cache_tag[k] = a
+        cache_seq[k] = seq
+
+        # SF upsert on a miss: the live entry, else the lowest free one
+        if not hit:
+            live = sf_map[a]
+            have_entry = live >= 0
+            tgt = live if have_entry else sf_bits.lowest()
+            tgt = max(tgt, 0)
+            old_tag, old_own = sf_tag[tgt], sf_owner[tgt]
+            if old_tag != a:
+                if old_tag >= 0:
+                    sf_map[old_tag] = -1
+                else:
+                    sf_bits.clear(tgt)
+                    n_free -= 1
+                sf_map[a] = tgt
+                sf_tag[tgt] = a
+            own0 += ((old_own | rbit) & 1) - (old_tag >= 0 and old_own & 1)
+            sf_owner[tgt] = old_own | rbit
+            sf_dirty[tgt] = sf_dirty[tgt] or bool(w)
+            if not have_entry:
+                sf_ins[tgt] = seq
+                lfi[a] += 1
+            sf_acc[tgt] = seq
+            # the new stamp is the greatest: the entry moves to the tail
+            if use_list and (not have_entry or by_acc):
+                if old_tag >= 0:
+                    links.unlink(tgt)
+                links.append(tgt)
+            present[a] = True
+
+        clock[r] = t + latency
+        if not hit:
+            bus_free = t_bus_ready + bus_occupancy
+        seq += 1
+        bisnp += do_bisnp
+        inval += n_clear + conflict
+        outs["latency"].append(latency)
+        outs["cache_hit"].append(hit)
+        outs["owner_lines"].append(own0)
+        outs["cached_lines"].append(cached0)
+        if job.events:
+            outs["fab_issue"].append(t_hit)
+            outs["bisnp_mask"].append((vmask & own_mask)
+                                      | (others if conflict else 0))
+            outs["inv_lines"].append(n_clear + conflict)
+            outs["wb_lines"].append(n_dirty)
+            outs["need_victim"].append(need_victim)
+            outs["conflict"].append(conflict)
+            outs["invblk_len"].append(v_len)
+        if check:
+            _recount(sf_tag, sf_owner, cache_tag, sf_map, cmap, sf_bits,
+                     c_bits, n_free, own0, cached0, R, Cc, F)
+            if use_list:
+                want = _order(sf_tag, stamp, desc)
+                assert (links.walk(), links.tail) == (want.walk(), want.tail)
+
+    result = {f: torch.tensor(v, dtype=OUT_DTYPES[f], device=dev)
+              for f, v in outs.items()}
+    final = [torch.tensor(v, dtype=x.dtype, device=dev).reshape(x.shape)
+             for v, x in zip((cache_tag, cache_seq, sf_tag, sf_owner,
+                              sf_dirty, sf_ins, sf_acc, lfi, present, clock),
+                             job.state[:10])]
+    scalar = functools.partial(torch.tensor, dtype=torch.int64, device=dev)
+    return result, (*final, scalar(bus_free), scalar(seq), scalar(bisnp),
+                    scalar(inval))
+
+
+class _Order:
+    """The kernel's order list: ``before[k]`` / ``after[k]`` link the valid
+    SF entries from ``head`` to ``tail`` (-1 at the ends)."""
+
+    def __init__(self, order, n):
+        self.before, self.after = [-1] * n, [-1] * n
+        for x, y in zip(order, order[1:]):
+            self.after[x], self.before[y] = y, x
+        self.head = order[0] if order else -1
+        self.tail = order[-1] if order else -1
+
+    def unlink(self, k):
+        prv, nxt = self.before[k], self.after[k]
+        if prv >= 0:
+            self.after[prv] = nxt
+        else:
+            self.head = nxt
+        if nxt >= 0:
+            self.before[nxt] = prv
+        else:
+            self.tail = prv
+
+    def append(self, k):
+        self.before[k], self.after[k] = self.tail, -1
+        if self.tail >= 0:
+            self.after[self.tail] = k
+        else:
+            self.head = k
+        self.tail = k
+
+    def walk(self):
+        out, k = [], self.head
+        while k >= 0:
+            out.append(k)
+            k = self.after[k]
+        return out
+
+
+def _order(sf_tag, stamp, desc):
+    """The valid entries by (stamp, index), the index descending if
+    ``desc``, linked."""
+    valid = [k for k, tag in enumerate(sf_tag) if tag >= 0]
+    return _Order(sorted(valid, key=lambda k: (stamp[k], -k if desc else k)),
+                  len(sf_tag))
+
+
+def _recount(sf_tag, sf_owner, cache_tag, sf_map, cmap, sf_bits, c_bits,
+             n_free, own0, cached0, R, Cc, F):
+    """Assert that the maps, bitmaps and running counts equal a recount of
+    the arrays."""
+    want = [-1] * F
+    for e, tag in enumerate(sf_tag):
+        if tag >= 0:
+            assert want[tag] < 0, ("SF line held twice", tag)
+            want[tag] = e
+    assert sf_map == want, "SF map"
+    want = [-1] * (R * F)
+    for k, tag in enumerate(cache_tag):
+        if tag >= 0:
+            assert want[(k // Cc) * F + tag] < 0, ("cache line twice", k)
+            want[(k // Cc) * F + tag] = k % Cc
+    assert cmap == want, "cache maps"
+    ref = _Bits([tag < 0 for tag in sf_tag])
+    assert (sf_bits.lo, sf_bits.hi) == (ref.lo, ref.hi), "SF free bitmap"
+    for rr in range(R):
+        ref = _Bits([tag < 0 for tag in cache_tag[rr * Cc:(rr + 1) * Cc]])
+        assert (c_bits[rr].lo, c_bits[rr].hi) == (ref.lo, ref.hi), (
+            "empty-slot bitmap", rr)
+    assert n_free == sum(tag < 0 for tag in sf_tag), "free entries"
+    assert own0 == sum(tag >= 0 and o & 1
+                       for tag, o in zip(sf_tag, sf_owner)), "owner_lines"
+    assert cached0 == sum(tag >= 0 for tag in cache_tag[:Cc]), "cached_lines"

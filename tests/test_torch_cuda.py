@@ -674,31 +674,37 @@ def _sf_outputs(res, ev, state):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["lfi", "blp_bus", "global_state"])
+@pytest.mark.parametrize("case", ["lfi", "blp_bus", "global_state", "fifo",
+                                  "mru", "r4_conflicts"])
 def test_cuda_sf_scan_equals_cpu(card, case):
     """The snoop-filter scan kernel bit-equal to the plain version on the
     CPU: a policy with fabric latencies and a chunked run threading the
-    state, InvBlk 4 on a finite bus, and a footprint whose state does not
-    fit in shared memory (the kernel then works in device memory)."""
+    state, InvBlk 4 on a finite bus, a footprint whose state does not fit
+    in shared memory (the kernel then works in device memory, its maps in
+    a workspace), fifo and mru, and 4 requesters with writes (conflicts on
+    hits)."""
     from repro_torch.core import snoop_filter as PS
     from repro_torch.kernels.sf_scan import kernel as SFK
 
     foot = 65_536 if case == "global_state" else 512
-    cfg = PS.SFConfig(capacity=64, footprint_lines=foot,
-                      policy="lfi" if case == "lfi" else "blp",
-                      invblk_max=1 if case == "lfi" else 4,
+    n_req = 4 if case == "r4_conflicts" else 2
+    policy = {"lfi": "lfi", "fifo": "fifo", "mru": "mru",
+              "r4_conflicts": "fifo"}.get(case, "blp")
+    cfg = PS.SFConfig(capacity=64, footprint_lines=foot, policy=policy,
+                      invblk_max=4 if policy == "blp" else 1,
                       bus_MBps=12_000 if case == "blp_bus" else 0)
-    assert (SFK.smem_bytes(PS.scan_config(cfg, PS.CacheConfig(64), 2))
+    assert (SFK.smem_bytes(PS.scan_config(cfg, PS.CacheConfig(64), n_req))
             > SFK._lib().sf_scan_max_smem(0)) == (case == "global_state")
     stream = (PS.make_sequential_stream(900, foot, n_requesters=2,
                                         write_ratio=0.5, seed=1,
                                         device="cpu")
               if case == "blp_bus" else
               PS.make_skewed_stream(900, foot, write_ratio=0.3,
-                                    n_requesters=2, seed=2, device="cpu"))
+                                    n_requesters=n_req, seed=2,
+                                    device="cpu"))
     fab = torch.from_numpy(np.random.default_rng(0).integers(
         50_000, 500_000, 900)) if case == "lfi" else None
-    kw = dict(n_requesters=2, return_events=True, return_state=True)
+    kw = dict(n_requesters=n_req, return_events=True, return_state=True)
     want = PS.simulate_sf(*stream, cfg, PS.CacheConfig(64),
                           fabric_lat_ps=fab, **kw)
     before = SFK.LAUNCHES["sf_scan"]
@@ -708,6 +714,9 @@ def test_cuda_sf_scan_equals_cpu(card, case):
     assert SFK.LAUNCHES["sf_scan"] - before == 1
     for g, w in zip(_sf_outputs(*got), _sf_outputs(*want)):
         assert torch.equal(g.cpu(), w)
+    if case == "r4_conflicts":
+        ev = want[1]
+        assert bool((ev.conflict & ev.cache_hit).any())
     if case == "lfi":
         state = None
         for lo in range(0, 900, 300):
