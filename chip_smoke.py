@@ -67,9 +67,23 @@ paths through them:
     against its monolithic card schedule bit for bit; the verifier smoke
     (`analysis.verify_smoke`) on card lowerings against the JAX package's
     printout;
+  * the TPU-fabric cost model (`core.fabric_model`, `core.autotune`,
+    `runtime.straggler`): the fabric study (`studies.fabric`: collectives
+    on the simulated 16 x 16 v5e torus and a 2-pod DCN ring, each one
+    schedule through the fused serve round, held against the oracle)
+    against the JAX package's rows; the autotune, coherence and
+    link-reliability demos (`studies.fabric_autotune`,
+    `coherence_fabric_demo`, `link_reliability_demo`) against the
+    examples' printouts; `studies.serve_decode` on recurrentgemma-2b's
+    smoke config (the flash-attention and RG-LRU scan kernels) against a
+    manual decode loop;
   * mamba2-1.3b at its published width (48 SSD layers, d_model 2048,
     1.344 B parameters) behind the same server, prompts of 1 to 16,384
     tokens, whose prefills run the tensor-core SSD chunk kernel (bf16).
+
+Every study's rows are held against the JAX package's, recorded on the CPU
+as constants below (`STUDY_REF`, `TRACES_REF`, `TELEMETRY_REF`,
+`CRITICAL_PATH_REF`, `STREAMING_REF`, `FABRIC_REF`, Fig. 14/15's integers).
 
 Before any of that it logs the host's numpy and C library and holds every
 synthetic trace the studies replay (`core.traces.generate`) against the
@@ -449,6 +463,347 @@ STREAMING_REF = (
      {'windows': 8, 'carried_peak': 0, 'rounds_sum': 64, 'rounds_max': 9,
       'windows_converged': 8}),
 )
+# The JAX package's rows of the eight studies below, each
+# `benchmarks.bench_<study>.run(quick=False)`: name and derived, and for
+# coherence_fabric also meta (the coupled sweeps' fixpoint iterations and
+# engine rounds; no row of these studies carries a host time), made on the
+# CPU with numpy 2.0.2 by
+#   PYTHONPATH=src:. python3 -c 'import importlib, sys
+#   B = importlib.import_module("benchmarks.bench_" + sys.argv[1])
+#   print([(r.name, r.derived, r.meta) for r in B.run(quick=False)])' STUDY
+# for each key.
+STUDY_REF = {
+    "validation": (
+        ("fig7/idle_latency/local", "sim=108ns;hw=108ns;rel_err=0.002"),
+        ("fig7/idle_latency/numa", "sim=191ns;hw=191ns;rel_err=0.001"),
+        ("fig7/idle_latency/cxl", "sim=247ns;hw=256ns;rel_err=0.036"),
+        ("fig7/peak_bw/local/rw1to0",
+         "sim=112.5GBs;hw=118.0GBs;rel_err=0.046"),
+        ("fig7/peak_bw/local/rw3to1",
+         "sim=100.9GBs;hw=108.0GBs;rel_err=0.066"),
+        ("fig7/peak_bw/local/rw2to1", "sim=98.8GBs;hw=104.0GBs;rel_err=0.050"),
+        ("fig7/peak_bw/local/rw1to1", "sim=97.5GBs;hw=98.0GBs;rel_err=0.005"),
+        ("fig7/peak_bw/numa/rw1to0", "sim=48.2GBs;hw=50.0GBs;rel_err=0.036"),
+        ("fig7/peak_bw/numa/rw3to1", "sim=43.4GBs;hw=47.0GBs;rel_err=0.077"),
+        ("fig7/peak_bw/numa/rw2to1", "sim=42.6GBs;hw=45.0GBs;rel_err=0.053"),
+        ("fig7/peak_bw/numa/rw1to1", "sim=41.9GBs;hw=43.0GBs;rel_err=0.025"),
+        ("fig7/peak_bw/cxl/rw1to0", "sim=25.4GBs;hw=26.0GBs;rel_err=0.024"),
+        ("fig7/peak_bw/cxl/rw3to1", "sim=31.1GBs;hw=33.0GBs;rel_err=0.057"),
+        ("fig7/peak_bw/cxl/rw2to1", "sim=33.6GBs;hw=36.0GBs;rel_err=0.067"),
+        ("fig7/peak_bw/cxl/rw1to1", "sim=39.5GBs;hw=42.0GBs;rel_err=0.059"),
+        ("fig8/loaded/cxl_read/iv60000", "bw=1.0GBs;lat=247ns"),
+        ("fig8/loaded/cxl_read/iv24000", "bw=2.6GBs;lat=247ns"),
+        ("fig8/loaded/cxl_read/iv12000", "bw=5.2GBs;lat=248ns"),
+        ("fig8/loaded/cxl_read/iv6000", "bw=10.4GBs;lat=250ns"),
+        ("fig8/loaded/cxl_read/iv4000", "bw=15.5GBs;lat=252ns"),
+        ("fig8/loaded/cxl_read/iv3400", "bw=18.2GBs;lat=254ns"),
+        ("fig8/loaded/cxl_read/iv3000", "bw=20.5GBs;lat=256ns"),
+        ("fig8/loaded/cxl_read/iv2800", "bw=22.0GBs;lat=259ns"),
+        ("fig8/loaded/cxl_read/iv2700", "bw=22.7GBs;lat=261ns"),
+        ("fig8/loaded/cxl_read/iv2620", "bw=23.4GBs;lat=264ns"),
+        ("fig8/loaded/cxl_read/iv2560", "bw=24.0GBs;lat=271ns"),
+        ("fig8/loaded/cxl_read/iv2510", "bw=24.4GBs;lat=279ns"),
+        ("fig8/loaded/error_summary",
+         "avg_rel_err=0.165;max_rel_err=0.350;paper_band_avg=0.043;"
+         "paper_band_max=0.12"),
+        ("tab4/spec_overhead/gcc",
+         "sim=0.170;hw=0.180;paper_esf=0.187;delta_vs_hw=0.010"),
+        ("tab4/spec_overhead/mcf",
+         "sim=0.227;hw=0.242;paper_esf=0.298;delta_vs_hw=0.015"),
+    ),
+    "topology": (
+        ("fig10/chain/scale4", "norm_bw=0.96;target=1.00;converged=True"),
+        ("fig10/chain/scale8", "norm_bw=0.92;target=1.00;converged=True"),
+        ("fig10/chain/scale16", "norm_bw=0.96;target=1.00;converged=True"),
+        ("fig10/chain/scale32", "norm_bw=0.98;target=1.00;converged=True"),
+        ("fig10/tree/scale4", "norm_bw=1.00;target=1.00;converged=True"),
+        ("fig10/tree/scale8", "norm_bw=1.00;target=1.00;converged=True"),
+        ("fig10/tree/scale16", "norm_bw=1.00;target=1.00;converged=True"),
+        ("fig10/tree/scale32", "norm_bw=1.00;target=1.00;converged=True"),
+        ("fig10/ring/scale4", "norm_bw=1.67;target=2.00;converged=True"),
+        ("fig10/ring/scale8", "norm_bw=1.91;target=2.00;converged=True"),
+        ("fig10/ring/scale16", "norm_bw=1.88;target=2.00;converged=False"),
+        ("fig10/ring/scale32", "norm_bw=1.92;target=2.00;converged=False"),
+        ("fig10/spine_leaf/scale4", "norm_bw=1.83;target=1.00;converged=True"),
+        ("fig10/spine_leaf/scale8", "norm_bw=2.00;target=2.00;converged=True"),
+        ("fig10/spine_leaf/scale16",
+         "norm_bw=3.98;target=4.00;converged=True"),
+        ("fig10/spine_leaf/scale32",
+         "norm_bw=7.95;target=8.00;converged=True"),
+        ("fig10/fully_connected/scale4",
+         "norm_bw=1.99;target=2.00;converged=True"),
+        ("fig10/fully_connected/scale8",
+         "norm_bw=3.91;target=4.00;converged=True"),
+        ("fig10/fully_connected/scale16",
+         "norm_bw=7.84;target=8.00;converged=True"),
+        ("fig10/fully_connected/scale32",
+         "norm_bw=15.77;target=16.00;converged=True"),
+        ("fig11/chain/scale16",
+         "h3:lat=969ns:wait=687ns;h4:lat=1478ns:wait=1101ns;"
+         "h5:lat=1725ns:wait=1255ns;h6:lat=1897ns:wait=1333ns;"
+         "h7:lat=1978ns:wait=1320ns;h8:lat=2115ns:wait=1363ns;"
+         "h9:lat=2231ns:wait=1384ns;h10:lat=2355ns:wait=1415ns;"
+         "h11:lat=2540ns:wait=1506ns;h12:lat=2635ns:wait=1507ns;"
+         "h13:lat=2721ns:wait=1499ns;h14:lat=2857ns:wait=1541ns;"
+         "h15:lat=2947ns:wait=1536ns;h16:lat=3043ns:wait=1538ns;"
+         "h17:lat=3174ns:wait=1576ns"),
+        ("fig11/tree/scale16", "h10:lat=2383ns:wait=1442ns"),
+        ("fig11/ring/scale16",
+         "h3:lat=283ns:wait=1ns;h4:lat=377ns:wait=1ns;h5:lat=471ns:wait=1ns;"
+         "h6:lat=566ns:wait=1ns;h7:lat=660ns:wait=1ns;h8:lat=754ns:wait=1ns;"
+         "h9:lat=848ns:wait=2ns;h10:lat=942ns:wait=2ns"),
+        ("fig11/spine_leaf/scale16", "h4:lat=378ns:wait=1ns"),
+        ("fig11/fully_connected/scale16", "h3:lat=283ns:wait=0ns"),
+        ("fig12/chain/iso_bisection",
+         "mean_lat=922ns;minhop=277ns;maxhop=1565ns;congestion_ratio=5.66"),
+        ("fig12/tree/iso_bisection",
+         "mean_lat=921ns;minhop=921ns;maxhop=921ns;congestion_ratio=1.00"),
+        ("fig12/ring/iso_bisection",
+         "mean_lat=678ns;minhop=277ns;maxhop=921ns;congestion_ratio=3.33"),
+        ("fig12/spine_leaf/iso_bisection",
+         "mean_lat=369ns;minhop=369ns;maxhop=369ns;congestion_ratio=1.00"),
+        ("fig12/fully_connected/iso_bisection",
+         "mean_lat=283ns;minhop=283ns;maxhop=283ns;congestion_ratio=1.00"),
+    ),
+    "routing": (
+        ("fig13/oblivious",
+         "host_norm_bw=0.319;vs_oblivious=1.00;host_lat=964ns"),
+        ("fig13/ecmp", "host_norm_bw=0.527;vs_oblivious=1.65;host_lat=408ns"),
+        ("fig13/adaptive",
+         "host_norm_bw=0.532;vs_oblivious=1.67;host_lat=403ns"),
+    ),
+    "full_duplex": (
+        ("fig16_17/full/h0/rw1to0",
+         "bw_MBps=61164;vs_read_only=1.00;bus_utility=0.48;efficiency=0.50"),
+        ("fig16_17/full/h0/rw3to1",
+         "bw_MBps=79715;vs_read_only=1.30;bus_utility=0.62;efficiency=1.00"),
+        ("fig16_17/full/h0/rw2to1",
+         "bw_MBps=89185;vs_read_only=1.46;bus_utility=0.70;efficiency=1.00"),
+        ("fig16_17/full/h0/rw1to1",
+         "bw_MBps=116447;vs_read_only=1.90;bus_utility=0.91;efficiency=1.00"),
+        ("fig16_17/full/h16/rw1to0",
+         "bw_MBps=61157;vs_read_only=1.00;bus_utility=0.60;efficiency=0.50"),
+        ("fig16_17/full/h16/rw3to1",
+         "bw_MBps=74086;vs_read_only=1.21;bus_utility=0.72;efficiency=0.74"),
+        ("fig16_17/full/h16/rw2to1",
+         "bw_MBps=80008;vs_read_only=1.31;bus_utility=0.78;efficiency=0.78"),
+        ("fig16_17/full/h16/rw1to1",
+         "bw_MBps=94354;vs_read_only=1.54;bus_utility=0.92;efficiency=0.80"),
+        ("fig16_17/full/h32/rw1to0",
+         "bw_MBps=61150;vs_read_only=1.00;bus_utility=0.72;efficiency=0.50"),
+        ("fig16_17/full/h32/rw3to1",
+         "bw_MBps=69200;vs_read_only=1.13;bus_utility=0.81;efficiency=0.63"),
+        ("fig16_17/full/h32/rw2to1",
+         "bw_MBps=72543;vs_read_only=1.19;bus_utility=0.85;efficiency=0.65"),
+        ("fig16_17/full/h32/rw1to1",
+         "bw_MBps=79877;vs_read_only=1.31;bus_utility=0.94;efficiency=0.67"),
+        ("fig16_17/full/h64/rw1to0",
+         "bw_MBps=61135;vs_read_only=1.00;bus_utility=0.96;efficiency=0.50"),
+        ("fig16_17/full/h64/rw3to1",
+         "bw_MBps=61135;vs_read_only=1.00;bus_utility=0.96;efficiency=0.50"),
+        ("fig16_17/full/h64/rw2to1",
+         "bw_MBps=61135;vs_read_only=1.00;bus_utility=0.96;efficiency=0.50"),
+        ("fig16_17/full/h64/rw1to1",
+         "bw_MBps=61135;vs_read_only=1.00;bus_utility=0.96;efficiency=0.50"),
+        ("fig16_17/half/h0/rw1to0",
+         "bw_MBps=61164;vs_read_only=1.00;bus_utility=0.96;efficiency=1.00"),
+        ("fig16_17/half/h0/rw3to1",
+         "bw_MBps=41839;vs_read_only=0.68;bus_utility=0.65;efficiency=1.00"),
+        ("fig16_17/half/h0/rw2to1",
+         "bw_MBps=40170;vs_read_only=0.66;bus_utility=0.63;efficiency=1.00"),
+        ("fig16_17/half/h0/rw1to1",
+         "bw_MBps=36341;vs_read_only=0.59;bus_utility=0.57;efficiency=1.00"),
+        ("fig16_17/half/h16/rw1to0",
+         "bw_MBps=31651;vs_read_only=1.00;bus_utility=0.62;efficiency=0.80"),
+        ("fig16_17/half/h16/rw3to1",
+         "bw_MBps=31746;vs_read_only=1.00;bus_utility=0.62;efficiency=0.80"),
+        ("fig16_17/half/h16/rw2to1",
+         "bw_MBps=32064;vs_read_only=1.01;bus_utility=0.63;efficiency=0.80"),
+        ("fig16_17/half/h16/rw1to1",
+         "bw_MBps=32225;vs_read_only=1.02;bus_utility=0.63;efficiency=0.80"),
+        ("fig16_17/half/h32/rw1to0",
+         "bw_MBps=30977;vs_read_only=1.00;bus_utility=0.73;efficiency=0.67"),
+        ("fig16_17/half/h32/rw3to1",
+         "bw_MBps=30813;vs_read_only=0.99;bus_utility=0.72;efficiency=0.67"),
+        ("fig16_17/half/h32/rw2to1",
+         "bw_MBps=31098;vs_read_only=1.00;bus_utility=0.73;efficiency=0.67"),
+        ("fig16_17/half/h32/rw1to1",
+         "bw_MBps=31280;vs_read_only=1.01;bus_utility=0.73;efficiency=0.67"),
+        ("fig16_17/half/h64/rw1to0",
+         "bw_MBps=25457;vs_read_only=1.00;bus_utility=0.80;efficiency=0.50"),
+        ("fig16_17/half/h64/rw3to1",
+         "bw_MBps=25457;vs_read_only=1.00;bus_utility=0.80;efficiency=0.50"),
+        ("fig16_17/half/h64/rw2to1",
+         "bw_MBps=25457;vs_read_only=1.00;bus_utility=0.80;efficiency=0.50"),
+        ("fig16_17/half/h64/rw1to1",
+         "bw_MBps=25457;vs_read_only=1.00;bus_utility=0.80;efficiency=0.50"),
+    ),
+    "link_layer": (
+        ("link_layer/gen/pcie5_bytes",
+         "goodput_MBps=114568;vs_pcie5=1.00;latency_ns=10377"),
+        ("link_layer/gen/pcie5_flit68",
+         "goodput_MBps=106235;vs_pcie5=0.93;latency_ns=11194"),
+        ("link_layer/gen/pcie6_flit256",
+         "goodput_MBps=183225;vs_pcie5=1.60;latency_ns=6465"),
+        ("link_layer/flit256_efficiency",
+         "measured=0.9219;analytic=0.9219;rel_err=0.0000;pass=True"),
+        ("link_layer/ber_sweep",
+         "ber0=180149;ber1e-08=180113;ber1e-07=179588;ber3e-07=178461;"
+         "ber1e-06=174583;ber3e-06=164367;ber1e-05=136202;monotone=True"),
+    ),
+    "link_reliability": (
+        ("link_reliability/zero_ber_equivalence",
+         "stochastic_matches_deterministic=True"),
+        ("link_reliability/tail/ber0",
+         "exp_p50=3988;exp_p99=7646;sto_p50=3988;sto_p99=7646"),
+        ("link_reliability/tail/ber1e-06",
+         "exp_p50=4115;exp_p99=7894;sto_p50=5147;sto_p99=8846"),
+        ("link_reliability/tail/ber1e-05",
+         "exp_p50=5268;exp_p99=10160;sto_p50=8316;sto_p99=13964"),
+        ("link_reliability/tail/ber3e-05",
+         "exp_p50=7907;exp_p99=15347;sto_p50=12577;sto_p99=28210"),
+        ("link_reliability/tail/ber0.0001",
+         "exp_p50=18044;exp_p99=35269;sto_p50=79386;sto_p99=140498"),
+        ("link_reliability/tail_divergence",
+         "p99_minus_p50_ber0=3658;p99_minus_p50_top=61112;"
+         "expected_top=17226;diverges=True"),
+        ("link_reliability/retrain_stall",
+         "events=460;down_ns=494000;makespan_off=19860;makespan_on=87914;"
+         "stalls=True"),
+    ),
+    "coherence_fabric": (
+        ("coherence_fabric/load0",
+         "iso_lat=215ns;cpl_lat=298ns;bisnp_meas=157ns;bisnp_model=64ns",
+         {'fixpoint_iters': 6, 'fixpoint_converged': False,
+          'engine_rounds': [15, 16, 16, 16, 16, 15],
+          'engine_converged': True}),
+        ("coherence_fabric/load0.3",
+         "iso_lat=215ns;cpl_lat=304ns;bisnp_meas=159ns;bisnp_model=64ns",
+         {'fixpoint_iters': 6, 'fixpoint_converged': False,
+          'engine_rounds': [17, 16, 15, 16, 16, 17],
+          'engine_converged': True}),
+        ("coherence_fabric/load0.6",
+         "iso_lat=215ns;cpl_lat=312ns;bisnp_meas=162ns;bisnp_model=64ns",
+         {'fixpoint_iters': 6, 'fixpoint_converged': False,
+          'engine_rounds': [17, 21, 17, 17, 16, 21],
+          'engine_converged': True}),
+        ("coherence_fabric/load0.9",
+         "iso_lat=215ns;cpl_lat=322ns;bisnp_meas=167ns;bisnp_model=64ns",
+         {'fixpoint_iters': 6, 'fixpoint_converged': False,
+          'engine_rounds': [17, 17, 17, 21, 18, 15],
+          'engine_converged': True}),
+        ("coherence_fabric/policies_at_load",
+         "fifo=322;lru=320;lfi=306;lifo=323;mru=328;blp=295",
+         None),
+        ("coherence_fabric/divergence_gate",
+         "div_ns=84,89,97,107;grows=True;nonzero=True;gate=True",
+         None),
+        ("coherence_fabric/fanout_owners1",
+         "chain=344ns;conc=344ns;div=0ns;snooped=1.00",
+         {'engine_rounds': {'chain': 1, 'concurrent': 10},
+          'engine_converged': True}),
+        ("coherence_fabric/fanout_owners2",
+         "chain=501ns;conc=344ns;div=157ns;snooped=2.00",
+         {'engine_rounds': {'chain': 5, 'concurrent': 11},
+          'engine_converged': True}),
+        ("coherence_fabric/fanout_owners3",
+         "chain=658ns;conc=344ns;div=313ns;snooped=3.00",
+         {'engine_rounds': {'chain': 5, 'concurrent': 11},
+          'engine_converged': True}),
+        ("coherence_fabric/fanout_owners4",
+         "chain=815ns;conc=345ns;div=470ns;snooped=4.00",
+         {'engine_rounds': {'chain': 5, 'concurrent': 11},
+          'engine_converged': True}),
+        ("coherence_fabric/fanout_gate",
+         "div_ns=0,157,313,470;grows=True;nonzero=True;gate=True",
+         None),
+        ("coherence_fabric/trace_xsbench",
+         "iso_lat=207ns;cpl_lat=353ns;lifo_cpl=352ns",
+         {'fixpoint_iters': 6, 'fixpoint_converged': False,
+          'engine_rounds': [28, 20], 'engine_converged': True}),
+        ("coherence_fabric/trace_silo",
+         "iso_lat=217ns;cpl_lat=333ns;lifo_cpl=330ns",
+         {'fixpoint_iters': 6, 'fixpoint_converged': False,
+          'engine_rounds': [16, 17], 'engine_converged': True}),
+    ),
+    "coherence_modes": (
+        ("coherence/scale2",
+         "hdm_db_bw=123870;hdm_h_bw=39489;dmc_speedup=3.14;hdm_db_lat=385ns;"
+         "hdm_h_lat=936ns"),
+        ("coherence/scale4",
+         "hdm_db_bw=128000;hdm_h_bw=48842;dmc_speedup=2.62;hdm_db_lat=562ns;"
+         "hdm_h_lat=1330ns"),
+        ("coherence/scale8",
+         "hdm_db_bw=249587;hdm_h_bw=55346;dmc_speedup=4.51;hdm_db_lat=580ns;"
+         "hdm_h_lat=2248ns"),
+    ),
+}
+# The JAX package's `benchmarks.bench_fabric.run(quick=False)` rows, name
+# and derived: collectives on the simulated 16 x 16 TPU v5e torus and the
+# 2-pod DCN ring (PYTHONPATH=src:. python3 -c 'import
+# benchmarks.bench_fabric as B
+# print([(r.name, r.derived) for r in B.run(quick=False)])').
+FABRIC_REF = (
+    ("fabric/all_reduce/16MB", "sim_ms=0.315;alpha_beta_ms=0.315;ratio=1.000"),
+    ("fabric/all_reduce/64MB", "sim_ms=1.258;alpha_beta_ms=1.258;ratio=1.000"),
+    ("fabric/all_reduce/256MB",
+     "sim_ms=5.033;alpha_beta_ms=5.033;ratio=1.000"),
+    ("fabric/all_to_all/64MB",
+     "sim_ms=3.020;contention_free_ms=0.629;contention_factor=4.80"),
+    ("fabric/pod_all_reduce/64MB",
+     "sim_ms=31.472;detail=DCN ring across pods"),
+)
+# What `examples/fabric_autotune.py`, `examples/coherence_fabric_demo.py`
+# and `examples/link_reliability_demo.py` print (the JAX package on the CPU:
+# PYTHONPATH=src python3 examples/NAME.py).
+FABRIC_AUTOTUNE_REF = """\
+== layout ranking: grok-1-314b train_4k (ESF-engine collective term) ==
+  fsdp+tp+sp   step= 21.992 s bound=collective hbm=16.08 GiB  coll=11543.8 ms
+  ddp          step= 22.286 s bound=collective hbm=601.78 GiB  coll=11838.0 ms
+  tp-only      step= 22.398 s bound=collective hbm=50.53 GiB  coll=11949.7 ms
+  fsdp+tp      step= 22.765 s bound=collective hbm=16.08 GiB  coll=12316.9 ms
+
+== MoE all-to-all: contention the alpha-beta model misses ==
+  ESF engine 6.04 ms vs contention-free 1.26 ms -> factor 4.80x
+
+== straggler what-if: one chip's links at 0.25x bandwidth ==
+  healthy step 0.947s, degraded 1.089s (slowdown 1.149x)
+  200 steps left -> rebalance
+  20000 steps left -> checkpoint_evict
+"""
+COHERENCE_DEMO_REF = """\
+== isolated vs fabric-coupled mean miss latency (fifo DCOH) ==
+   bg load  isolated   coupled  BISnp rtt  fixpoint
+       0.0      209ns      298ns       157ns  5 iters
+       0.3      209ns      302ns       160ns  10 iters (cap)
+       0.6      209ns      310ns       161ns  10 iters (cap)
+       0.9      209ns      316ns       164ns  10 iters (cap)
+  (the isolated column cannot move: its miss path and BISnp RTT are
+   constants; the coupled column feels the device link's queueing)
+
+== trace-driven coherence (§V-E workloads, load 0.6) ==
+  xsbench    isolated   209ns  coupled   358ns
+  redis      isolated   224ns  coupled   332ns
+  silo       isolated   216ns  coupled   341ns
+"""
+LINK_RELIABILITY_DEMO_REF = """\
+== p50 / p99 request latency (ns): expected vs stochastic ==
+       BER   exp p50   exp p99   sto p50   sto p99  sto p99/p50
+     0e+00      3205      6127      3205      6127         1.91
+     1e-06      3305      6325      3285      6431         1.96
+     1e-05      4220      8129      4293      8559         1.99
+     3e-05      6315     12271      6808     13360         1.96
+     1e-04     14359     28150     15320     29803         1.95
+  (expected mode scales every packet alike; the stochastic p99 pulls away
+   from its p50 as replay bursts land on unlucky packets)
+
+== retraining stalls (BER 1e-4, threshold 2, 1 us per event) ==
+  sampled retraining events : 714
+  makespan without retraining:    30323 ns
+  makespan with retraining   :   144144 ns
+  p99 without / with         : 29803 / 141838 ns
+  (same seeded fault history; only the link-down intervals differ)
+"""
 # What `python -m repro.analysis.verify_smoke` prints (the JAX package on
 # the CPU).
 VERIFY_SMOKE_REF = """\
@@ -1537,6 +1892,116 @@ def verify_smoke_on_card(VS):
 
 
 # ---------------------------------------------------------------------------
+# the TPU-fabric cost model and the examples whose modules are ported
+# ---------------------------------------------------------------------------
+
+def printout(fn, *args, **kw):
+    """What ``fn`` prints, its result and its host seconds."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args, **kw)
+    return out.getvalue(), result, time.perf_counter() - t0
+
+
+def fabric_study_on_card(np, torch, P, K, module):
+    """The fabric study at full size (collectives on the simulated 16 x 16
+    v5e torus, the 2-pod DCN ring) against `FABRIC_REF`; every schedule,
+    the all-to-all's and the 2-pod one among them, converged and held to
+    the oracle on its own tables (`run_study`).  Returns, per collective,
+    its host seconds, table size, rounds, bound and launches."""
+    rows, log = run_study(np, torch, P, K, module, "fabric")
+    rows_against_reference("fabric", rows, FABRIC_REF)
+    check(len(log.runs) == len(rows)
+          and all(r.schedule.converged for r in log.runs),
+          f"fabric: {len(log.runs)} schedules for {len(rows)} collectives, "
+          f"converged {[r.schedule.converged for r in log.runs]}")
+    return [dict(collective=row.name, host_s=row.us_per_call / 1e6,
+                 N=int(run.hops.channel.shape[0]),
+                 H=int(run.hops.channel.shape[1]),
+                 rounds=run.schedule.rounds,
+                 round_bound=P.round_bound(run.hops),
+                 converged=run.schedule.converged, launches=run.launches)
+            for row, run in zip(rows, log.runs)]
+
+
+def examples_on_card(P, K, SFK, modules):
+    """The fabric autotune, coherence and link-reliability demos at the
+    examples' sizes on the card, each printout against the example's; the
+    autotune demo's collectives recorded.  Returns each demo's host
+    seconds and launches."""
+    fabric_autotune, coherence_demo, reliability_demo = modules
+    scheds = []
+
+    def recorded(hops, channels, issue_ps):
+        scheds.append((int(hops.channel.numel()),
+                       P.simulate(hops, channels, issue_ps)))
+        return scheds[-1][1]
+
+    out = {}
+    for name, fn, kw, want in (
+            ("fabric_autotune", fabric_autotune.main,
+             dict(simulate_fn=recorded), FABRIC_AUTOTUNE_REF),
+            ("coherence_fabric_demo", coherence_demo.main, {},
+             COHERENCE_DEMO_REF),
+            ("link_reliability_demo", reliability_demo.main, {},
+             LINK_RELIABILITY_DEMO_REF)):
+        before = (K.LAUNCHES["serve_round"], SFK.LAUNCHES["sf_scan"])
+        got, _, host_s = printout(fn, "cuda", **kw)
+        check(got == want, f"{name} printed {got!r}, the example {want!r}")
+        out[name] = dict(host_s=host_s, equal=True,
+                         serve_round_launches=K.LAUNCHES["serve_round"]
+                         - before[0],
+                         sf_scan_launches=SFK.LAUNCHES["sf_scan"]
+                         - before[1])
+    check(all(s.converged for _, s in scheds),
+          "an autotune collective did not converge")
+    out["fabric_autotune"].update(
+        collectives=len(scheds), items=[k for k, _ in scheds],
+        rounds=[s.rounds for _, s in scheds])
+    return out
+
+
+def serve_decode_on_card(torch, FA, RK, module):
+    """The serve_decode example's six greedy requests on recurrentgemma-2b's
+    smoke config (seeded weights) behind the 3-slot server, its prefills
+    through the tensor-core flash-attention kernel (D 16) and the RG-LRU
+    scan; the counts set to 0 just before and read just after.  Every
+    request finishes with 8 tokens, and its tokens equal a manual prefill +
+    decode loop at the server's width.  Returns the launch counts."""
+    from repro_torch.models import transformer as TF
+
+    for counter in (FA.LAUNCHES, RK.LAUNCHES):
+        for name in counter:
+            counter[name] = 0
+    printed, (reqs, stats, model), host_s = printout(module.main, "cuda")
+    launches = {name: counter[name] for counter in (FA.LAUNCHES, RK.LAUNCHES)
+                for name in counter}
+    kinds = [key.split("_", 1)[1] for key, _ in model.keys]
+    prefills = len(stats["prefill_ms"])
+    check(prefills == len(reqs) == 6
+          and all(r.done and len(r.out) == 8 for r in reqs)
+          and stats["generated"] + len(reqs) == 6 * 8
+          and all(0 <= t < model.cfg.vocab for r in reqs for t in r.out),
+          f"serve_decode: {[(r.done, len(r.out)) for r in reqs]}, {stats}")
+    want = {"flash_attention_tc": kinds.count("attn_local") * prefills,
+            "flash_attention": 0,
+            "rglru_scan": kinds.count("rglru") * prefills}
+    check(launches == want,
+          f"serve_decode launched {launches}, expected {want}")
+    for r in reqs:
+        toks, _ = manual_greedy(torch, TF, model, r.prompt, 8, 64, rows=3)
+        check(toks == r.out, f"serve_decode request {r.rid}: server tokens "
+                             f"{r.out} != manual loop {toks}")
+    emit(phase="serve_decode", host_s=host_s, ticks=stats["ticks"],
+         tokens=stats["generated"] + len(reqs),
+         prefill_ms=stats["prefill_ms"], decode_ms=stats["decode_ms"],
+         equal_to_manual_loop=True, printout=printed.splitlines(),
+         **{f"{name}_launches": n for name, n in launches.items()})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # coherence: the snoop-filter scan kernel and the coherence studies
 # ---------------------------------------------------------------------------
 
@@ -2030,8 +2495,10 @@ def phase_flash_vs_plain(torch, FA, FAR):
     2048 window, causal with and without the window, one non-causal case,
     in float32 (the CUDA-core kernel, atol 1e-4) and bf16 (the tensor-core
     kernel, 2 ulps); plus D in {24, 200}, which bf16 takes to the CUDA-core
-    kernel (2 ulps).  Each call is counted on the kernel it should take,
-    and the worst error is reported per kernel and dtype.  Then each
+    kernel (2 ulps); plus serve_decode's shapes (G 4, D 16, window 32, S 4
+    to 11 and 64).  Each call is counted on the kernel it should take, and
+    the worst error is reported per kernel and dtype, over every shape the
+    script's paths launch.  Then each
     kernel's time at one 4096-token prefill of the model's attention layer
     in the dtype it serves."""
     gen = torch.Generator(device="cuda").manual_seed(31)
@@ -2044,6 +2511,11 @@ def phase_flash_vs_plain(torch, FA, FAR):
                    causal=False)]
     cases += [dict(b=1, kvh=1, g=4, d=d, s=s, window=w, causal=True)
               for d in (24, 200) for s in (65, 2049) for w in (0, 2048)]
+    # the serve_decode phase's prefills (the smoke model's attention layer:
+    # H 4, KV 1, D 16 inside the D-64 tile, window 32, prompts of 4 to 11
+    # tokens), and a 64-token one that the window cuts
+    cases += [dict(b=1, kvh=1, g=4, d=16, s=s, window=32, causal=True)
+              for s in (*range(4, 12), 64)]
     worst = {"flash_attention": 0.0, "flash_attention_tc": 0.0}
     # (kernel, dtype) -> [cases, max abs err, max bf16 ulps]
     variants = {}
@@ -2138,32 +2610,34 @@ def rglru_gates(torch, gen, b, s, d):
 
 def phase_rglru_vs_plain(torch, RK, RR):
     """The RG-LRU scan kernel against its plain version (B in {1, 4}, D in
-    {1, 31, 2560}, S across the chunk and tile edges to 4096; atol 1e-5,
-    bit-equal while one chunk covers S) and bit-equal to the CPU emulation
-    of its chunk carries (`rglru_scan_blocked`), then its time at one
-    4096-token prefill of the model's recurrent layer."""
+    {1, 31, 2560}, S across the chunk and tile edges to 4096, and
+    serve_decode's prefills: B 1, D 64, S 4 to 11; atol 1e-5, bit-equal
+    while one chunk covers S) and bit-equal to the CPU emulation of its
+    chunk carries (`rglru_scan_blocked`), then its time at one 4096-token
+    prefill of the model's recurrent layer."""
     gen = torch.Generator(device="cuda").manual_seed(37)
     worst = 0.0
     n = 0
     ch, tile = RK.chunk(), RK.tile()
-    for b in (1, 4):
-        for d in (1, 31, 2560):
-            for s in (1, ch - 1, ch, ch + 1, tile - 1, tile, tile + 1,
-                      4096):
-                a, bb = rglru_gates(torch, gen, b, s, d)
-                got = RK.rglru_scan_kernel(a, bb)
-                want = RR.rglru_scan_ref(a, bb)
-                blocked = RR.rglru_scan_blocked(a, bb, ch)
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                worst = max(worst, err)
-                n += 1
-                check(torch.allclose(got, want, atol=1e-5, rtol=0),
-                      f"rglru_scan != plain at {(b, s, d)}: {err}")
-                check(s > ch or torch.equal(got, want),
-                      f"rglru_scan != plain bit for bit at {(b, s, d)}")
-                check(torch.equal(got, blocked),
-                      f"rglru_scan != rglru_scan_blocked at {(b, s, d)}")
+    shapes = [(b, s, d) for b in (1, 4) for d in (1, 31, 2560)
+              for s in (1, ch - 1, ch, ch + 1, tile - 1, tile, tile + 1,
+                        4096)]
+    shapes += [(1, s, 64) for s in range(4, 12)]
+    for b, s, d in shapes:
+        a, bb = rglru_gates(torch, gen, b, s, d)
+        got = RK.rglru_scan_kernel(a, bb)
+        want = RR.rglru_scan_ref(a, bb)
+        blocked = RR.rglru_scan_blocked(a, bb, ch)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        n += 1
+        check(torch.allclose(got, want, atol=1e-5, rtol=0),
+              f"rglru_scan != plain at {(b, s, d)}: {err}")
+        check(s > ch or torch.equal(got, want),
+              f"rglru_scan != plain bit for bit at {(b, s, d)}")
+        check(torch.equal(got, blocked),
+              f"rglru_scan != rglru_scan_blocked at {(b, s, d)}")
     emit(phase="kernel_vs_plain", kernel="rglru_scan", chunk=ch, tile=tile,
          cases=n, max_abs_err=worst, equal_to_blocked=True)
 
@@ -2568,6 +3042,9 @@ def main() -> int:
     from repro_torch.studies import streaming as streaming_study
     from repro_torch.studies import telemetry as telemetry_study
     from repro_torch.analysis import verify_smoke as VS
+    from repro_torch.studies import (coherence_fabric_demo, fabric_autotune,
+                                     link_reliability_demo, serve_decode)
+    from repro_torch.studies import fabric as fabric_study
 
     # phase 0: the card
     smi = subprocess.run(
@@ -2718,6 +3195,7 @@ def main() -> int:
         # link_reliability asserts its three gates itself
         check("pass=False" not in derived and "=False" not in derived,
               f"{name}: an acceptance gate failed: {derived}")
+        rows_against_reference(name, rows, STUDY_REF[name])
     study_launches = K.LAUNCHES["serve_round"]
     check(study_launches > 0, "the studies never launched serve_round")
     launches += study_launches
@@ -2759,8 +3237,10 @@ def main() -> int:
         check(got == f"{fig10[fabric]:.2f}",
               f"fig10/{fabric}/scale16: norm_bw={got}, paper_path "
               f"{fig10[fabric]:.2f}")
-    # the traces study (Fig. 18-20) against the JAX package's rows, and the
-    # redis half-duplex bus's rounds
+    # every paper study (Fig. 7/8, 10-13, 16-20, Table IV) against the JAX
+    # package's rows, and the redis half-duplex bus's rounds
+    for name in ("validation", "topology", "routing", "full_duplex"):
+        rows_against_reference(name, paper[name], STUDY_REF[name])
     rows_against_reference("traces", paper["traces"], TRACES_REF)
     (redis_bus,) = [r for r in paper_logs["traces"].runs
                     if r.label == "redis/bus_half/n6000"]
@@ -2804,6 +3284,13 @@ def main() -> int:
     sf_rows_against_reference("snoop_filter", coherence["snoop_filter"][1],
                               FIG14_REF)
     sf_rows_against_reference("invblk", coherence["invblk"][1], FIG15_REF)
+    # the coupled studies' rows against the JAX package's, with the
+    # fixpoints' iterations and engine rounds
+    rows_against_reference("coherence_fabric",
+                           coherence["coherence_fabric"][0],
+                           STUDY_REF["coherence_fabric"], with_meta=True)
+    rows_against_reference("coherence_modes", coherence["coherence_modes"][0],
+                           STUDY_REF["coherence_modes"])
     sf_telemetry_against_reference(TM, coherence["snoop_filter"][1])
     derived = {r.name: r.derived for r in coherence["coherence_fabric"][0]}
     for gate in ("divergence_gate", "fanout_gate"):
@@ -2898,6 +3385,37 @@ def main() -> int:
          sf_scan_launches=stream_sf_launches,
          host_s=time.perf_counter() - t0)
 
+    # phase 5g: the TPU-fabric cost model: the fabric study at full size
+    # against the JAX package's rows (every collective's schedule against
+    # the oracle), the autotune, coherence and link-reliability demos
+    # against the examples' printouts, and the serve_decode example on the
+    # smoke model; the serve-round, sf_scan, flash-attention and RG-LRU
+    # counts read around them
+    K.LAUNCHES["serve_round"] = 0
+    K.LAUNCHES["serve_scan"] = 0
+    SFK.LAUNCHES["sf_scan"] = 0
+    t0 = time.perf_counter()
+    collectives = fabric_study_on_card(np, torch, P, K, fabric_study)
+    demos = examples_on_card(P, K, SFK, (fabric_autotune,
+                                         coherence_fabric_demo,
+                                         link_reliability_demo))
+    fabric_launches = K.LAUNCHES["serve_round"]
+    fabric_sf_launches = SFK.LAUNCHES["sf_scan"]
+    decode_launches = serve_decode_on_card(torch, FA, RK, serve_decode)
+    check(fabric_launches > 0, "the fabric phase never launched serve_round")
+    check(fabric_sf_launches > 0, "the fabric phase never launched sf_scan")
+    launches += fabric_launches
+    scan_launches += K.LAUNCHES["serve_scan"]
+    sf_launches += fabric_sf_launches
+    for c in collectives:
+        emit(phase="fabric_collective", **c)
+    for name, d in demos.items():
+        emit(phase="fabric_example", example=name, **d)
+    emit(phase="fabric_launches", serve_round_launches=fabric_launches,
+         sf_scan_launches=fabric_sf_launches, **{
+             f"serve_decode_{n}": c for n, c in decode_launches.items()},
+         host_s=time.perf_counter() - t0)
+
     # phase 6: depart_times on real converged rounds (its path), against
     # the serve-scan kernel's departures
     cases = [(n, wl.hops, wl.channels, sched) for n, wl, sched in runs
@@ -2981,7 +3499,8 @@ def main() -> int:
                source=f"src/repro_torch/kernels/flash_attention/csrc/"
                       f"{name}.cu",
                replaces="src/repro/kernels/flash_attention/kernel.py:93",
-               launches=rg_launches[name], max_abs_err=worst_flash[name],
+               launches=rg_launches[name] + decode_launches[name],
+               max_abs_err=worst_flash[name],
                **flash_timings[name],
                shape=f"B1 S4096 H10 KV1 D256 window 2048 {dtype}")
           for name, dtype in (("flash_attention_tc", "bf16"),
@@ -2989,7 +3508,8 @@ def main() -> int:
         dict(name="rglru_scan", route="cuda",
              source="src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
              replaces="src/repro/kernels/rglru_scan/kernel.py:62",
-             launches=rg_launches["rglru_scan"], max_abs_err=worst_rglru,
+             launches=rg_launches["rglru_scan"]
+             + decode_launches["rglru_scan"], max_abs_err=worst_rglru,
              **rglru_timing, shape="(1, 4096, 2560) float32"),
         dict(name="sf_scan", route="cuda",
              source="src/repro_torch/kernels/sf_scan/csrc/sf_scan.cu",

@@ -73,6 +73,11 @@ from . import streaming  # noqa: F401
 from .streaming import (  # noqa: F401
     StreamResult, StreamState, simulate_stream, stream_windows,
 )
+from . import autotune, fabric_model  # noqa: F401
+from .fabric_model import TPUFabric, predict_collective  # noqa: F401
+from .autotune import (  # noqa: F401
+    WorkloadDims, Layout, autotune as autotune_layouts,
+)
 
 __all__ = [
     # topology / link layer
@@ -117,6 +122,9 @@ __all__ = [
     "coupled_trace", "validate_trace", "write_trace",
     # streaming windowed simulation
     "StreamState", "StreamResult", "simulate_stream", "stream_windows",
+    # the simulated TPU pod: collective costs, the layout autotuner
+    "TPUFabric", "predict_collective", "WorkloadDims", "Layout",
+    "autotune_layouts",
     # oracle / verification
     "join_depth", "simulate_ref", "ref_schedule", "Finding", "VerifyError",
     "VerifyReport", "verify_workload", "assert_valid", "verify_built",
@@ -127,5 +135,5 @@ __all__ = [
     "topology", "engine", "devices", "link_layer", "calibration", "verify",
     "ref_des", "convert", "traces", "routing", "vcs", "snoop_filter",
     "coherence_traffic", "telemetry", "critical_path", "trace_export",
-    "streaming",
+    "streaming", "fabric_model", "autotune",
 ]

@@ -35,27 +35,28 @@ from .layers import Embed, MLP, RMSNorm, embed, mlp, unembed
 SUPPORTED_KINDS = ("attn", "attn_local", "rglru", "ssd")
 
 _WAITING = {
-    "attn_moe": "the moe block (ROADMAP Queue 1 item 11)",
-    "cross": "cross attention and the encoder (ROADMAP Queue 1 item 11)",
+    "attn_moe": "the moe block (models/moe.py)",
+    "cross": ("cross attention and the encoder "
+              "(attention.cross_attention_block, encode_cross_kv)"),
 }
 
 
 def check_supported(cfg) -> None:
     """Raise NotImplementedError for a configuration this port cannot build
-    yet, naming the ROADMAP item that will port it."""
+    yet, naming the module or function that is missing."""
     for kind in dict.fromkeys(cfg.pattern):
         if kind not in SUPPORTED_KINDS:
             raise NotImplementedError(
                 f"{cfg.name}: block kind {kind!r} is not ported yet; it "
-                f"waits for {_WAITING.get(kind, 'ROADMAP Queue 1 item 11')}")
+                f"needs {_WAITING.get(kind, f'a {kind!r} block')}")
     if cfg.enc_layers:
         raise NotImplementedError(
-            f"{cfg.name}: the encoder is not ported yet; it waits for "
+            f"{cfg.name}: the encoder is not ported yet; it needs "
             f"{_WAITING['cross']}")
     if cfg.vision_patches:
         raise NotImplementedError(
-            f"{cfg.name}: the VLM stub frontend is not ported yet (ROADMAP "
-            f"Queue 1 item 11)")
+            f"{cfg.name}: the VLM stub frontend is not ported yet; it needs "
+            f"the VLM frontend_embeds")
 
 
 def tail_pattern(cfg):

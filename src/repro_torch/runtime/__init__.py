@@ -1,1 +1,2 @@
-"""The serving runtime (counterpart of ``repro.runtime``): the slot server."""
+"""The runtime (counterpart of ``repro.runtime``): the slot server and the
+straggler policy."""

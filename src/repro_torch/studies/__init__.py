@@ -29,9 +29,12 @@ by default (``device="cpu"`` runs the plain PyTorch path):
     reliability bus, and the streamed blame gate;
   * `streaming`        — ``benchmarks/bench_streaming.py``: 1.2M requests
     through 64k-row windows at flat memory, with its equivalence gate;
-  * `link_explorer`, `topology_explorer`, `fabric_trace_viewer` —
-    ``examples/link_explorer.py``, the fabric parts of
-    ``examples/topology_explorer.py``, ``examples/fabric_trace_viewer.py``;
+  * `fabric`           — ``benchmarks/bench_fabric.py``: collective costs
+    on the simulated TPU pod against the alpha-beta model;
+  * `link_explorer`, `topology_explorer`, `fabric_trace_viewer`,
+    `fabric_autotune`, `coherence_fabric_demo`, `link_reliability_demo`,
+    `serve_decode` — ``examples/link_explorer.py``, the fabric parts of
+    ``examples/topology_explorer.py``, and the examples of the same names;
   * `run`              — ``benchmarks/run.py``: the CSV runner over the
     studies above.
 

@@ -312,6 +312,7 @@ def run(quick: bool = False, device="cuda", log=None) -> list[Row]:
             f"cpl_lat={f['cpl_miss_lat_ns']:.0f}ns;"
             f"bisnp_meas={f['bisnp_meas_ns']:.0f}ns;"
             f"bisnp_model={f['bisnp_model_ns']:.0f}ns",
+            meta=r["policies"].get("_meta"),
         ))
     top = sweep[-1]["policies"]
     order = ";".join(f"{p}={top[p]['cpl_miss_lat_ns']:.0f}" for p in policies)
@@ -337,6 +338,8 @@ def run(quick: bool = False, device="cuda", log=None) -> list[Row]:
             f"coherence_fabric/fanout_owners{r['owners']}", t.us,
             f"chain={r['chain_ns']:.0f}ns;conc={r['conc_ns']:.0f}ns;"
             f"div={r['div_ns']:.0f}ns;snooped={r['mean_snooped']:.2f}",
+            meta={"engine_rounds": r["engine_rounds"],
+                  "engine_converged": True},
         ))
     fgate = fanout_gate(fsweep)
     rows.append(Row(
@@ -358,5 +361,6 @@ def run(quick: bool = False, device="cuda", log=None) -> list[Row]:
             f"iso_lat={f['iso_miss_lat_ns']:.0f}ns;"
             f"cpl_lat={f['cpl_miss_lat_ns']:.0f}ns;"
             f"lifo_cpl={res['lifo']['cpl_miss_lat_ns']:.0f}ns",
+            meta=res.get("_meta"),
         ))
     return rows

@@ -9,6 +9,11 @@ in the reference's order.  On the card by default:
 Prints ``name,us_per_call,derived`` CSV, as the reference does: ``derived``
 carries the reproduced quantity and the paper target it validates against.
 A study whose acceptance gate fails raises, and the runner exits non-zero.
+
+The reference's last entry, ``kernels`` (``benchmarks/bench_kernels.py``),
+has no counterpart here: it times each kernel against its plain version,
+which is benchmark work; ``chip_smoke.py`` holds every kernel of the port
+against its plain version on the card.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ MODULES = (
     ("streaming", "repro_torch.studies.streaming"),
     ("traces", "repro_torch.studies.traces"),
     ("coherence_modes", "repro_torch.studies.coherence_modes"),
+    ("fabric", "repro_torch.studies.fabric"),
 )
 
 

@@ -100,6 +100,7 @@ def test_quick_rows_equal_reference(study, monkeypatch):
     got = port_mod.run(quick=True, device="cpu", log=log)
     assert [r.name for r in got] == [r.name for r in ref]
     assert [r.derived for r in got] == [r.derived for r in ref]
+    assert [r.meta for r in got] == [r.meta for r in ref]
     assert not any(r.used_oracle for r in log.runs)
     if study in ("snoop_filter", "invblk"):
         assert len(log.scans) == len(got) - (study == "snoop_filter")

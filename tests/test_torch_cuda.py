@@ -389,7 +389,8 @@ def test_cuda_full_duplex_run_equals_cpu(card, duplex):
 @pytest.mark.cuda
 def test_cuda_rglru_kernel_equals_plain(card):
     """Around the chunk and tile edges and the block width, with a near 1 as
-    the model draws it: bit-equal to the CPU emulation of its chunk carries
+    the model draws it, and the smoke model's short prefills (D 64):
+    bit-equal to the CPU emulation of its chunk carries
     everywhere, and to the plain version while one chunk covers the
     sequence."""
     gen = torch.Generator(device=card).manual_seed(0)
@@ -399,7 +400,7 @@ def test_cuda_rglru_kernel_equals_plain(card):
     for b, s, d in [(1, 1, 1), (3, ch - 1, 255), (1, ch, 256),
                     (2, ch + 1, 257), (1, 5 * ch + 3, 31), (1, 300, 2560),
                     (2, tile - 1, 33), (1, tile + 1, 64),
-                    (1, 3 * tile + ch + 5, 2560)]:
+                    (1, 3 * tile + ch + 5, 2560), (1, 4, 64), (1, 11, 64)]:
         r = torch.rand(b, s, d, generator=gen, device=card)
         a = torch.exp(-8.0 * r * torch.rand(d, generator=gen, device=card)
                       * 0.1)
@@ -464,7 +465,8 @@ def launched(launches, call):
 def test_cuda_flash_tc_kernel_equals_plain(card):
     """The tensor-core kernel (bf16, D a multiple of 16): S around the
     128-row and 64-key tiles, S < T, windows, non-causal, the model's shape
-    (S 4,096, H 10, KV 1, D 256, window 2,048); each call raises the
+    (S 4,096, H 10, KV 1, D 256, window 2,048) and the smoke model's (H 4,
+    KV 1, D 16, window 32, S 11 and 64); each call raises the
     tensor-core counter and not the other.  Float32, and bf16 with D not a
     multiple of 16, take the CUDA-core kernel, held to the same tolerances
     (1e-4 in float32, 2 ulps in bf16)."""
@@ -480,7 +482,8 @@ def test_cuda_flash_tc_kernel_equals_plain(card):
             (2, 2, 3, 129, 129, 64, True, 40),
             (1, 1, 4, 300, 301, 128, False, 0),
             (1, 1, 2, 200, 333, 80, False, 70),
-            (1, 1, 10, 4096, 4096, 256, True, 2048)]:
+            (1, 1, 10, 4096, 4096, 256, True, 2048),
+            (1, 1, 4, 11, 11, 16, True, 32), (1, 1, 4, 64, 64, 16, True, 32)]:
         q, k, v = qkv(b, kv, g, s, t, d, torch.bfloat16)
         out = []
         counts = launched(FA.LAUNCHES, lambda: out.append(

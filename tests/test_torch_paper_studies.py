@@ -210,7 +210,7 @@ def test_run_cli_prints_the_rows(monkeypatch, capsys):
         "validation", "topology", "routing", "snoop_filter", "invblk",
         "full_duplex", "link_layer", "link_reliability", "coherence_fabric",
         "telemetry", "critical_path", "streaming", "traces",
-        "coherence_modes"]
+        "coherence_modes", "fabric"]
     with pytest.raises(SystemExit):
         PRUN.main(["--only", "no_such_study", "--device", "cpu"])
 
@@ -266,6 +266,17 @@ def test_studies_import_no_jax_and_no_reference():
         "import repro_torch.core.critical_path, repro_torch.core.trace_export\n"
         "import repro_torch.core.streaming, repro_torch.studies.streaming\n"
         "import repro_torch.analysis, repro_torch.analysis.verify_smoke\n"
+        "import repro_torch.core.fabric_model, repro_torch.core.autotune\n"
+        "import repro_torch.runtime.straggler, repro_torch.studies.fabric\n"
+        "import repro_torch.studies.fabric_autotune\n"
+        "import repro_torch.studies.coherence_fabric_demo\n"
+        "import repro_torch.studies.link_reliability_demo\n"
+        "import repro_torch.studies.serve_decode\n"
+        "from repro_torch.core.fabric_model import TPUFabric\n"
+        "fab = TPUFabric(2, 2)\n"
+        "repro_torch.runtime.straggler.estimate_step_impact(\n"
+        "    fab, fab.build(), grad_bytes_per_chip=1 << 20,\n"
+        "    slow_factor=2.0, compute_s=0.1, device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or\n"
         "             m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
         "assert not bad, bad\n")
