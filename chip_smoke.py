@@ -80,6 +80,18 @@ paths through them:
   * mamba2-1.3b at its published width (48 SSD layers, d_model 2048,
     1.344 B parameters) behind the same server, prompts of 1 to 16,384
     tokens, whose prefills run the tensor-core SSD chunk kernel (bf16).
+  * the model stack's remaining families at their published widths
+    (phase 5h, after the earlier models are freed): qwen3-moe-30b-a3b
+    (48 MoE layers, 128 experts top 8, 30.2 B parameters) behind the slot
+    server, held token for token against a loop that reproduces the
+    server's batch (a MoE tick routes its slots as one capacity group),
+    with the kept share of (token, choice) pairs of every prefill and
+    tick; whisper-base (6 encoder and 6 cross-attention decoder layers,
+    1,500 seeded encoder frames) and phi-3-vision-4.2b (576 seeded patch
+    embeddings) through prefill and decode, every step against forward;
+    every attention, encoder and cross-attention layer through the
+    tensor-core flash kernel, non-causal and with fewer queries than keys
+    where whisper needs it.
 
 Every study's rows are held against the JAX package's, recorded on the CPU
 as constants below (`STUDY_REF`, `TRACES_REF`, `TELEMETRY_REF`,
@@ -161,9 +173,30 @@ SERVE_PROMPTS = (64, 300, 1024, 2047, 2048, 2049, 3000, 4096)
 SERVE_NEW = 32
 SERVE_SLOTS = 4
 SERVE_MAX_LEN = 4608
+# the tokens of the prefill-against-forward check of the served models
+SERVE_FORWARD_TOKENS = 2304
 # the bf16 tolerance the port's CPU tests hold the model to (against the
 # JAX reference, and the card against the CPU)
 MODEL_TOL = 5e-2
+# phase 5h, the model families at full width
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_PROMPTS = (64, 300, 512, 1024, 1536, 2048, 3072, 4096)
+MOE_FORWARD_TOKENS = 2048
+WHISPER_ARCH = "whisper-base"
+WHISPER_FRAMES = 1500
+WHISPER_PROMPTS = (224, 448)
+VLM_ARCH = "phi-3-vision-4.2b"
+VLM_PROMPTS = (1024, 4096)
+FAMILY_NEW = 32
+# phi-3-vision's decode steps against forward: at its published width the
+# bf16 noise of two forward passes alone exceeds MODEL_TOL's element bound,
+# so its steps are held by their relative RMS error and greedy tokens.  On
+# an H100 (700 W) sound runs read 0.019-0.020 and runs whose decode RoPE
+# positions are one token on read 0.30-0.34 (two on 0.50, eight on 0.64);
+# the limit sits between, with room of about 3.5 and 4.3 times
+VLM_REL_RMS_LIMIT = 0.07
+# what may be allocated on the card when phase 5h starts
+FAMILY_START_BYTES = 4 << 30
 MAMBA_ARCH = "mamba2-1.3b"
 MAMBA_PROMPTS = (1, 100, 128, 129, 1000, 2048, 4096, 16_384)
 MAMBA_MAX_LEN = 16_448
@@ -2434,14 +2467,17 @@ def bf16_within_ulps(torch, got, want, n):
     return ulps <= n, ulps
 
 
-def attn_pairs(s, window, causal=True):
-    """Unmasked (query, key) pairs of one head over S = T = s: the work the
-    masks leave (what this run's inputs need)."""
+def attn_pairs(s, window, causal=True, t=None):
+    """Unmasked (query, key) pairs of one head: the work the masks leave
+    (what this run's inputs need).  S queries against T = ``t`` keys (S by
+    default); the causal mask sees keys 0 .. i from query i, as the kernel
+    aligns it."""
+    t = s if t is None else t
     q = list(range(s))
     if not causal:
-        return s * s if window <= 0 else sum(
-            s - max(0, i - window + 1) for i in q)
-    return sum(i + 1 - (max(0, i - window + 1) if window > 0 else 0)
+        return s * t if window <= 0 else sum(
+            t - max(0, i - window + 1) for i in q)
+    return sum(min(i + 1, t) - (max(0, i - window + 1) if window > 0 else 0)
                for i in q)
 
 
@@ -2451,12 +2487,15 @@ def flops_per_s(elem_bytes):
     return TENSOR_BF16_FLOPS_PER_S if elem_bytes == 2 else SCALAR_OPS_PER_S
 
 
-def flash_bound_ms(b, s, h, kvh, d, window, elem_bytes):
+def flash_bound_ms(b, s, h, kvh, d, window, elem_bytes, causal=True,
+                   t=None):
     """(least time on the card in ms, what bounds it) for one flash call:
     4 * D flops per unmasked pair at the peak rate of the inputs' type,
     against q, k, v read and the output written once at the HBM rate."""
-    flops = FLASH_FLOPS_PER_PAIR_PER_D * d * attn_pairs(s, window) * b * h
-    nbytes = elem_bytes * d * s * b * (2 * h + 2 * kvh)
+    t = s if t is None else t
+    flops = FLASH_FLOPS_PER_PAIR_PER_D * d * attn_pairs(
+        s, window, causal, t) * b * h
+    nbytes = elem_bytes * d * b * (2 * s * h + 2 * t * kvh)
     ops_ms = flops / flops_per_s(elem_bytes) * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
@@ -2489,6 +2528,69 @@ def sdpa_yardsticks(torch, sdpa, qt, kt, vt, s, g):
          flash_causal_pairs=attn_pairs(s, 0) * g)
 
 
+def case_key(c):
+    return tuple(sorted({**c, "t": c.get("t", c["s"])}.items()))
+
+
+def flash_key(q, k, *, causal, window):
+    """What a flash call's result depends on besides its values: q's and
+    k's shapes, the mask and the dtype."""
+    return (tuple(q.shape), tuple(k.shape), bool(causal), int(window),
+            str(q.dtype))
+
+
+def path_flash_cases():
+    """One case for each flash call the script's model paths make, derived
+    from the configurations and the lengths the phases run:
+    recurrentgemma-2b's prefills and forward (phase 8); qwen3-moe-30b-a3b's
+    prefills and forward; whisper-base's encoder over its frames, its
+    decoder's causal self attention and its cross attention at each prompt
+    and at each prompt plus FAMILY_NEW (the teacher-forced forward), and
+    the cross attention of a decode step (one query); phi-3-vision-4.2b's
+    prefills and forward (phase 5h).  serve_decode's calls are listed in
+    `phase_flash_vs_plain`; `flash_shapes` holds every launch to the set
+    checked."""
+    from repro_torch.configs import get_config
+
+    def calls(arch, b, lengths, *, causal=True, t=None, window=0):
+        cfg = get_config(arch)
+        return [dict(b=b, kvh=cfg.n_kv, g=cfg.n_heads // cfg.n_kv,
+                     d=cfg.head_dim, s=s, t=t or s, window=window,
+                     causal=causal) for s in lengths]
+
+    def forced(prompts):
+        return (*prompts, *(n + FAMILY_NEW for n in prompts))
+
+    return [*calls(MODEL_ARCH, 1, (*SERVE_PROMPTS, SERVE_FORWARD_TOKENS),
+                   window=get_config(MODEL_ARCH).window),
+            *calls(MOE_ARCH, 1, (*MOE_PROMPTS, MOE_FORWARD_TOKENS)),
+            *calls(WHISPER_ARCH, SERVE_SLOTS, (WHISPER_FRAMES,),
+                   causal=False),
+            *calls(WHISPER_ARCH, SERVE_SLOTS, forced(WHISPER_PROMPTS)),
+            *calls(WHISPER_ARCH, SERVE_SLOTS, (1, *forced(WHISPER_PROMPTS)),
+                   causal=False, t=WHISPER_FRAMES),
+            *calls(VLM_ARCH, 1, forced(VLM_PROMPTS))]
+
+
+@contextlib.contextmanager
+def flash_shapes(OPS, seen):
+    """While open, every flash launch the model stack makes (through
+    `ops.flash_attention`, which looks the kernel's wrapper up at each
+    call) adds its `flash_key` to ``seen``.  The comparisons of
+    `phase_flash_vs_plain` call the wrapper directly and are not seen."""
+    kernel = OPS.flash_attention_kernel
+
+    def spy(q, k, v, *, causal, window):
+        seen.add(flash_key(q, k, causal=causal, window=window))
+        return kernel(q, k, v, causal=causal, window=window)
+
+    OPS.flash_attention_kernel = spy
+    try:
+        yield
+    finally:
+        OPS.flash_attention_kernel = kernel
+
+
 def phase_flash_vs_plain(torch, FA, FAR):
     """The flash-attention kernels against their plain version: G in {1, 4,
     10}, D in {64, 128, 256}, S = T across the 64- and 128-row tiles and the
@@ -2496,11 +2598,16 @@ def phase_flash_vs_plain(torch, FA, FAR):
     in float32 (the CUDA-core kernel, atol 1e-4) and bf16 (the tensor-core
     kernel, 2 ulps); plus D in {24, 200}, which bf16 takes to the CUDA-core
     kernel (2 ulps); plus serve_decode's shapes (G 4, D 16, window 32, S 4
-    to 11 and 64).  Each call is counted on the kernel it should take, and
-    the worst error is reported per kernel and dtype, over every shape the
-    script's paths launch.  Then each
-    kernel's time at one 4096-token prefill of the model's attention layer
-    in the dtype it serves."""
+    to 11 and 64); plus phi-3-vision's at its 576 patches, and every call
+    of the model paths (`path_flash_cases`: non-causal with S = T and with
+    S < T, H 32 over KV 4, H 8 over KV 8, H 32 over KV 32 at D 96).  Each
+    call is counted on the kernel it should take, and the worst error is
+    reported per kernel and dtype.  Then each kernel's time at one
+    4096-token prefill of recurrentgemma's attention layer in the dtype it
+    serves, and the tensor-core kernel's at a layer of each of phase 5h's
+    models.  Returns the worst errors, the timings and the `flash_key`s
+    held, so that `flash_shapes` can show that the paths launched no other
+    shape."""
     gen = torch.Generator(device="cuda").manual_seed(31)
     cases = [dict(b=1, kvh=1, g=g, d=d, s=s, window=w, causal=True)
              for g in (1, 4, 10) for d in (64, 128, 256)
@@ -2516,14 +2623,23 @@ def phase_flash_vs_plain(torch, FA, FAR):
     # tokens), and a 64-token one that the window cuts
     cases += [dict(b=1, kvh=1, g=4, d=16, s=s, window=32, causal=True)
               for s in (*range(4, 12), 64)]
+    # phi-3-vision's layer at its patch count (H 32, KV 32, D 96 inside
+    # the D-128 tile), then every call the model paths make
+    cases += [dict(b=1, kvh=32, g=1, d=96, s=576, window=0, causal=True)]
+    cases += path_flash_cases()
+    keys = [case_key(c) for c in cases]
+    cases = [c for i, c in enumerate(cases) if case_key(c) not in keys[:i]]
     worst = {"flash_attention": 0.0, "flash_attention_tc": 0.0}
+    # the shapes held, as `flash_shapes` records a launch
+    checked = set()
     # (kernel, dtype) -> [cases, max abs err, max bf16 ulps]
     variants = {}
     for c in cases:
         b, s, h, kvh, d = c["b"], c["s"], c["kvh"] * c["g"], c["kvh"], c["d"]
+        t = c.get("t", s)
         q32, k32, v32 = (torch.randn(shape, generator=gen, device="cuda")
-                         for shape in ((b, s, h, d), (b, s, kvh, d),
-                                       (b, s, kvh, d)))
+                         for shape in ((b, s, h, d), (b, t, kvh, d),
+                                       (b, t, kvh, d)))
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (x.to(dtype) for x in (q32, k32, v32))
             kw = dict(causal=c["causal"], window=c["window"])
@@ -2549,6 +2665,7 @@ def phase_flash_vs_plain(torch, FA, FAR):
                 ok, ulps = bf16_within_ulps(torch, got, want, 2)
                 var[2] = max(var[2] or 0.0, ulps)
                 check(ok, f"{name} != plain (bf16) for {c}: {ulps} ulps")
+            checked.add(flash_key(q, k, **kw))
     for (name, dtype), (n, err, ulps) in sorted(variants.items()):
         emit(phase="kernel_vs_plain", kernel=name, dtype=dtype, cases=n,
              max_abs_err=err, max_ulps_bf16=ulps)
@@ -2594,7 +2711,54 @@ def phase_flash_vs_plain(torch, FA, FAR):
              **timings[name])
         if dtype == torch.bfloat16:
             sdpa_yardsticks(torch, sdpa, qt, kt, vt, s, g)
-    return worst, timings
+    timings["flash_attention_tc"]["model_family_shapes"] = family_timing(
+        torch, FA, FAR, gen)
+    return worst, timings, checked
+
+
+def family_timing(torch, FA, FAR, gen):
+    """The tensor-core kernel at one layer of each of phase 5h's models, in
+    bf16: qwen3-moe's 4,096-token prefill (H 32, KV 4, D 128, causal),
+    whisper's 1,500-frame encoder over a batch of four (H 8, KV 8, D 64,
+    non-causal) and phi-3-vision's 4,096-token prefill (H 32, KV 32, D 96,
+    causal); each against its plain version's time, its bound and SDPA's
+    time for the same function (``is_causal`` with ``enable_gqa`` for the
+    causal rows, no mask for the encoder; a yardstick only, never called
+    on the path)."""
+    rows = []
+    for model, b, s, h, kvh, d, causal in (
+            (MOE_ARCH, 1, 4096, 32, 4, 128, True),
+            (WHISPER_ARCH, 4, WHISPER_FRAMES, 8, 8, 64, False),
+            (VLM_ARCH, 1, 4096, 32, 32, 96, True)):
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16) for shape in ((b, s, h, d), (b, s, kvh, d),
+                                          (b, s, kvh, d)))
+        ms, host_ms = time_cuda(torch, lambda: FA.flash_attention_kernel(
+            q, k, v, causal=causal), 20)
+        plain_ms, _ = time_cuda(torch, lambda: FAR.flash_attention_ref(
+            q, k, v, causal=causal), 3)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+        lib_ms, _ = time_cuda(torch, sdpa, 20)
+        lib_err = float((sdpa().transpose(1, 2).float()
+                         - FA.flash_attention_kernel(
+                             q, k, v, causal=causal).float()).abs().max())
+        bound, by = flash_bound_ms(b, s, h, kvh, d, 0, 2, causal)
+        row = dict(model=model, B=b, S=s, H=h, KV=kvh, D=d, causal=causal,
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   library_ms=lib_ms)
+        emit(phase="kernel_timing", kernel="flash_attention_tc",
+             dtype="bfloat16", window=0, host_ms_per_call=host_ms,
+             unmasked_pairs=attn_pairs(s, 0, causal) * b * h,
+             library="scaled_dot_product_attention ("
+                     + ("is_causal, " if causal else "no mask, ")
+                     + "enable_gqa)", library_max_abs_diff=lib_err, **row)
+        rows.append(row)
+    return rows
 
 
 def rglru_gates(torch, gen, b, s, d):
@@ -2823,16 +2987,49 @@ def manual_greedy(torch, TF, model, prompt, n_new, max_len, rows=1):
     return toks, out
 
 
+def manual_greedy_batch(torch, TF, model, prompts, n_new, max_len):
+    """Greedy tokens of requests admitted together into as many slots, by a
+    manual loop that reproduces the server's batch: each prompt prefilled
+    alone, the caches stacked in slot order, all rows decoded together,
+    each at its own position.  A MoE layer routes a tick's rows as one
+    group, so a row's tokens depend on the others' and only this batch can
+    reproduce them."""
+    caches, toks = [], []
+    for prompt in prompts:
+        logits, cache = TF.prefill(
+            model, torch.as_tensor(prompt[None], device="cuda"), max_len)
+        caches.append(cache)
+        toks.append([int(torch.argmax(logits[0, -1]))])
+    cache = [{name: {leaf: torch.cat([c[i][name][leaf] for c in caches])
+                     for leaf in d} for name, d in layer.items()}
+             for i, layer in enumerate(caches[0])]
+    pos = [len(p) for p in prompts]
+    for _ in range(n_new - 1):
+        logits, cache = TF.decode_step(
+            model, cache,
+            torch.tensor([[t[-1]] for t in toks], dtype=torch.int32,
+                         device="cuda"),
+            torch.tensor([[q] for q in pos], dtype=torch.int32,
+                         device="cuda"))
+        for row, t in enumerate(torch.argmax(logits[:, 0], dim=-1).tolist()):
+            toks[row].append(t)
+            pos[row] += 1
+    return toks
+
+
 def serve_model(np, torch, arch, prompts_len, max_len, kernels,
-                manual_prompts, forward_tokens, seed):
+                manual_prompts, forward_tokens, seed, *, batch_manual=False,
+                around_run=contextlib.nullcontext):
     """One model of the repo at its published width on the card, weights
     from a seeded generator, behind the slot server: one greedy request per
     prompt length, SERVE_NEW new tokens each, SERVE_SLOTS slots.
     ``kernels`` maps each kernel of the model's prefill to (its launch
     counter, the block kind that launches it once per prefill, or None for
     a kernel the run must not launch); the counts are set to 0 just before
-    the run and read just after.  Then the server
-    against a manual prefill + decode loop, prefill against forward, and a
+    the run and read just after; ``around_run()`` is a context entered
+    around the run alone.  Then the server against a manual prefill +
+    decode loop (with ``batch_manual``, the first SERVE_SLOTS requests
+    against `manual_greedy_batch` instead), prefill against forward, and a
     device profile of the longest prefill and of one tick.  Returns the
     launch counts."""
     from repro_torch.configs import get_config
@@ -2882,8 +3079,9 @@ def serve_model(np, torch, arch, prompts_len, max_len, kernels,
             counter[name] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    stats = srv.run(reqs)
-    torch.cuda.synchronize()
+    with around_run():
+        stats = srv.run(reqs)
+        torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {name: counter[name] for name, (counter, _) in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
@@ -2916,8 +3114,21 @@ def serve_model(np, torch, arch, prompts_len, max_len, kernels,
          max_memory_allocated_bytes=peak, init_peak_bytes=init_peak,
          weight_bytes=sum(p.numel() * p.element_size()
                           for p in model.parameters()),
+         params_count=cfg.params_count(),
          **{f"{name}_launches": n for name, n in launches.items()})
 
+    if batch_manual:
+        # the first SERVE_SLOTS requests were admitted together and finish
+        # on one tick: the server's batch, reproduced by hand
+        toks = manual_greedy_batch(torch, TF, model, prompts[:SERVE_SLOTS],
+                                   SERVE_NEW, max_len)
+        for i, t in enumerate(toks):
+            check(t == reqs[i].out,
+                  f"{arch} prompt {prompts_len[i]}: server tokens "
+                  f"{reqs[i].out} != the batch-reproducing loop's {t}")
+        emit(phase="serve_vs_manual", arch=cfg.name, mode="server's batch",
+             prompt_tokens=list(prompts_len[:SERVE_SLOTS]),
+             equal_token_for_token=True)
     # the server's greedy tokens against a manual loop on the port: at the
     # server's batch width, token for token; with one row, equal up to a
     # near tie (a 1-row decode rounds through other matrix shapes)
@@ -2986,7 +3197,8 @@ def phase_model_serve(np, torch, FA, RK):
         {"flash_attention_tc": (FA.LAUNCHES, "attn_local"),
          "flash_attention": (FA.LAUNCHES, None),
          "rglru_scan": (RK.LAUNCHES, "rglru")},
-        manual_prompts=(2049, 4096), forward_tokens=2304, seed=13)
+        manual_prompts=(2049, 4096), forward_tokens=SERVE_FORWARD_TOKENS,
+        seed=13)
 
 
 def phase_model_serve_mamba2(np, torch, SK):
@@ -2998,7 +3210,342 @@ def phase_model_serve_mamba2(np, torch, SK):
         np, torch, MAMBA_ARCH, MAMBA_PROMPTS, MAMBA_MAX_LEN,
         {"ssd_chunk_tc": (SK.LAUNCHES, "ssd"),
          "ssd_chunk": (SK.LAUNCHES, None)},
-        manual_prompts=(129, 4096), forward_tokens=2304, seed=17)
+        manual_prompts=(129, 4096), forward_tokens=SERVE_FORWARD_TOKENS,
+        seed=17)
+
+
+@contextlib.contextmanager
+def counted_routes(MOE, calls):
+    """While open, every MoE routing appends (tokens routed, kept (token,
+    choice) pairs as a device tensor) to ``calls``: `moe.moe_mlp` looks
+    `moe.route` up at each call."""
+    route = MOE.route
+
+    def spy(router, xt, **kw):
+        r = route(router, xt, **kw)
+        calls.append((xt.shape[0] * xt.shape[1], r.keep.sum()))
+        return r
+
+    MOE.route = spy
+    try:
+        yield
+    finally:
+        MOE.route = route
+
+
+def kept_shares(torch, calls, layers, top_k):
+    """The kept share of (token, choice) pairs of each model step (its
+    ``layers`` routings in a row), [(tokens, share)]; of each layer over
+    the prefills and over the ticks (steps of SERVE_SLOTS tokens); and of
+    each layer in each prefill, by its token count."""
+    kept = torch.stack([k for _, k in calls]).cpu().tolist()
+    steps, prefills = [], {}
+    by_layer = {"prefill": [[0, 0] for _ in range(layers)],
+                "tick": [[0, 0] for _ in range(layers)]}
+    for i in range(0, len(calls), layers):
+        t = calls[i][0]
+        steps.append((t, sum(kept[i:i + layers]) / (layers * t * top_k)))
+        if t != SERVE_SLOTS:
+            prefills[t] = [x / (t * top_k) for x in kept[i:i + layers]]
+        side = by_layer["tick" if t == SERVE_SLOTS else "prefill"]
+        for j in range(layers):
+            side[j][0] += kept[i + j]
+            side[j][1] += t * top_k
+    return steps, {k: [a / b for a, b in v] for k, v in by_layer.items()}, \
+        prefills
+
+
+def serve_moe(np, torch, FA, MOE):
+    """qwen3-moe-30b-a3b at its published width (48 ``attn_moe`` layers,
+    128 experts, top 8; 30.2 B parameters, 60.4 GB of seeded random bf16
+    weights) behind the slot server: 8 requests of 64 to 4,096 prompt
+    tokens, each at most one 512-token group or whole groups, every prefill
+    through the tensor-core flash kernel.  The server against a loop that
+    reproduces its first batch, and the kept share of (token, choice)
+    pairs of every prefill and tick (a 4-slot tick is one group with one
+    slot an expert, so pairs are dropped there, as in the reference)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH)
+    calls = []
+    launches = serve_model(
+        np, torch, MOE_ARCH, MOE_PROMPTS, SERVE_MAX_LEN,
+        {"flash_attention_tc": (FA.LAUNCHES, "attn_moe"),
+         "flash_attention": (FA.LAUNCHES, None)},
+        manual_prompts=(), forward_tokens=MOE_FORWARD_TOKENS, seed=19,
+        batch_manual=True,
+        around_run=lambda: counted_routes(MOE, calls))
+    steps, by_layer, by_prefill = kept_shares(torch, calls, cfg.n_layers,
+                                              cfg.moe.top_k)
+    prefills = [share for t, share in steps if t != SERVE_SLOTS]
+    ticks = [share for t, share in steps if t == SERVE_SLOTS]
+    check(len(prefills) == len(MOE_PROMPTS) and all(
+        0 < x <= 1 for x in prefills + ticks),
+        f"{MOE_ARCH}: kept shares {steps}")
+    emit(phase="moe_routing", arch=cfg.name, top_k=cfg.moe.top_k,
+         experts=cfg.moe.n_experts, group=cfg.moe_group,
+         prefill_tokens=list(MOE_PROMPTS), prefill_kept_share=prefills,
+         ticks=len(ticks), tick_kept_share_mean=sum(ticks) / len(ticks),
+         tick_kept_share_min=min(ticks), tick_kept_share_max=max(ticks),
+         tick_kept_share=ticks,
+         prefill_kept_share_by_layer=by_layer["prefill"],
+         prefill_512_kept_share_by_layer=by_prefill[512],
+         tick_kept_share_by_layer=by_layer["tick"])
+    return launches
+
+
+@contextlib.contextmanager
+def attention_rounded_as_reference(A):
+    """While open, the model stack's prefill and forward attention is the
+    reference model's formulation (`attention.plain_attention`: softmax
+    weights rounded to bf16, bf16 products) instead of the flash kernel."""
+    flash = A.flash_attention
+    A.flash_attention = lambda q, k, v, causal=True, window=0: \
+        A.plain_attention(q, k, v, causal=causal, window=window or None)
+    try:
+        yield
+    finally:
+        A.flash_attention = flash
+
+
+def teacher_forced_steps(torch, TF, model, prompt, fe, n_new, max_len,
+                         launched, rel_rms_limit=None, shift=0):
+    """Prefill (with frontend embeddings) and ``n_new`` greedy decode
+    steps, every step's logits against `forward` teacher-forced on the
+    same tokens; the host ms of the prefill and of each step, the launches
+    (``launched()`` reads the count) of the prefill and of all the steps,
+    and whether the model's rule, fixed before the run, holds them
+    (``held``):
+
+    * ``rel_rms_limit`` None: every element within ``MODEL_TOL`` absolute
+      plus relative;
+    * else: each step's relative RMS error at most ``rel_rms_limit``, and
+      its greedy token forward's up to a near tie (within ``2 * (MODEL_TOL
+      + MODEL_TOL * |top|)`` of forward's top logit).
+
+    ``shift`` plants a fault: the decode steps are given RoPE positions
+    that many tokens on (the cache slots stay right), a run the rule must
+    refuse.  Reported beside it, and never used to judge: the bf16 noise
+    floor, the spread of two forward passes of the same function
+    (attention rounded as the reference's) that differ only in their
+    matrix products' row counts (one token less)."""
+    from repro_torch.models import attention as A
+
+    b, n = prompt.shape
+    c0 = launched()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = TF.prefill(model, prompt, max_len, frontend_embeds=fe)
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    c1 = launched()
+    rows, fed, step_ms = [logits[:, -1]], [], []
+    for i in range(n_new):
+        fed.append(tok)
+        t0 = time.perf_counter()
+        logits, cache = TF.decode_step(
+            model, cache, tok[:, None].to(torch.int32),
+            torch.full((b, 1), n + i + shift, dtype=torch.int32,
+                       device=prompt.device))
+        tok = torch.argmax(logits[:, 0], dim=-1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        rows.append(logits[:, 0])
+    c2 = launched()
+    del cache
+    seq = torch.cat([prompt, torch.stack(fed, dim=1).to(prompt.dtype)], 1)
+    want = TF.forward(model, seq, frontend_embeds=fe).float()[:, n - 1:]
+    got = torch.stack(rows, dim=1).float()
+
+    def excess(x, y):
+        return (x - y).abs() - (MODEL_TOL + MODEL_TOL * y.abs())
+
+    over = excess(got, want)
+    with attention_rounded_as_reference(A):
+        full = TF.forward(model, seq, frontend_embeds=fe).float()
+        short = TF.forward(model, seq[:, :-1], frontend_embeds=fe).float()
+    floor = excess(short[:, n - 1:], full[:, n - 1:-1])
+    del full, short
+    rel = ((got - want).square().mean(dim=-1).sqrt()
+           / want.square().mean(dim=-1).sqrt())
+    top = want.amax(dim=-1)
+    picked = got.argmax(dim=-1, keepdim=True)
+    gap = top - want.gather(-1, picked)[..., 0]
+    near = gap <= 2 * (MODEL_TOL + MODEL_TOL * top.abs())
+    nan = bool(torch.isnan(got).any())
+    if rel_rms_limit is None:
+        held = not nan and float(over.max()) <= 0
+    else:
+        held = (not nan and float(rel.max()) <= rel_rms_limit
+                and bool(near.all()))
+    out = dict(prefill_ms=prefill_ms, step_ms=step_ms,
+               prefill_launches=c1 - c0, decode_launches=c2 - c1,
+               rule="element bound" if rel_rms_limit is None
+               else "relative RMS and greedy tokens",
+               rel_rms_limit=rel_rms_limit, rope_shift=shift, held=held,
+               max_abs_err_vs_forward=float((got - want).abs().max()),
+               max_abs_err_by_step=(got - want).abs().amax(
+                   dim=(0, 2)).tolist(),
+               worst_excess_over_bound=float(over.max()),
+               elements_over_bound=int((over > 0).sum()),
+               elements=over.numel(),
+               noise_floor_worst_excess_over_bound=float(floor.max()),
+               noise_floor_elements_over_bound=int((floor > 0).sum()),
+               max_rel_rms_err=float(rel.max()),
+               rel_rms_err_by_step=rel.amax(dim=0).tolist(),
+               greedy_tokens_differing=int((gap > 0).sum()),
+               greedy_tokens_beyond_a_near_tie=int((~near).sum()),
+               largest_gap_of_a_differing_token=float(gap.max()),
+               largest_logit=float(want.abs().max()))
+    emit(phase="teacher_forced", arch=model.cfg.name, prompt_tokens=n,
+         batch=b, **{k: v for k, v in out.items() if k != "step_ms"})
+    return out
+
+
+def decode_family(np, torch, FA, arch, prompts, batch, n_embeds, seed,
+                  rel_rms_limit=None, profile_prompt=None):
+    """One model at its published width on the card, driven through
+    `prefill(..., frontend_embeds=)` and `decode_step` (whisper's slot
+    server refuses it, as the reference's cannot serve it; phi-3-vision's
+    server takes no patch embeddings): ``batch`` rows of each prompt
+    length with seeded frontend embeddings of ``n_embeds`` rows (at the
+    embedding table's scale), FAMILY_NEW greedy steps, every step's logits
+    against forward by the model's rule (`teacher_forced_steps`), and the
+    same rule refusing a run with a planted fault.  Returns the flash
+    kernels' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.runtime.server import Server
+
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = TF.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if cfg.enc_layers:
+        try:
+            Server(model, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, f"{arch}: the slot server took an enc-dec model")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    max_len = max(prompts) + FAMILY_NEW + 1
+
+    def inputs(n):
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, n)),
+                                 device="cuda")
+        fe = (torch.randn((batch, n_embeds, cfg.d_model), generator=gen,
+                          device="cuda") * cfg.d_model ** -0.5).to(
+            torch.bfloat16)
+        return prompt, fe
+
+    runs = [inputs(n) for n in prompts]
+    # warm up (not part of the run): the first calls of each shape load the
+    # libraries' GEMM kernels and grow the allocator's pool
+    for prompt, fe in runs:
+        _, cache = TF.prefill(model, prompt, max_len, frontend_embeds=fe)
+        TF.decode_step(model, cache, prompt[:, :1].to(torch.int32),
+                       torch.full((batch, 1), prompt.shape[1],
+                                  dtype=torch.int32, device="cuda"))
+    del cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in FA.LAUNCHES:
+        FA.LAUNCHES[name] = 0
+    results = [teacher_forced_steps(
+        torch, TF, model, prompt, fe, FAMILY_NEW, max_len,
+        lambda: FA.LAUNCHES["flash_attention_tc"], rel_rms_limit)
+        for prompt, fe in runs]
+    # the serving runs' launches (the forward passes that check them come
+    # after each run's count is read)
+    launches = {"flash_attention_tc": sum(
+        r["prefill_launches"] + r["decode_launches"] for r in results),
+        "flash_attention": FA.LAUNCHES["flash_attention"]}
+    peak = torch.cuda.max_memory_allocated()
+    per_prefill = cfg.n_layers + (cfg.n_layers + cfg.enc_layers
+                                  if cfg.enc_layers else 0)
+    per_step = cfg.n_layers if cfg.enc_layers else 0
+    for n, r in zip(prompts, results):
+        check(r["prefill_launches"] == per_prefill
+              and r["decode_launches"] == per_step * FAMILY_NEW,
+              f"{arch} prompt {n}: {r['prefill_launches']} launches in the "
+              f"prefill ({per_prefill} expected), {r['decode_launches']} in "
+              f"{FAMILY_NEW} steps ({per_step} a step expected)")
+    check(launches["flash_attention"] == 0,
+          f"{arch} launched the CUDA-core flash kernel")
+    for n, r in zip(prompts, results):
+        check(r["held"], f"{arch} prompt {n}: prefill and decode logits vs "
+                         f"forward: {r}")
+    # the control: the same rule refuses decode steps whose RoPE positions
+    # are one token on (after the counts are read)
+    planted = teacher_forced_steps(
+        torch, TF, model, *runs[0], FAMILY_NEW, max_len,
+        lambda: FA.LAUNCHES["flash_attention_tc"], rel_rms_limit, shift=1)
+    check(not planted["held"], f"{arch}: the rule held decode steps with "
+                               f"their RoPE positions one on: {planted}")
+    steps = sorted(x for r in results for x in r["step_ms"])
+    emit(phase="model_serve", arch=cfg.name,
+         layers=cfg.n_layers, encoder_layers=cfg.enc_layers,
+         d_model=cfg.d_model, params=sum(p.numel()
+                                         for p in model.parameters()),
+         params_count=cfg.params_count(), init_s=init_s, batch=batch,
+         frontend_embeds=n_embeds, prompt_tokens=list(prompts),
+         new_tokens=FAMILY_NEW,
+         prefill_ms=[r["prefill_ms"] for r in results],
+         decode_ms_per_step_mean=sum(steps) / len(steps),
+         decode_ms_per_step_median=steps[len(steps) // 2],
+         decode_ms_per_step_min=steps[0], decode_ms_per_step_max=steps[-1],
+         max_abs_err_vs_forward=[r["max_abs_err_vs_forward"]
+                                 for r in results],
+         max_memory_allocated_bytes=peak,
+         weight_bytes=sum(p.numel() * p.element_size()
+                          for p in model.parameters()),
+         flash_attention_tc_launches=launches["flash_attention_tc"],
+         flash_attention_launches=launches["flash_attention"],
+         launches_per_prefill=per_prefill, launches_per_step=per_step)
+    if profile_prompt is not None:
+        prompt, fe = runs[prompts.index(profile_prompt)]
+        emit(phase="device_profile", arch=cfg.name,
+             workload=f"prefill_{profile_prompt}",
+             **profile_device(torch, lambda: TF.prefill(
+                 model, prompt, max_len, frontend_embeds=fe)))
+    return launches
+
+
+def phase_model_families(np, torch, FA, MOE):
+    """Phase 5h: the model stack's remaining families at their published
+    widths, after the earlier models are freed: qwen3-moe-30b-a3b behind
+    the slot server, whisper-base (four requests of 224 decoder tokens,
+    then four of 448, each with 1,500 encoder frames) and phi-3-vision-4.2b
+    (prompts of 1,024 and 4,096 tokens whose first 576 embeddings are
+    patches) through prefill and decode.  Returns the flash kernels'
+    launches over the three."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    check(start < FAMILY_START_BYTES,
+          f"{start} bytes still allocated when phase 5h starts")
+    t0 = time.perf_counter()
+    total = {name: 0 for name in FA.LAUNCHES}
+    runs = ((serve_moe, (np, torch, FA, MOE)),
+            (decode_family, (np, torch, FA, WHISPER_ARCH, WHISPER_PROMPTS,
+                             SERVE_SLOTS, WHISPER_FRAMES, 23)),
+            (decode_family, (np, torch, FA, VLM_ARCH, VLM_PROMPTS, 1,
+                             576, 29, VLM_REL_RMS_LIMIT, 4096)))
+    for fn, args in runs:
+        for name, n in fn(*args).items():
+            total[name] += n
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(phase="model_families", host_s=time.perf_counter() - t0,
+         allocated_at_start_bytes=start,
+         **{f"{name}_launches": n for name, n in total.items()})
+    return total
 
 
 def main() -> int:
@@ -3018,6 +3565,8 @@ def main() -> int:
     import repro_torch.core as P
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as FA, ref as FAR
+    from repro_torch.kernels.flash_attention import ops as FAO
+    from repro_torch.models import moe as MOE
     from repro_torch.kernels.rglru_scan import kernel as RK, ref as RR
     from repro_torch.kernels.flit_pack import kernel as FK, ref as FR
     from repro_torch.kernels.flit_pack.ops import MAX_PAYLOAD_B
@@ -3099,7 +3648,8 @@ def main() -> int:
     worst_depart, depart_timings = phase_depart_vs_plain(torch, LK, LR)
     worst_flit, flit_timings = phase_flit_vs_plain(
         np, torch, FK, FR, MAX_PAYLOAD_B, P.link_layer.MAX_REPLAY_PPM)
-    worst_flash, flash_timings = phase_flash_vs_plain(torch, FA, FAR)
+    worst_flash, flash_timings, flash_checked = phase_flash_vs_plain(
+        torch, FA, FAR)
     worst_rglru, rglru_timing = phase_rglru_vs_plain(torch, RK, RR)
     worst_ssd, ssd_timings = phase_ssd_vs_plain(torch, SK, SR)
     worst_sf = phase_sf_vs_plain(np, torch, PS, SFK, SFR)
@@ -3111,6 +3661,11 @@ def main() -> int:
                                 topology.FLOOD_IV_PS, device="cuda")
     P.simulate(tiny.hops, tiny.channels, tiny.issue_ps)
     torch.cuda.synchronize()
+
+    # from here on, the shape of every flash launch of the paths
+    flash_launched = set()
+    paths = contextlib.ExitStack()
+    paths.enter_context(flash_shapes(FAO, flash_launched))
 
     # phases 3-4: the main path, with the launch counts read around it
     K.LAUNCHES["serve_round"] = 0
@@ -3449,6 +4004,14 @@ def main() -> int:
     emit(phase="link_explorer", grid=grid.tolist(),
          max_abs_diff_vs_cpu=float(np.abs(grid - cpu_grid).max()))
 
+    # the simulator phases' tables and schedules are not read again: free
+    # them for the models
+    del runs, logs, paper, paper_logs, coherence, cases
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="memory_before_models",
+         allocated_bytes=torch.cuda.memory_allocated())
+
     # phase 8: the model stack's serving path at full width (the flash
     # attention and RG-LRU scan kernels' path)
     rg_launches = phase_model_serve(np, torch, FA, RK)
@@ -3463,6 +4026,21 @@ def main() -> int:
     ssd_launches = phase_model_serve_mamba2(np, torch, SK)
     check(ssd_launches["ssd_chunk_tc"] > 0,
           "the served model never launched ssd_chunk_tc")
+
+    # phase 5h: the model families (MoE, encoder-decoder, VLM stub) at full
+    # width, after mamba2-1.3b's weights and caches are freed; the flash
+    # counts read around each model's run
+    family_launches = phase_model_families(np, torch, FA, MOE)
+    check(family_launches["flash_attention_tc"] > 0
+          and family_launches["flash_attention"] == 0,
+          f"the model families' flash launches: {family_launches}")
+    paths.close()
+    # every flash shape the paths launched was held to the plain version
+    unchecked = sorted(flash_launched - flash_checked)
+    check(not unchecked, f"flash shapes launched but never held to the "
+                         f"plain version: {unchecked}")
+    emit(phase="flash_shapes_on_path", launched=len(flash_launched),
+         held_to_plain=len(flash_launched), checked=len(flash_checked))
 
     main_k = 268_800
     t = timings[main_k]
@@ -3499,7 +4077,8 @@ def main() -> int:
                source=f"src/repro_torch/kernels/flash_attention/csrc/"
                       f"{name}.cu",
                replaces="src/repro/kernels/flash_attention/kernel.py:93",
-               launches=rg_launches[name] + decode_launches[name],
+               launches=rg_launches[name] + decode_launches[name]
+               + family_launches[name],
                max_abs_err=worst_flash[name],
                **flash_timings[name],
                shape=f"B1 S4096 H10 KV1 D256 window 2048 {dtype}")

@@ -4,9 +4,8 @@ A copy of ``repro/configs/base.py``, kept here because the port imports
 nothing of the JAX package: every architecture is a module in
 `repro_torch.configs` exposing ``CONFIG`` (an ArchConfig with the exact
 published dimensions) and ``SMOKE`` (the reduced same-family config the CPU
-tests use).  The port's model stack builds the block kinds ``attn``,
-``attn_local``, ``rglru`` and ``ssd``; building any other raises
-``NotImplementedError`` (`repro_torch.models.transformer`).
+tests use).  The port's model stack builds every block kind of the
+pattern (`repro_torch.models.transformer`).
 """
 
 from __future__ import annotations

@@ -9,6 +9,12 @@ from a seeded generator, on the card by default:
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-2b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-30b-a3b --device cpu
+
+It runs for every architecture the reference's launcher runs: whisper-base
+is refused (`runtime.server.Server` takes no encoder-decoder model; the
+reference's launcher fails on it at the first prefill).
 """
 
 from __future__ import annotations

@@ -24,7 +24,14 @@ blocks to the reference model at bf16 tolerance.
 
 Decode writes the new key and value into the ring cache in place (an
 index write, exact like the reference's one-hot mix) and returns the same
-tensors in the new cache.  Cross attention waits for the whisper slice.
+tensors in the new cache.
+
+Cross attention (whisper's decoder): `encode_cross_kv` projects the encoder
+output once into a layer's keys and values, and `cross_attention_block`
+attends the decoder's S queries to its T = ``enc_frames`` keys through the
+flash kernel, non-causal, in every mode (S = 1 in decode).  The reference
+uses ``plain_attention`` there, with the same bf16 rounding of the softmax
+weights as above, which the kernel does not make.
 """
 
 from __future__ import annotations
@@ -202,3 +209,29 @@ def attention_block(p: Attention, x, positions, cfg, *, mode, cache=None,
                      "len": torch.full((b,), s, dtype=torch.int32,
                                        device=x.device)}
     return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (enc-dec decoders, e.g. whisper)
+# ---------------------------------------------------------------------------
+
+def cross_attention_block(p: Attention, x, enc_kv, cfg):
+    """x: decoder states (B, S, D); enc_kv: dict(k, v), each (B, T, KV, hd),
+    from `encode_cross_kv`.  Non-causal over the encoder positions, no RoPE
+    on the queries, through `flash_attention`, which takes S <= T: a
+    decoder prompt longer than the encoder's T (1,500 frames for whisper)
+    is refused.  Returns the block's output (B, S, D)."""
+    n_heads, hd = cfg.n_heads, cfg.head_dim
+    b, s, _ = x.shape
+    q = (x @ p.wq).reshape(b, s, n_heads, hd)
+    out = flash_attention(q, enc_kv["k"], enc_kv["v"], causal=False)
+    return out.reshape(b, s, n_heads * hd) @ p.wo
+
+
+def encode_cross_kv(p: Attention, enc_out, cfg):
+    """Project the encoder output (B, T, D) once into this layer's cross
+    keys and values, (B, T, KV, hd) each."""
+    b, t, _ = enc_out.shape
+    k = (enc_out @ p.wk).reshape(b, t, cfg.n_kv, cfg.head_dim)
+    v = (enc_out @ p.wv).reshape(b, t, cfg.n_kv, cfg.head_dim)
+    return {"k": k, "v": v}

@@ -6,7 +6,12 @@ finished sequences free their slot and queued requests are prefilled into
 it (continuous batching at slot granularity).  Sampling: greedy, or
 temperature with an explicit ``torch.Generator`` (its draws differ from
 ``jax.random``'s, so only greedy runs can match the reference token for
-token).
+token).  It serves every decoder-only configuration, MoE and phi-3-vision
+(on its tokens alone, with no patch embeddings) included, as the
+reference's does; it refuses an encoder-decoder configuration, which the
+reference's cannot serve either (its prefill passes no frame embeddings).
+A MoE model's decode tick routes all slots as one group, so a slot's tokens
+can depend on the others' (the capacity is shared, as in the reference).
 
 `Server.run` also returns the host time of each admission (prefill and
 first sample) and of each tick (decode step and sample); both end in a
@@ -36,6 +41,13 @@ class Request:
 class Server:
     def __init__(self, model, *, slots: int = 4, max_len: int = 256,
                  temperature: float = 0.0, seed: int = 0):
+        if model.cfg.enc_layers:
+            raise ValueError(
+                f"{model.cfg.name} is an encoder-decoder model: the slot "
+                f"server prefills tokens alone, and the reference's Server "
+                f"cannot serve it either (its prefill passes no "
+                f"frontend_embeds); call transformer.prefill(..., "
+                f"frontend_embeds=) and decode_step directly")
         self.model = model
         self.cfg = model.cfg
         self.device = model.device

@@ -3,8 +3,9 @@ versions, the engine (one run and a stacked sweep), adaptive routing, a
 Fig. 16/17 study, `simulate_coupled`, `telemetry.fabric_metrics` and the
 critical-path replay (`critical_path.extract_backpointers`, with its paths,
 blame and trace) run on the card against the same on the CPU, and the smoke
-models of recurrentgemma-2b and mamba2-1.3b (prefill
-and decode) on the card against the same models on the CPU.
+models of recurrentgemma-2b, mamba2-1.3b, qwen3-moe-30b-a3b, whisper-base
+and phi-3-vision-4.2b (prefill and decode) on the card against the same
+models on the CPU.
 
 Every test here is marked ``cuda`` and skips without a card (the CUDA
 kernel has no CPU mode).  The file imports neither JAX nor the reference
@@ -59,6 +60,7 @@ from repro_torch.kernels.serve_round.ref import (random_maps,  # noqa: E402
                                                  random_round,
                                                  serve_round_ref,
                                                  serve_scan_plain)
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
 
 
@@ -921,3 +923,125 @@ def test_cuda_stream_equals_monolithic_and_cpu(card, family):
     assert gres.oracle_windows == 0 and gres.carried_peak > 0
     replays = gres.windows if family == "rel" else 0
     assert glaunch == gres.rounds + replays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_cross_and_d96_equal_plain(card, dtype):
+    """The model families' new cases: non-causal with fewer queries than
+    keys (whisper's cross attention, S 1 in decode) and head dim 96 inside
+    the D-128 tile (phi-3-vision), causal with G 1 and G 8; each call on
+    the kernel its dtype and head dim select."""
+    gen = torch.Generator(device=card).manual_seed(2)
+    for b, kv, g, s, t, d, causal in [
+            (2, 4, 1, 1, 300, 64, False), (2, 4, 1, 7, 300, 64, False),
+            (2, 4, 1, 100, 300, 64, False), (1, 4, 1, 300, 300, 64, False),
+            (1, 2, 1, 65, 65, 96, True), (1, 4, 1, 300, 300, 96, True),
+            (1, 1, 8, 200, 200, 128, True), (1, 2, 2, 70, 131, 96, False)]:
+        q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
+                   for shape in ((b, s, kv * g, d), (b, t, kv, d),
+                                 (b, t, kv, d)))
+        out = []
+        counts = launched(FA.LAUNCHES, lambda: out.append(
+            FA.flash_attention_kernel(q, k, v, causal=causal)))
+        tc = FA.uses_tensor_cores(dtype, d)
+        assert counts == {"flash_attention": int(not tc),
+                          "flash_attention_tc": int(tc)}, (s, t, d)
+        want = flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            assert torch.allclose(out[0], want, atol=1e-4, rtol=1e-4), (s, d)
+        else:
+            assert bf16_within_ulps(out[0], want, 2), (s, t, d)
+
+
+def _family_run(model, toks, fe, calls, n_steps=3):
+    """Prefill and ``n_steps`` teacher-forced decode steps: the logits of
+    each, and how many routings (`calls`) each step made."""
+    dev = model.device
+    n = toks.shape[1] - n_steps
+    logits, cache = TF.prefill(model, toks[:, :n].to(dev), 64,
+                               frontend_embeds=(None if fe is None
+                                                else fe.to(dev)))
+    out, ends = [logits[:, 0].float().cpu()], [len(calls)]
+    for i in range(n_steps):
+        logits, cache = TF.decode_step(
+            model, cache, toks[:, n + i:n + i + 1].to(dev),
+            torch.full((toks.shape[0], 1), n + i, dtype=torch.int32,
+                       device=dev))
+        out.append(logits[:, 0].float().cpu())
+        ends.append(len(calls))
+    return out, ends
+
+
+def family_models_agree(arch, dev, monkeypatch):
+    """``arch``'s smoke model on ``dev`` against the CPU: a 12-token prefill
+    of two rows (with the frontend embeddings it takes) and three decode
+    steps, logits at ``5e-2``; returns the flash launches on ``dev``.  A
+    MoE routing that differs must be a near tie (K-th and (K+1)-th
+    probabilities within 0.02), and a row is held only until one of its
+    tokens is routed otherwise (from then on its logits may differ by more
+    than the tolerance)."""
+    cfg = get_smoke_config(arch)
+    cpu = TF.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    other = TF.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu").to(dev)
+    rng = np.random.default_rng(1)
+    b, n = 2, 12
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, n + 3)))
+    fe = None
+    if cfg.enc_layers or cfg.vision_patches:
+        rows = cfg.enc_frames if cfg.enc_layers else cfg.vision_patches
+        fe = torch.from_numpy(rng.normal(0, 1, (b, rows, cfg.d_model))).to(
+            torch.bfloat16)
+    calls = {"dev": [], "cpu": []}
+    route = MOE.route
+    side = ["dev"]
+
+    def spy(router, xt, **kw):
+        calls[side[0]].append(route(router, xt, **kw))
+        return calls[side[0]][-1]
+
+    monkeypatch.setattr(MOE, "route", spy)
+    before = dict(FA.LAUNCHES)
+    got, ends = _family_run(other, toks, fe, calls["dev"])
+    launches = {k: FA.LAUNCHES[k] - before[k] for k in before}
+    side[0] = "cpu"
+    want, _ = _family_run(cpu, toks, fe, calls["cpu"])
+    held = torch.ones(b, dtype=torch.bool)
+    start = 0
+    for step, end in enumerate(ends):
+        for r, q in zip(calls["dev"][start:end], calls["cpu"][start:end]):
+            moved = (torch.sort(r.experts.cpu(), dim=-1).values
+                     != torch.sort(q.experts, dim=-1).values).any(dim=-1)
+            top = torch.sort(q.probs, dim=-1, descending=True).values
+            gap = top[..., cfg.moe.top_k - 1] - top[..., cfg.moe.top_k]
+            assert not bool(moved.any()) or float(gap[moved].max()) < 0.02
+            # tokens are routed row-major: (row, position) flattened
+            held &= ~moved.reshape(b, -1).any(dim=-1)
+        start = end
+        assert torch.allclose(got[step][held], want[step][held], atol=5e-2,
+                              rtol=5e-2), (arch, step)
+        assert not bool(torch.isnan(got[step]).any())
+    return launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "whisper-base",
+                                  "phi-3-vision-4.2b"])
+def test_cuda_family_model_equals_cpu(card, arch, monkeypatch):
+    """The model families' smoke models on the card against the CPU
+    (`family_models_agree`), and the card's flash launches: one per
+    attention layer of the prefill (whisper: also each encoder and each
+    cross-attention layer) and one per cross-attention layer a decode
+    step, on the kernel bf16 at the model's head dim selects."""
+    cfg = get_smoke_config(arch)
+    launches = family_models_agree(arch, card, monkeypatch)
+    per_prefill = cfg.n_layers + (cfg.n_layers + cfg.enc_layers
+                                  if cfg.enc_layers else 0)
+    per_step = cfg.n_layers if cfg.enc_layers else 0
+    name = ("flash_attention_tc"
+            if FA.uses_tensor_cores(torch.bfloat16, cfg.head_dim)
+            else "flash_attention")
+    assert launches == {n: (per_prefill + 3 * per_step) * (n == name)
+                        for n in launches}, launches

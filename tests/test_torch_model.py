@@ -328,26 +328,28 @@ def test_dense_attn_model_equals_reference(arch):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_unported_block_kinds_raise(arch):
-    """A configuration the port cannot build yet raises, naming what is
-    missing: the moe block's module, the cross-attention functions or the
-    VLM frontend."""
+    """Every architecture builds, prefills and decodes at smoke size (whisper
+    with frame embeddings, phi-3-vision with patch embeddings): no block
+    kind of any configuration is left unported, and only a kind no
+    configuration has raises, naming it."""
     cfg = get_smoke_config(arch)
-    unported = (set(cfg.pattern) - set(TF.SUPPORTED_KINDS)
-                or cfg.enc_layers or cfg.vision_patches)
     gen = torch.Generator().manual_seed(0)
-    if unported:
-        missing = ("models/moe.py" if "attn_moe" in cfg.pattern
-                   else "cross_attention_block" if "cross" in cfg.pattern
-                   else "frontend_embeds")
-        with pytest.raises(NotImplementedError, match=missing):
-            TF.init_params(cfg, gen, device="cpu")
-        with pytest.raises(NotImplementedError, match=missing):
-            TF.init_cache(cfg, 1, 16, device="cpu")
-    else:
-        model = TF.init_params(cfg, gen, device="cpu")
-        logits, _ = TF.prefill(model, torch.zeros(1, 3, dtype=torch.int64),
-                               16)
-        assert not bool(torch.isnan(logits).any())
+    model = TF.init_params(cfg, gen, device="cpu")
+    fe = None
+    if cfg.enc_layers or cfg.vision_patches:
+        n = cfg.enc_frames if cfg.enc_layers else cfg.vision_patches
+        fe = torch.randn((1, n, cfg.d_model), generator=gen).to(
+            torch.bfloat16)
+    toks = torch.zeros(1, 9, dtype=torch.int64)
+    logits, cache = TF.prefill(model, toks, 16, frontend_embeds=fe)
+    assert [set(c) for c in cache] == [set(c) for c in TF.init_cache(
+        cfg, 1, 16, device="cpu")]
+    logits, _ = TF.decode_step(model, cache, toks[:, :1],
+                               torch.full((1, 1), 9, dtype=torch.int32))
+    assert not bool(torch.isnan(logits).any())
+    bogus = f"{cfg.pattern[0]}_bogus"
+    with pytest.raises(ValueError, match=bogus):
+        TF.Block(bogus, cfg, gen, device=torch.device("cpu"))
 
 
 def test_cache_layout_and_conversion_roundtrip(both, tokens):
