@@ -92,6 +92,16 @@ paths through them:
     every attention, encoder and cross-attention layer through the
     tensor-core flash kernel, non-causal and with fewer queries than keys
     where whisper needs it.
+  * training on the card (phase 5i, after phase 5h's models are freed):
+    the flash-attention backward kernel and the RG-LRU scan's reverse mode
+    against their plain versions (and timed against their bounds and
+    SDPA's backward); one full-width recurrentgemma-2b period's loss and
+    every gradient leaf on the card against the host CPU; recurrentgemma-2b
+    at full width (26 layers, AdamW state, 4,096 tokens a step) through
+    `Trainer.fit` for 10 steps held to a loss rule fixed from a probe, and
+    the same at lr 0, which the rule must refuse; the 100m preset's
+    checkpoint resume, bit for bit; mamba2's train step refused (its SSD
+    kernel has no backward yet).
 
 Every study's rows are held against the JAX package's, recorded on the CPU
 as constants below (`STUDY_REF`, `TRACES_REF`, `TELEMETRY_REF`,
@@ -197,6 +207,54 @@ FAMILY_NEW = 32
 VLM_REL_RMS_LIMIT = 0.07
 # what may be allocated on the card when phase 5h starts
 FAMILY_START_BYTES = 4 << 30
+# phase 5i, training: recurrentgemma-2b at full width, one period on
+# PERIOD_TOKENS tokens on the card against the host CPU, then TRAIN_STEPS
+# steps of one row of TRAIN_TOKENS tokens (train_4k's length; its global
+# batch of 256 cut to 1 and its steps to 10) through `Trainer.fit`, once at
+# TRAIN_LR and once, as the planted fault the loss rule must refuse, at lr
+# 0; the 100m preset's resume on TRAIN_100M_BATCH x TRAIN_100M_SEQ
+PERIOD_TOKENS = 512
+TRAIN_TOKENS = 4096
+TRAIN_STEPS = 10
+TRAIN_LR = 1e-3
+TRAIN_WARMUP = 2
+TRAIN_100M_BATCH = 8
+TRAIN_100M_SEQ = 256
+# the flash backward kernel against its plain version on the same inputs
+# (q, k, v, dO, the forward kernel's bf16 output and LSE; float32):
+# |got - want| <= FLASH_BWD_ULPS bf16 spacings of want plus FLASH_BWD_REL
+# of the tensor's largest |want| (the bf16 rounding of the outputs, and the
+# float32 sums taken in another order over up to 4,096 keys and 10 heads).
+# Against autograd through the plain forward in float32 the same bound is
+# widened by the plain backward's own distance from autograd: delta =
+# rowsum(dO O) reads the stored bf16 output, as FlashAttention-2's does,
+# where autograd differentiates the float32 softmax (measured on an NVIDIA
+# H100 80GB HBM3 at 700 W: dq and dk at 2.4 and 2.6 times the unwidened
+# bound; the plain backward with the bf16 output at 2.1, with a float32
+# output at 0.22)
+FLASH_BWD_ULPS = 2
+FLASH_BWD_REL = 1e-3
+# and an absolute floor for float32 cancellation: a row that sees one key
+# has dS = P (dO . V - dO . O) = 0 in exact arithmetic, about 1e-7 of
+# rounding in both versions (1.7e-7 measured on the same card)
+FLASH_BWD_ATOL = 1e-5
+# the forward's base-2 log-sum-exp against the plain version's (values up
+# to about 20; ex2.approx and another order of the float32 row sums)
+FLASH_LSE_ATOL = 1e-3
+# the RG-LRU adjoint against the plain reverse walk: the chunk carries
+# round otherwise, and the adjoint sums g over about 1 / (1 - a) steps
+# (values to a few hundred), so the bound is relative to the largest
+RGLRU_BWD_REL = 1e-5
+# one full-width period on the card against the host CPU: the loss within
+# MODEL_TOL, and each gradient leaf within PERIOD_GRAD_REL in relative L2
+# norm (bf16 products summed in another order, the kernels' float32
+# softmax and chunked scan, bf16 gradients)
+PERIOD_GRAD_REL = 5e-2
+# the 10-step run's loss rule, fixed from a probe run (NVIDIA H100 80GB
+# HBM3, 700 W: at lr 1e-3 the loss went 12.93 -> 5.68, at lr 0 it stayed
+# within 12.91-12.98): the last loss at least this far (nats) below the
+# first
+TRAIN_LOSS_DROP = 2.0
 MAMBA_ARCH = "mamba2-1.3b"
 MAMBA_PROMPTS = (1, 100, 128, 129, 1000, 2048, 4096, 16_384)
 MAMBA_MAX_LEN = 16_448
@@ -2547,9 +2605,11 @@ def path_flash_cases():
     decoder's causal self attention and its cross attention at each prompt
     and at each prompt plus FAMILY_NEW (the teacher-forced forward), and
     the cross attention of a decode step (one query); phi-3-vision-4.2b's
-    prefills and forward (phase 5h).  serve_decode's calls are listed in
-    `phase_flash_vs_plain`; `flash_shapes` holds every launch to the set
-    checked."""
+    prefills and forward (phase 5h); the training phase's
+    recurrentgemma-2b period on PERIOD_TOKENS (its 4,096-token steps are
+    among the prefills) and the 100m preset's batch (phase 5i).
+    serve_decode's calls are listed in `phase_flash_vs_plain`;
+    `flash_shapes` holds every launch to the set checked."""
     from repro_torch.configs import get_config
 
     def calls(arch, b, lengths, *, causal=True, t=None, window=0):
@@ -2561,8 +2621,11 @@ def path_flash_cases():
     def forced(prompts):
         return (*prompts, *(n + FAMILY_NEW for n in prompts))
 
-    return [*calls(MODEL_ARCH, 1, (*SERVE_PROMPTS, SERVE_FORWARD_TOKENS),
+    return [*calls(MODEL_ARCH, 1, (*SERVE_PROMPTS, SERVE_FORWARD_TOKENS,
+                                   PERIOD_TOKENS),
                    window=get_config(MODEL_ARCH).window),
+            dict(b=TRAIN_100M_BATCH, kvh=4, g=3, d=64, s=TRAIN_100M_SEQ,
+                 t=TRAIN_100M_SEQ, window=0, causal=True),
             *calls(MOE_ARCH, 1, (*MOE_PROMPTS, MOE_FORWARD_TOKENS)),
             *calls(WHISPER_ARCH, SERVE_SLOTS, (WHISPER_FRAMES,),
                    causal=False),
@@ -2573,22 +2636,29 @@ def path_flash_cases():
 
 
 @contextlib.contextmanager
-def flash_shapes(OPS, seen):
+def flash_shapes(OPS, seen, seen_bwd):
     """While open, every flash launch the model stack makes (through
-    `ops.flash_attention`, which looks the kernel's wrapper up at each
-    call) adds its `flash_key` to ``seen``.  The comparisons of
-    `phase_flash_vs_plain` call the wrapper directly and are not seen."""
-    kernel = OPS.flash_attention_kernel
+    `ops.flash_attention`, which looks the kernels' wrappers up at each
+    call) adds its `flash_key` to ``seen``, and every backward launch to
+    ``seen_bwd``.  The comparisons of `phase_flash_vs_plain` and
+    `flash_bwd_vs_plain` call the wrappers directly and are not seen."""
+    kernel, bwd = OPS.flash_attention_kernel, OPS.flash_attention_bwd_kernel
 
-    def spy(q, k, v, *, causal, window):
+    def spy(q, k, v, *, causal, window, **kw):
         seen.add(flash_key(q, k, causal=causal, window=window))
-        return kernel(q, k, v, causal=causal, window=window)
+        return kernel(q, k, v, causal=causal, window=window, **kw)
+
+    def spy_bwd(q, k, v, o, do, lse, *, causal, window):
+        seen_bwd.add(flash_key(q, k, causal=causal, window=window))
+        return bwd(q, k, v, o, do, lse, causal=causal, window=window)
 
     OPS.flash_attention_kernel = spy
+    OPS.flash_attention_bwd_kernel = spy_bwd
     try:
         yield
     finally:
         OPS.flash_attention_kernel = kernel
+        OPS.flash_attention_bwd_kernel = bwd
 
 
 def phase_flash_vs_plain(torch, FA, FAR):
@@ -3548,6 +3618,576 @@ def phase_model_families(np, torch, FA, MOE):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 5i: training
+# ---------------------------------------------------------------------------
+
+# the flash backward: S, dP, dV, dK and dQ, 2 * D flops each per unmasked
+# (query, key) pair
+FLASH_BWD_FLOPS_PER_PAIR_PER_D = 10
+
+
+def grad_allowance(torch, want, extra=0.0):
+    """FLASH_BWD_ULPS bf16 spacings of |want| plus FLASH_BWD_REL of the
+    tensor's largest |want| plus FLASH_BWD_ATOL (plus ``extra``)."""
+    w = want.float()
+    spacing = torch.exp2(torch.floor(torch.log2(
+        w.abs().clamp_min(2.0 ** -100))) - 7)
+    return (FLASH_BWD_ULPS * spacing + FLASH_BWD_REL * float(w.abs().max())
+            + FLASH_BWD_ATOL + extra)
+
+
+def grad_within(torch, got, want, extra=0.0):
+    """(ok, the largest difference over its allowance) for ``got`` against
+    ``want`` within `grad_allowance`."""
+    ratio = float(((got.float() - want.float()).abs()
+                   / grad_allowance(torch, want, extra)).max())
+    return ratio <= 1.0, ratio
+
+
+def flash_bwd_bound_ms(b, s, h, kvh, d, window, causal=True, t=None):
+    """(least time on the card in ms, what bounds it) for one backward
+    call: 10 * D flops per unmasked pair on the tensor cores, against q, o,
+    dO and dQ (B, S, H, D), k, v, dK and dV (B, T, KV, D) in bf16 and the
+    float32 lse moved once at the HBM rate."""
+    t = s if t is None else t
+    flops = FLASH_BWD_FLOPS_PER_PAIR_PER_D * d * attn_pairs(
+        s, window, causal, t) * b * h
+    nbytes = 2 * d * b * (4 * s * h + 4 * t * kvh) + 4 * b * h * s
+    ops_ms = flops / TENSOR_BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def train_bwd_cases():
+    """The flash backward's cases: every shape phase 5i launches (the
+    full-width period, the 4,096-token steps, the 100m preset's batch), a
+    training layer of each model (timed: recurrentgemma-2b's, qwen3-moe's H
+    32 over KV 4 at D 128, phi-3-vision's H 32 at D 96, whisper's encoder
+    non-causal at 1,500 frames and its cross attention, 448 queries
+    against 1,500 keys), and edges (D 16, S < T causal and not, one query,
+    ragged tiles, D 256 with a window, GQA)."""
+    from repro_torch.configs import get_config
+
+    rg = get_config(MODEL_ARCH)
+    rgk = dict(kvh=rg.n_kv, g=rg.n_heads // rg.n_kv, d=rg.head_dim,
+               window=rg.window, causal=True)
+    return [
+        dict(b=1, s=PERIOD_TOKENS, **rgk),
+        dict(b=1, s=TRAIN_TOKENS, model=MODEL_ARCH, **rgk),
+        dict(b=TRAIN_100M_BATCH, s=TRAIN_100M_SEQ, kvh=4, g=3, d=64,
+             window=0, causal=True),
+        dict(b=1, s=4096, kvh=4, g=8, d=128, window=0, causal=True,
+             model=MOE_ARCH),
+        dict(b=1, s=4096, kvh=32, g=1, d=96, window=0, causal=True,
+             model=VLM_ARCH),
+        dict(b=1, s=WHISPER_FRAMES, kvh=8, g=1, d=64, window=0,
+             causal=False, model=f"{WHISPER_ARCH} encoder"),
+        dict(b=1, s=448, t=WHISPER_FRAMES, kvh=8, g=1, d=64, window=0,
+             causal=False, model=f"{WHISPER_ARCH} cross attention"),
+        dict(b=1, s=64, kvh=1, g=4, d=16, window=32, causal=True),
+        dict(b=2, s=129, t=200, kvh=2, g=3, d=128, window=0, causal=True),
+        dict(b=1, s=70, t=131, kvh=2, g=2, d=96, window=0, causal=False),
+        dict(b=1, s=1, kvh=2, g=1, d=64, window=0, causal=True),
+        dict(b=1, s=300, kvh=1, g=2, d=256, window=40, causal=True),
+        dict(b=1, s=257, kvh=2, g=4, d=64, window=100, causal=True),
+    ]
+
+
+def plain_flash_grads(torch, FAR, q, k, v, do, **kw):
+    """``torch.autograd.grad`` through the plain forward in float32."""
+    leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    out = FAR.flash_attention_ref(*leaves, **kw)
+    return torch.autograd.grad(out, leaves, do.float())
+
+
+def sdpa_backward_ms(torch, q, k, v, do, *, causal, window):
+    """SDPA's backward on the same function (``is_causal`` with
+    ``enable_gqa`` where there is no window, the dense window mask
+    otherwise), a yardstick only: (ms, None) or (None, why refused)."""
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    mask = None
+    if window > 0:
+        s, t = q.shape[1], k.shape[1]
+        pos, kpos = torch.arange(s, device="cuda"), torch.arange(
+            t, device="cuda")
+        mask = (kpos[None] > pos[:, None] - window)
+        if causal:
+            mask &= kpos[None] <= pos[:, None]
+    try:
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+        dot = do.transpose(1, 2)
+        ms, _ = time_cuda(torch, lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), 10)
+        return ms, None
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:200]
+
+
+def flash_bwd_vs_plain(torch, FA, FAR):
+    """The flash backward kernel at every case of `train_bwd_cases`, in
+    bf16: the forward with the LSE pointer set bit-identical to the one
+    without, its base-2 LSE against the plain version's within
+    FLASH_LSE_ATOL, and dQ, dK and dV against the plain backward on the
+    same inputs within FLASH_BWD_ULPS spacings plus FLASH_BWD_REL of the
+    largest, and against autograd through the plain forward in float32
+    within that bound widened by the plain backward's own distance from
+    autograd (see FLASH_BWD_ULPS); each call counted on the backward.  Then
+    the timed cases' device ms against the plain backward's
+    (`ref.flash_attention_bwd_plain`), the bound and SDPA's backward.
+    Returns (worst abs err, the `flash_key`s held, the timings by model)."""
+    from repro_torch.kernels.flash_attention import kernel_bwd as FAB
+
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    worst = ratio_worst = lse_worst = 0.0
+    auto_err = auto_worst = auto_widened = 0.0
+    checked, timings = set(), {}
+    for c in train_bwd_cases():
+        b, s, kvh, d = c["b"], c["s"], c["kvh"], c["d"]
+        t, h = c.get("t", s), c["kvh"] * c["g"]
+        kw = dict(causal=c["causal"], window=c["window"])
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16) for shape in ((b, s, h, d), (b, t, kvh, d),
+                                          (b, t, kvh, d), (b, s, h, d)))
+        plain_out = FA.flash_attention_kernel(q, k, v, **kw)
+        out, lse = FA.flash_attention_kernel(q, k, v, return_lse=True, **kw)
+        check(torch.equal(out, plain_out),
+              f"flash forward with the LSE pointer differs for {c}")
+        _, lse_ref = FAR.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        lse_err = float((lse - lse_ref).abs().max())
+        lse_worst = max(lse_worst, lse_err)
+        check(lse_err <= FLASH_LSE_ATOL, f"flash LSE != plain for {c}: "
+                                         f"{lse_err}")
+        before = FAB.BWD_LAUNCHES["flash_attention_bwd"]
+        got = FAB.flash_attention_bwd_kernel(q, k, v, out, do, lse, **kw)
+        check(FAB.BWD_LAUNCHES["flash_attention_bwd"] == before + 1,
+              "flash_attention_bwd did not count its launch")
+        plain = FAR.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
+        auto = plain_flash_grads(torch, FAR, q, k, v, do, **kw)
+        torch.cuda.synchronize()
+        for name, g, w, a in zip(("dq", "dk", "dv"), got, plain, auto):
+            err = float((g.float() - w).abs().max())
+            ok, ratio = grad_within(torch, g, w)
+            worst, ratio_worst = max(worst, err), max(ratio_worst, ratio)
+            check(ok, f"flash_attention_bwd {name} != plain for {c}: "
+                      f"{ratio} of the allowance, max abs err {err}")
+            # against autograd: the allowance widened by the plain
+            # backward's own distance from it
+            _, auto_ratio = grad_within(torch, g, a)
+            ok, widened = grad_within(torch, g, a, (w - a).abs())
+            auto_worst = max(auto_worst, auto_ratio)
+            auto_widened = max(auto_widened, widened)
+            auto_err = max(auto_err, float((g.float() - a).abs().max()))
+            check(ok, f"flash_attention_bwd {name} != autograd for {c}: "
+                  f"{widened} of the widened allowance")
+        checked.add(flash_key(q, k, **kw))
+        del plain, auto, got
+        if "model" in c:
+            ms, host_ms = time_cuda(
+                torch, lambda: FAB.flash_attention_bwd_kernel(
+                    q, k, v, out, do, lse, **kw), 10)
+            plain_ms, _ = time_cuda(
+                torch, lambda: FAR.flash_attention_bwd_plain(
+                    q, k, v, out, do, lse, **kw), 2)
+            lib_ms, refused = sdpa_backward_ms(torch, q, k, v, do, **kw)
+            bound, by = flash_bwd_bound_ms(b, s, h, kvh, d, c["window"],
+                                           c["causal"], t)
+            timings[c["model"]] = dict(ms=ms, plain_ms=plain_ms,
+                                       bound_ms=bound, bound_by=by,
+                                       library_ms=lib_ms)
+            emit(phase="kernel_timing", kernel="flash_attention_bwd",
+                 model=c["model"], B=b, S=s, T=t, H=h, KV=kvh, D=d,
+                 window=c["window"], causal=c["causal"], dtype="bfloat16",
+                 host_ms_per_call=host_ms,
+                 unmasked_pairs=attn_pairs(s, c["window"], c["causal"], t)
+                 * b * h,
+                 library="scaled_dot_product_attention backward ("
+                         + ("dense window mask" if c["window"] else
+                            "is_causal" if c["causal"] else "no mask")
+                         + ", enable_gqa)", library_refused=refused,
+                 **timings[c["model"]])
+        del q, k, v, do, out, lse, plain_out, lse_ref
+        torch.cuda.empty_cache()
+    emit(phase="kernel_vs_plain", kernel="flash_attention_bwd",
+         cases=len(train_bwd_cases()), max_abs_err=worst,
+         max_share_of_allowance=ratio_worst, lse_max_abs_err=lse_worst,
+         tolerance=f"{FLASH_BWD_ULPS} bf16 spacings + {FLASH_BWD_REL} x "
+                   f"max|grad| + {FLASH_BWD_ATOL}",
+         autograd_max_abs_err=auto_err,
+         autograd_share_of_allowance=auto_worst,
+         autograd_share_of_widened_allowance=auto_widened,
+         forward_with_lse_bit_identical=True)
+    return worst, checked, timings
+
+
+def rglru_reverse_vs_plain(torch, RK, RR):
+    """The RG-LRU scan's reverse mode: bit-equal to the CPU emulation of its
+    chunk carries (`rglru_scan_blocked(..., reverse=True)`), and against
+    the plain reverse walk and autograd of the plain forward (db = lam,
+    da = lam h_{t-1}) within RGLRU_BWD_REL of the largest value; then its
+    time at the training shape (1, 4096, 2560)."""
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    ch, tile = RK.chunk(), RK.tile()
+    worst = worst_abs = 0.0
+    shapes = [(1, TRAIN_TOKENS, 2560), (1, PERIOD_TOKENS, 2560),
+              (2, 1, 31), (1, ch - 1, 1), (1, ch + 1, 31),
+              (4, tile + 1, 64), (2, 1000, 33)]
+    for b, s, d in shapes:
+        a, _ = rglru_gates(torch, gen, b, s, d)
+        x = torch.randn(b, s, d, generator=gen, device="cuda")
+        g = torch.randn(b, s, d, generator=gen, device="cuda")
+        lam = RK.rglru_scan_kernel(a, g, reverse=True)
+        blocked = RR.rglru_scan_blocked(a, g, ch, reverse=True)
+        plain = RR.rglru_scan_bwd_plain(a, g)
+        al, bl = a.clone().requires_grad_(), x.clone().requires_grad_()
+        h = RR.rglru_scan_ref(al, bl)
+        da, db = torch.autograd.grad(h, (al, bl), g)
+        h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], 1)
+        torch.cuda.synchronize()
+        check(torch.equal(lam, blocked),
+              f"rglru_scan reverse != rglru_scan_blocked at {(b, s, d)}")
+        for name, got, want in (("lam", lam, plain), ("db", lam, db),
+                                ("da", lam * h_prev.detach(), da)):
+            scale = max(1.0, float(want.abs().max()))
+            err = float((got - want).abs().max())
+            worst, worst_abs = max(worst, err / scale), max(worst_abs, err)
+            check(err <= RGLRU_BWD_REL * scale,
+                  f"rglru_scan reverse {name} at {(b, s, d)}: {err} of "
+                  f"{scale}")
+    emit(phase="kernel_vs_plain", kernel="rglru_scan_reverse", chunk=ch,
+         tile=tile, cases=len(shapes), max_abs_err=worst_abs,
+         max_err_over_largest=worst, equal_to_blocked=True)
+    b, s, d = 1, TRAIN_TOKENS, 2560
+    a, g = rglru_gates(torch, gen, b, s, d)
+    ms, host_ms = time_cuda(torch, lambda: RK.rglru_scan_kernel(
+        a, g, reverse=True), 50)
+    plain_ms, _ = time_cuda(torch, lambda: RR.rglru_scan_bwd_plain(a, g), 3)
+    bound, by = bound_ms(b * s * d, RGLRU_BYTES_PER_ITEM, RGLRU_OPS_PER_ITEM)
+    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                  library_ms=None)
+    emit(phase="kernel_timing", kernel="rglru_scan_reverse", B=b, S=s, D=d,
+         host_ms_per_call=host_ms, library="none: no PyTorch call computes "
+         "a linear recurrence", **timing)
+    return worst_abs, timing
+
+
+def train_counts(FA, RK):
+    from repro_torch.kernels.flash_attention import kernel_bwd as FAB
+
+    return {"flash_attention_tc": FA.LAUNCHES["flash_attention_tc"],
+            "flash_attention": FA.LAUNCHES["flash_attention"],
+            "flash_attention_bwd": FAB.BWD_LAUNCHES["flash_attention_bwd"],
+            "rglru_scan": RK.LAUNCHES["rglru_scan"],
+            "rglru_scan_reverse": RK.REVERSE_LAUNCHES["rglru_scan_reverse"]}
+
+
+def zero_train_counts(FA, RK):
+    from repro_torch.kernels.flash_attention import kernel_bwd as FAB
+
+    for counter in (FA.LAUNCHES, FAB.BWD_LAUNCHES, RK.LAUNCHES,
+                    RK.REVERSE_LAUNCHES):
+        for name in counter:
+            counter[name] = 0
+
+
+def expected_train_counts(cfg, steps):
+    """Launches of ``steps`` train steps: each layer runs forward twice
+    (once more under the checkpoint's recompute) and backward once."""
+    from repro_torch.models import transformer as TF
+
+    kinds = [key.split("_", 1)[1] for key, _ in TF.layer_keys(cfg)]
+    attn = sum(k in TF.ATTN_KINDS for k in kinds) * steps
+    rec = kinds.count("rglru") * steps
+    return {"flash_attention_tc": 2 * attn, "flash_attention": 0,
+            "flash_attention_bwd": attn, "rglru_scan": 2 * rec,
+            "rglru_scan_reverse": rec}
+
+
+def period_card_vs_cpu(torch, FA, RK):
+    """One period of recurrentgemma-2b at full width (rglru, rglru,
+    attn_local at d 2560, the embedding and tied head at vocab 256,000), its
+    loss and every gradient on PERIOD_TOKENS tokens, on the card (the
+    kernels) and on the host CPU (the plain versions), from the same
+    weights: the loss within MODEL_TOL, each leaf within PERIOD_GRAD_REL in
+    relative L2 norm, and every card gradient finite and not all zero (a
+    kernel autograd did not see would leave its inputs' gradients zero or
+    missing)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as TF
+
+    full = get_config(MODEL_ARCH)
+    cfg = dataclasses.replace(full, n_layers=len(full.pattern))
+    cpu = TF.init_params(cfg, torch.Generator().manual_seed(41),
+                         device="cpu")
+    cpu.requires_grad_(True)
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=PERIOD_TOKENS,
+                                   global_batch=1, seed=5)).batch(0)
+
+    def run(model, dev):
+        t0 = time.perf_counter()
+        loss, _ = TF.loss_fn(model, {k: v.to(dev) for k, v in batch.items()})
+        loss.backward()
+        value = float(loss.detach())
+        return value, time.perf_counter() - t0
+
+    zero_train_counts(FA, RK)
+    card_loss, card_s = run(card, "cuda")
+    launches = train_counts(FA, RK)
+    want = expected_train_counts(cfg, 1)
+    check(launches == want,
+          f"one period's train step launched {launches}, expected {want}")
+    cpu_loss, cpu_s = run(cpu, "cpu")
+    check(abs(card_loss - cpu_loss) <= MODEL_TOL,
+          f"period loss on the card {card_loss} vs CPU {cpu_loss}")
+    leaves, worst = 0, 0.0
+    for (name, pc), (_, pg) in zip(card.named_parameters(),
+                                   cpu.named_parameters()):
+        check(pc.grad is not None, f"{name} has no gradient on the card")
+        gcard, gcpu = pc.grad.float().cpu(), pg.grad.float()
+        check(bool(torch.isfinite(gcard).all()) and bool(gcard.ne(0).any()),
+              f"{name}: card gradient not finite or all zero")
+        rel = float((gcard - gcpu).norm() / gcpu.norm().clamp_min(1e-30))
+        worst = max(worst, rel)
+        check(rel <= PERIOD_GRAD_REL,
+              f"{name}: card gradient {rel} from the CPU's (relative L2)")
+        leaves += 1
+    emit(phase="train_period_card_vs_cpu", tokens=PERIOD_TOKENS,
+         layers=[k for k, _ in card.keys], card_loss=card_loss,
+         cpu_loss=cpu_loss, leaves=leaves, worst_leaf_rel_l2=worst,
+         card_host_s=card_s, cpu_host_s=cpu_s,
+         cpu_threads=torch.get_num_threads(), **{
+             f"{n}_launches": c for n, c in launches.items()})
+    del card, cpu
+    return launches
+
+
+def loss_rule(losses):
+    """The 10-step run's rule, fixed before the run: every loss finite and
+    the last at least TRAIN_LOSS_DROP below the first."""
+    return all(l == l and abs(l) != float("inf") for l in losses) and \
+        losses[-1] <= losses[0] - TRAIN_LOSS_DROP
+
+
+def train_full_width(torch, FA, RK, lr, profile=True):
+    """recurrentgemma-2b at full width (26 layers), `Trainer.fit` for
+    TRAIN_STEPS steps of one row of TRAIN_TOKENS tokens from `SyntheticLM`
+    at vocab 256,000, at peak lr ``lr``: per-step loss, grad_norm and host
+    ms, memory after the state is made and at the peak, each kernel
+    direction's launches against the layers times the steps (with the
+    recompute), and the device profile of the step after the first."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(MODEL_ARCH)
+    trainer = Trainer(cfg, TrainConfig(
+        steps=TRAIN_STEPS, peak_lr=lr, warmup_steps=TRAIN_WARMUP,
+        log_every=TRAIN_STEPS, async_ckpt=False), device="cuda")
+    src = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_TOKENS,
+                                 global_batch=1))
+    t0 = time.perf_counter()
+    model, opt = trainer.init_state(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_bytes = torch.cuda.memory_allocated()
+    step_fn, profiled = trainer.step_fn, {}
+
+    def step(*args):
+        if profile and len(profiled) == 1 and "profile" not in profiled:
+            out = {}
+            profiled["profile"] = profile_device(
+                torch, lambda: out.update(r=step_fn(*args)))
+            return out["r"]
+        profiled.setdefault("first", True)
+        return step_fn(*args)
+
+    trainer.step_fn = step
+    zero_train_counts(FA, RK)
+    printed, _, host_s = printout(trainer.fit, src, model, opt)
+    launches = train_counts(FA, RK)
+    want = expected_train_counts(cfg, TRAIN_STEPS)
+    check(launches == want,
+          f"{TRAIN_STEPS} train steps launched {launches}, expected {want}")
+    log = trainer.metrics_log
+    out = dict(lr=lr, losses=[m["loss"] for m in log],
+               grad_norms=[m["grad_norm"] for m in log],
+               step_host_ms=[m["step_time_s"] * 1e3 for m in log],
+               lrs=[m["lr"] for m in log], init_s=init_s, host_s=host_s,
+               state_bytes=state_bytes,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               params=sum(p.numel() for p in model.parameters()),
+               profiled_step=1 if profile else None,
+               device_profile=profiled.get("profile"),
+               printout=printed.splitlines(), launches=launches)
+    del trainer, model, opt, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def param_sha256(torch, model, opt):
+    """sha256 over the parameters' and the AdamW master weights' bytes, in
+    order."""
+    h = hashlib.sha256()
+    for x in (*model.parameters(), *opt.master.values()):
+        h.update(x.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+class StopAt(Exception):
+    pass
+
+
+class CutSource:
+    """A data source that raises `StopAt` when asked for step ``cut``: the
+    run it feeds stops there, as a killed job would."""
+
+    def __init__(self, src, cut):
+        self.src, self.cut = src, cut
+
+    def batch(self, step):
+        if step == self.cut:
+            raise StopAt(step)
+        return self.src.batch(step)
+
+
+def resume_on_card(torch, FA):
+    """The 100m preset on the card: 4 uninterrupted steps, against 2 steps
+    stopped after the checkpoint at step 2 and 2 more in a fresh
+    `Trainer` that resumes from it (in a temporary directory, removed
+    afterwards): the losses and the parameters' and master weights'
+    sha256 equal bit for bit."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.train import PRESET_100M
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+
+    src = SyntheticLM(DataConfig(vocab=PRESET_100M.vocab,
+                                 seq_len=TRAIN_100M_SEQ,
+                                 global_batch=TRAIN_100M_BATCH))
+
+    def trainer(ckpt_dir):
+        return Trainer(PRESET_100M, TrainConfig(
+            steps=4, peak_lr=1e-3, warmup_steps=1, ckpt_dir=ckpt_dir,
+            ckpt_every=2, async_ckpt=False, log_every=100), device="cuda")
+
+    t0 = time.perf_counter()
+    whole = trainer("")
+    with contextlib.redirect_stdout(io.StringIO()):
+        model, opt = whole.fit(src)
+    want_losses = [m["loss"] for m in whole.metrics_log]
+    want_sha = param_sha256(torch, model, opt)
+    del model, opt
+    with tempfile.TemporaryDirectory() as d:
+        first = trainer(d)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                first.fit(CutSource(src, 2))
+        except StopAt:
+            pass
+        check(ckpt.latest_step(d) == 2,
+              f"no checkpoint at step 2: {ckpt.latest_step(d)}")
+        second = trainer(d)
+        with contextlib.redirect_stdout(io.StringIO()):
+            model, opt = second.fit(src)
+        got_losses = [m["loss"]
+                      for m in first.metrics_log + second.metrics_log]
+        got_sha = param_sha256(torch, model, opt)
+    check(got_losses == want_losses and got_sha == want_sha,
+          f"resumed run {got_losses} {got_sha} != whole run {want_losses} "
+          f"{want_sha}")
+    del model, opt
+    emit(phase="train_resume", preset=PRESET_100M.name,
+         batch=TRAIN_100M_BATCH, seq=TRAIN_100M_SEQ, losses=want_losses,
+         resumed_at=2, params_sha256=want_sha, bit_equal=True,
+         host_s=time.perf_counter() - t0)
+
+
+def ssd_train_raises(torch):
+    """A train step of mamba2's smoke config on the card raises
+    NotImplementedError (its SSD kernel has no backward yet)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+
+    cfg = get_smoke_config(MAMBA_ARCH)
+    tr = Trainer(cfg, TrainConfig(steps=1, log_every=100), device="cuda")
+    src = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                 global_batch=2))
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            tr.fit(src)
+        raised = None
+    except NotImplementedError as e:
+        raised = str(e)
+    check(raised is not None and "ssd_chunk backward" in raised,
+          f"a mamba2 train step on the card did not refuse: {raised}")
+    emit(phase="train_ssd_refused", arch=cfg.name, message=raised)
+
+
+def phase_training(torch, FA, FAR, RK, RR):
+    """Phase 5i: training on the card, after phase 5h has freed its models.
+    The flash backward and the RG-LRU scan's reverse mode against their
+    plain versions (and timed); one full-width recurrentgemma-2b period on
+    the card against the CPU; TRAIN_STEPS full-width steps held to the loss
+    rule, and the same at lr 0, which the rule must refuse; the 100m
+    preset's checkpoint resume, bit for bit; mamba2's train step refused.
+    Returns (the training paths' launches, worst errors, timings)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    emit(phase="training_start", allocated_bytes=start)
+    check(start < FAMILY_START_BYTES,
+          f"{start} bytes still allocated when phase 5i starts")
+    t0 = time.perf_counter()
+    bwd_err, bwd_checked, bwd_timings = flash_bwd_vs_plain(torch, FA, FAR)
+    rev_err, rev_timing = rglru_reverse_vs_plain(torch, RK, RR)
+    kernels_s = time.perf_counter() - t0
+
+    total = {}
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+
+    add(period_card_vs_cpu(torch, FA, RK))
+    run = train_full_width(torch, FA, RK, TRAIN_LR)
+    add(run.pop("launches"))
+    planted = train_full_width(torch, FA, RK, 0.0, profile=False)
+    add(planted.pop("launches"))
+    ok, refused = loss_rule(run["losses"]), not loss_rule(planted["losses"])
+    emit(phase="train_full_width", arch=MODEL_ARCH, tokens=TRAIN_TOKENS,
+         steps=TRAIN_STEPS, loss_drop_min=TRAIN_LOSS_DROP,
+         meets_loss_rule=ok, **run)
+    emit(phase="train_full_width_lr0", arch=MODEL_ARCH,
+         refused_by_loss_rule=refused,
+         **{k: v for k, v in planted.items() if k != "device_profile"})
+    check(ok, f"the {TRAIN_STEPS}-step run misses the loss rule: "
+              f"{run['losses']}")
+    check(refused, f"the loss rule passed the lr-0 run: {planted['losses']}")
+    zero_train_counts(FA, RK)
+    resume_on_card(torch, FA)
+    add(train_counts(FA, RK))
+    ssd_train_raises(torch)
+    emit(phase="training", host_s=time.perf_counter() - t0,
+         kernel_checks_s=kernels_s, **{f"{n}_launches": c
+                                       for n, c in total.items()})
+    return total, bwd_err, bwd_checked, bwd_timings, rev_err, rev_timing
+
+
 def main() -> int:
     import torch
 
@@ -3565,6 +4205,7 @@ def main() -> int:
     import repro_torch.core as P
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as FA, ref as FAR
+    from repro_torch.kernels.flash_attention import kernel_bwd as FAB
     from repro_torch.kernels.flash_attention import ops as FAO
     from repro_torch.models import moe as MOE
     from repro_torch.kernels.rglru_scan import kernel as RK, ref as RR
@@ -3619,10 +4260,11 @@ def main() -> int:
     # (one nvcc process per source, all started together)
     t0 = time.perf_counter()
     sources = [K._SOURCE, LK._SOURCE, FK._SOURCE, FA._SOURCE, FA._SOURCE_TC,
-               RK._SOURCE, SK._SOURCE, SK._SOURCE_TC, SFK._SOURCE]
+               FAB._SOURCE, RK._SOURCE, SK._SOURCE, SK._SOURCE_TC,
+               SFK._SOURCE]
     _build.build_all(sources)
-    for load in (K._lib, LK._lib, FK._lib, FA._lib, FA._lib_tc, RK._lib,
-                 SK._lib, SK._lib_tc, SFK._lib):
+    for load in (K._lib, LK._lib, FK._lib, FA._lib, FA._lib_tc, FAB._lib_bwd,
+                 RK._lib, SK._lib, SK._lib_tc, SFK._lib):
         load()
     emit(phase="build", sources=[str(x.relative_to(ROOT)) for x in sources],
          seconds=time.perf_counter() - t0)
@@ -3634,6 +4276,10 @@ def main() -> int:
                       (FA._SOURCE_TC, {f"D{d}": FA._lib_tc(
                           ).flash_attention_tc_smem(d) for d in (64, 128,
                                                                  256)}),
+                      (FAB._SOURCE, {f"{part}_D{d}": FAB._lib_bwd(
+                          ).flash_attention_bwd_smem(d, which)
+                          for which, part in ((0, "dkdv"), (1, "dq"))
+                          for d in (64, 128, 256)}),
                       (SK._SOURCE_TC, SK._lib_tc().ssd_chunk_tc_smem()),
                       (SFK._SOURCE, {"opt_in_limit": SFK._lib(
                           ).sf_scan_max_smem(0)})):
@@ -3663,9 +4309,9 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # from here on, the shape of every flash launch of the paths
-    flash_launched = set()
+    flash_launched, flash_bwd_launched = set(), set()
     paths = contextlib.ExitStack()
-    paths.enter_context(flash_shapes(FAO, flash_launched))
+    paths.enter_context(flash_shapes(FAO, flash_launched, flash_bwd_launched))
 
     # phases 3-4: the main path, with the launch counts read around it
     K.LAUNCHES["serve_round"] = 0
@@ -4034,13 +4680,30 @@ def main() -> int:
     check(family_launches["flash_attention_tc"] > 0
           and family_launches["flash_attention"] == 0,
           f"the model families' flash launches: {family_launches}")
+
+    # phase 5i: training on the card (the flash backward kernel, the RG-LRU
+    # scan's reverse mode), after phase 5h's models are freed; the counts
+    # set to 0 around each training run
+    (train_launches, worst_flash_bwd, flash_bwd_checked, flash_bwd_timings,
+     worst_rglru_reverse, rglru_reverse_timing) = phase_training(
+        torch, FA, FAR, RK, RR)
+    check(all(train_launches[n] > 0 for n in (
+        "flash_attention_tc", "flash_attention_bwd", "rglru_scan",
+        "rglru_scan_reverse")) and train_launches["flash_attention"] == 0,
+          f"the training phase's launches: {train_launches}")
     paths.close()
-    # every flash shape the paths launched was held to the plain version
+    # every flash shape the paths launched, forward and backward, was held
+    # to the plain version
     unchecked = sorted(flash_launched - flash_checked)
     check(not unchecked, f"flash shapes launched but never held to the "
                          f"plain version: {unchecked}")
+    unchecked = sorted(flash_bwd_launched - flash_bwd_checked)
+    check(not unchecked, f"flash backward shapes launched but never held "
+                         f"to the plain version: {unchecked}")
     emit(phase="flash_shapes_on_path", launched=len(flash_launched),
-         held_to_plain=len(flash_launched), checked=len(flash_checked))
+         held_to_plain=len(flash_launched), checked=len(flash_checked),
+         backward_launched=len(flash_bwd_launched),
+         backward_checked=len(flash_bwd_checked))
 
     main_k = 268_800
     t = timings[main_k]
@@ -4078,18 +4741,38 @@ def main() -> int:
                       f"{name}.cu",
                replaces="src/repro/kernels/flash_attention/kernel.py:93",
                launches=rg_launches[name] + decode_launches[name]
-               + family_launches[name],
+               + family_launches[name] + train_launches[name],
                max_abs_err=worst_flash[name],
                **flash_timings[name],
                shape=f"B1 S4096 H10 KV1 D256 window 2048 {dtype}")
           for name, dtype in (("flash_attention_tc", "bf16"),
                               ("flash_attention", "float32"))],
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:93",
+             role="the gradient of that kernel (the TPU kernel has none)",
+             launches=train_launches["flash_attention_bwd"],
+             max_abs_err=worst_flash_bwd,
+             **flash_bwd_timings[MODEL_ARCH],
+             model_family_shapes={m: t for m, t in flash_bwd_timings.items()
+                                  if m != MODEL_ARCH},
+             shape="B1 S4096 H10 KV1 D256 window 2048 bf16"),
         dict(name="rglru_scan", route="cuda",
              source="src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
              replaces="src/repro/kernels/rglru_scan/kernel.py:62",
              launches=rg_launches["rglru_scan"]
-             + decode_launches["rglru_scan"], max_abs_err=worst_rglru,
-             **rglru_timing, shape="(1, 4096, 2560) float32"),
+             + decode_launches["rglru_scan"] + train_launches["rglru_scan"],
+             max_abs_err=worst_rglru, **rglru_timing,
+             shape="(1, 4096, 2560) float32"),
+        dict(name="rglru_scan_reverse", route="cuda",
+             source="src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+             replaces="src/repro/kernels/rglru_scan/kernel.py:62",
+             role="the gradient of that kernel (the adjoint scan, reverse "
+                  "mode)",
+             launches=train_launches["rglru_scan_reverse"],
+             max_abs_err=worst_rglru_reverse, **rglru_reverse_timing,
+             shape="(1, 4096, 2560) float32"),
         dict(name="sf_scan", route="cuda",
              source="src/repro_torch/kernels/sf_scan/csrc/sf_scan.cu",
              replaces="src/repro/core/snoop_filter.py:210",

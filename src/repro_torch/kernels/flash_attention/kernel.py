@@ -30,6 +30,10 @@ algorithm on the CPU (``split=True`` for the tensor-core one).
 
 Bound on the H100: the tensor cores, 4 * D flops per unmasked (query, key)
 pair at 989 TFLOP/s bf16.
+
+The gradient (`ops.flash_attention` under autograd): the tensor-core kernel
+writes the rows' base-2 log-sum-exp on request (``return_lse=True``) for
+the backward kernel (`kernel_bwd`).
 """
 
 from __future__ import annotations
@@ -64,7 +68,7 @@ def _lib():
 def _lib_tc():
     lib = load_library(_SOURCE_TC)
     if lib.flash_attention_tc_launch.argtypes is None:
-        lib.flash_attention_tc_launch.argtypes = [ctypes.c_void_p] * 4 + [
+        lib.flash_attention_tc_launch.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         lib.flash_attention_tc_launch.restype = ctypes.c_int
     return lib
@@ -76,17 +80,14 @@ def uses_tensor_cores(dtype, d: int) -> bool:
     return dtype == torch.bfloat16 and d % 16 == 0
 
 
-def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B, S, H, D); k, v: (B, T, KV, D); contiguous CUDA tensors of one
-    dtype (float32 or bf16) on one device, with S <= T, H a multiple of KV,
-    D a multiple of 4 and at most 256 -> (B, S, H, D) in q's dtype.
-    Launches the tensor-core kernel for bf16 with D a multiple of 16, the
-    CUDA-core kernel otherwise (`uses_tensor_cores`), on the current
-    stream; raises on any tensor it does not take or on a failed launch."""
+def _check(q, k, v, others=()):
+    """(b, s, t, h, kvh, d) of a call the kernels take; raises
+    otherwise."""
     ok = q.dim() == 4 and k.dim() == 4 and k.shape == v.shape
-    for x in (q, k, v):
+    for x in (q, k, v, *others):
         ok = ok and (x.is_cuda and x.dtype == q.dtype and x.dtype in DTYPES
                      and x.is_contiguous() and x.device == q.device)
+    ok = ok and all(x.shape == q.shape for x in others)
     if ok:
         b, s, h, d = q.shape
         t, kvh = k.shape[1], k.shape[2]
@@ -99,16 +100,41 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
             "with S <= T, H a multiple of KV and D a multiple of 4 in "
             f"[4, 256]; got {tuple(q.shape)}, {tuple(k.shape)}, "
             f"{tuple(v.shape)}")
-    out = torch.empty_like(q)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    sqrt_d = float(torch.tensor(math.sqrt(d), dtype=torch.float32))
+    return b, s, t, h, kvh, d
+
+
+def _sqrt_d(d: int) -> float:
+    return float(torch.tensor(math.sqrt(d), dtype=torch.float32))
+
+
+def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
+                           return_lse: bool = False):
+    """q: (B, S, H, D); k, v: (B, T, KV, D); contiguous CUDA tensors of one
+    dtype (float32 or bf16) on one device, with S <= T, H a multiple of KV,
+    D a multiple of 4 and at most 256 -> (B, S, H, D) in q's dtype.
+    Launches the tensor-core kernel for bf16 with D a multiple of 16, the
+    CUDA-core kernel otherwise (`uses_tensor_cores`), on the current
+    stream; raises on any tensor it does not take or on a failed launch.
+    ``return_lse`` (the tensor-core kernel only): also the rows' base-2
+    log-sum-exp, float32 (B, H, S), for the backward kernel."""
+    b, s, t, h, kvh, d = _check(q, k, v)
     tc = uses_tensor_cores(q.dtype, d)
+    if return_lse and not tc:
+        raise ValueError(
+            f"flash_attention writes the log-sum-exp only from the "
+            f"tensor-core kernel (bf16, D a multiple of 16); got {q.dtype}, "
+            f"D={d}")
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    sqrt_d = _sqrt_d(d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if tc:
             err = _lib_tc().flash_attention_tc_launch(
-                *ptrs, b, s, t, h, kvh, d, int(causal), int(window), sqrt_d,
-                stream)
+                *ptrs, None if lse is None else lse.data_ptr(), b, s, t, h,
+                kvh, d, int(causal), int(window), sqrt_d, stream)
         else:
             err = _lib().flash_attention_launch(
                 *ptrs, int(q.dtype == torch.bfloat16), b, s, t, h, kvh, d,
@@ -117,4 +143,5 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
-    return out
+    return (out, lse) if return_lse else out
+

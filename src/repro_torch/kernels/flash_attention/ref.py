@@ -17,6 +17,18 @@ tensor-core kernel does: the float32 weights split hi/lo into bf16
 kernel's 128-row query and 64-key tiles.  The CPU tests hold it against the
 plain version at small tiles and at the kernels' own, so the tile walk and
 the split are tested here and not only on the card.
+
+The gradient.  ``flash_attention_ref(..., return_lse=True)`` also gives the
+rows' log-sum-exp in base 2, ``lse2 = logsumexp(scores) * log2 e``, float32
+(B, H, S), as the tensor-core kernel writes it on request.
+`flash_attention_bwd_plain` is the plain version of the backward kernel
+(``csrc/flash_attention_bwd.cu``), FlashAttention-2's formulas in float32:
+``P = 2^(x log2 e - lse2)``, ``dV = P^T dO``, ``dS = P (dO V^T - delta)``
+with ``delta = rowsum(dO O)``, ``dQ = dS K / sqrt(D)``, ``dK = dS^T Q /
+sqrt(D)``; `q_tile_range` is the backward's walk over the query tiles that
+see a key tile (the mirror of `kv_tile_range`).  Float64 inputs are
+computed in float64 throughout, so that ``torch.autograd.gradcheck`` can
+hold the port's autograd function to these formulas.
 """
 
 from __future__ import annotations
@@ -29,6 +41,13 @@ import torch
 from .._split import split_bf16
 
 NEG = -2.0e38
+LOG2E = 1.4426950408889634
+
+
+def _acc(x):
+    """The type the plain versions compute in: float64 for float64 inputs,
+    float32 otherwise."""
+    return x.double() if x.dtype == torch.float64 else x.float()
 
 
 @functools.lru_cache(maxsize=None)
@@ -41,36 +60,105 @@ def sqrt_head_dim(d: int, device=torch.device("cpu")) -> torch.Tensor:
     return torch.tensor(math.sqrt(d), dtype=torch.float32, device=device)
 
 
-def flash_attention_grouped(q, k, v, *, causal: bool = True,
-                            window: int = 0):
-    """The reference's ``flash_attention_ref`` in its grouped layout: q (B,
-    KV, G, S, D); k, v: (B, KV, T, D) -> (B, KV, G, S, D) in q's dtype."""
-    d = q.shape[-1]
-    s = torch.einsum("bkgsd,bktd->bkgst", q.float(), k.float()) \
-        / sqrt_head_dim(d, q.device)
-    sq, t = q.shape[3], k.shape[2]
-    qpos = torch.arange(sq, device=q.device)[:, None]
-    kpos = torch.arange(t, device=q.device)[None, :]
-    mask = torch.ones((sq, t), dtype=torch.bool, device=q.device)
+def _divisor(d, x):
+    if x.dtype == torch.float64:
+        return torch.tensor(math.sqrt(d), dtype=torch.float64,
+                            device=x.device)
+    return sqrt_head_dim(d, x.device)
+
+
+def attention_mask(sq: int, t: int, *, causal: bool, window: int, device):
+    """(S, T) bool: the keys each query row sees (key <= row when causal,
+    key > row - window when ``window`` > 0)."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(t, device=device)[None, :]
+    mask = torch.ones((sq, t), dtype=torch.bool, device=device)
     if causal:
         mask &= kpos <= qpos
     if window > 0:
         mask &= kpos > qpos - window
-    s = s.masked_fill(~mask, NEG)
+    return mask
+
+
+def _scores(q, k, causal, window):
+    """Masked scores (B, KV, G, S, T) and the mask, in the grouped
+    layout."""
+    d = q.shape[-1]
+    qa = _acc(q)
+    s = torch.einsum("bkgsd,bktd->bkgst", qa, _acc(k).to(qa.dtype)) \
+        / _divisor(d, qa)
+    mask = attention_mask(q.shape[3], k.shape[2], causal=causal,
+                          window=window, device=q.device)
+    return s.masked_fill(~mask, NEG), mask
+
+
+def flash_attention_grouped(q, k, v, *, causal: bool = True,
+                            window: int = 0, return_lse: bool = False):
+    """The reference's ``flash_attention_ref`` in its grouped layout: q (B,
+    KV, G, S, D); k, v: (B, KV, T, D) -> (B, KV, G, S, D) in q's dtype
+    (and, with ``return_lse``, the rows' base-2 log-sum-exp (B, KV, G,
+    S))."""
+    s, _ = _scores(q, k, causal, window)
     w = torch.softmax(s, dim=-1)
-    return torch.einsum("bkgst,bktd->bkgsd", w, v.float()).to(q.dtype)
+    out = torch.einsum("bkgst,bktd->bkgsd", w, _acc(v).to(w.dtype)).to(
+        q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1) * LOG2E
+    return out
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+def _grouped(x, kvh):
+    """(B, S, H, D) -> (B, KV, G, S, D)."""
+    b, s, h, d = x.shape
+    return x.reshape(b, s, kvh, h // kvh, d).permute(0, 2, 3, 1, 4)
+
+
+def _ungrouped(x):
+    """(B, KV, G, S, D) -> (B, S, H, D)."""
+    b, kvh, g, s, d = x.shape
+    return x.permute(0, 3, 1, 2, 4).reshape(b, s, kvh * g, d)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        return_lse: bool = False):
     """The plain version in the model layout, as the kernel takes it: q (B,
     S, H, D), k and v (B, T, KV, D) -> (B, S, H, D), query heads grouped per
-    KV head (`flash_attention_grouped` on the regrouped tensors)."""
+    KV head (`flash_attention_grouped` on the regrouped tensors).  With
+    ``return_lse``: (out, lse2), lse2 (B, H, S) in the compute type."""
+    b, s, h, _ = q.shape
+    out = flash_attention_grouped(_grouped(q, k.shape[2]), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=causal,
+                                  window=window, return_lse=return_lse)
+    if return_lse:
+        out, lse = out
+        return _ungrouped(out), lse.reshape(b, h, s)
+    return _ungrouped(out)
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True,
+                            window: int = 0):
+    """The backward kernel's plain version: q, o and do (B, S, H, D); k, v
+    (B, T, KV, D); lse (B, H, S), the forward's base-2 log-sum-exp ->
+    (dq, dk, dv) in the compute type (float32, or float64 for float64
+    inputs), the query heads of a KV head's group summed into its dk and
+    dv."""
     b, s, h, d = q.shape
     kvh = k.shape[2]
-    qg = q.reshape(b, s, kvh, h // kvh, d).permute(0, 2, 3, 1, 4)
-    out = flash_attention_grouped(qg, k.transpose(1, 2), v.transpose(1, 2),
-                                  causal=causal, window=window)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+    qg = _acc(_grouped(q, kvh))
+    kt, vt = (_acc(x.transpose(1, 2)).to(qg.dtype) for x in (k, v))
+    dog = _acc(_grouped(do, kvh)).to(qg.dtype)
+    og = _acc(_grouped(o, kvh)).to(qg.dtype)
+    x, mask = _scores(qg, kt, causal, window)
+    lse = lse.to(qg.dtype).reshape(b, kvh, h // kvh, s, 1)
+    p = torch.where(mask, torch.exp2(x * LOG2E - lse), 0.0)
+    dv = torch.einsum("bkgst,bkgsd->bktd", p, dog)
+    dp = torch.einsum("bkgsd,bktd->bkgst", dog, vt)
+    delta = (dog * og).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    sqrt_d = _divisor(d, qg)
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds, kt) / sqrt_d
+    dk = torch.einsum("bkgst,bkgsd->bktd", ds, qg) / sqrt_d
+    return _ungrouped(dq), dk.transpose(1, 2), dv.transpose(1, 2)
 
 
 def kv_tile_range(q0: int, bq: int, t: int, bk: int, *, causal: bool,
@@ -84,6 +172,17 @@ def kv_tile_range(q0: int, bq: int, t: int, bk: int, *, causal: bool,
     if window > 0:
         k_lo = max(0, q0 - window + 1)
     return range((k_lo // bk) * bk, k_hi, bk)
+
+
+def q_tile_range(k0: int, bk: int, s: int, bq: int, *, causal: bool,
+                 window: int) -> range:
+    """Start rows of the query tiles the backward kernel's dK/dV walk
+    visits for the key tile starting at ``k0``: the rows that see one of its
+    keys (row >= key when causal, row < key + window when windowed), in
+    tiles of ``bq`` rows; the mirror of `kv_tile_range`."""
+    q_lo = k0 if causal else 0
+    q_hi = min(s, k0 + bk - 1 + window) if window > 0 else s
+    return range((q_lo // bq) * bq, q_hi, bq)
 
 
 def flash_attention_tiled(q, k, v, *, causal: bool = True, window: int = 0,

@@ -30,6 +30,17 @@
 // the plain version's separate PyTorch operations do.  Any S and D are
 // taken; features past D are masked.
 //
+// Reverse mode (reverse = 1), for the gradient: with g = dL/dh, the adjoint
+//   lambda_t = g_t + a_{t+1} * lambda_{t+1}      from lambda_{S-1} = g_{S-1}
+// is the same recurrence walked from the end of the sequence, with a read
+// one step ahead (a_{t+1}, and 0 past the end) and g in b's place.  The
+// block walks its tiles from the end, its chunks from the end, each chunk's
+// steps from the end: the kernel runs the forward algorithm above on the
+// virtual sequence p = S - 1 - t, so the design note holds word for word
+// for both directions, and ref.rglru_scan_blocked(a, g, CHUNK,
+// reverse=True) equals it bit for bit.  da_t = lambda_t h_{t-1} and
+// db_t = lambda_t are elementwise, outside the kernel.
+//
 // Bound on the H100: memory.  The function reads a and b and writes h,
 // 12 B per element (37.6 us at (1, 4096, 2560) over 3.35 TB/s), and this
 // design moves exactly that.  At D = 2560 it runs 80 blocks of 512 threads,
@@ -51,23 +62,29 @@ constexpr int TILE = WARPS * CHUNK;
 constexpr int THREADS = WARPS * 32;
 
 // This warp's chunk of the tile at t0: n steps (0 past the sequence's end
-// or for a masked feature), read into registers.
+// or for a masked feature), read into registers; step j at element offset
+// off + j * step (step d forward, -d in reverse), with a read a_off further
+// on (0 forward, d in reverse) and 0 for the walk's first step in reverse
+// (a_S, past the end).
 __device__ __forceinline__ void load_chunk(const float* __restrict__ a,
                                            const float* __restrict__ b,
-                                           long long off, int n, int d,
-                                           float* ra, float* rb) {
+                                           long long off, long long step,
+                                           int n, long long a_off,
+                                           bool first, float* ra,
+                                           float* rb) {
 #pragma unroll
   for (int j = 0; j < CHUNK; ++j) {
     if (j < n) {
-      ra[j] = a[off + static_cast<long long>(j) * d];
-      rb[j] = b[off + static_cast<long long>(j) * d];
+      const long long at = off + j * step;
+      ra[j] = (first && j == 0) ? 0.0f : a[at + a_off];
+      rb[j] = b[at];
     }
   }
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
 rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                  float* __restrict__ out, int s, int d) {
+                  float* __restrict__ out, int s, int d, int reverse) {
   __shared__ float map_a[WARPS][LANES];
   __shared__ float map_h[WARPS][LANES];
   __shared__ float incoming[WARPS][LANES];
@@ -82,17 +99,24 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
     const int c0 = t0 + w * CHUNK;
     return live ? max(0, min(CHUNK, s - c0)) : 0;
   };
+  // the walk's step p is time p forward and time s - 1 - p in reverse
+  const long long step = reverse ? -static_cast<long long>(d) : d;
+  const long long a_off = reverse ? d : 0;
   auto offset = [&](int t0) {
-    return col + static_cast<long long>(t0 + w * CHUNK) * d;
+    const int p = t0 + w * CHUNK;
+    return col + static_cast<long long>(reverse ? s - 1 - p : p) * d;
+  };
+  auto load = [&](int t0, float* ra, float* rb) {
+    load_chunk(a, b, offset(t0), step, steps(t0), a_off,
+               reverse && t0 + w * CHUNK == 0, ra, rb);
   };
 
   float ca[CHUNK], cb[CHUNK], na[CHUNK], nb[CHUNK];
-  load_chunk(a, b, offset(0), steps(0), d, ca, cb);
+  load(0, ca, cb);
   float carry = 0.0f;  // warp 0: the state the previous tile left
   for (int t0 = 0; t0 < s; t0 += TILE) {
     const int n = steps(t0);
-    if (t0 + TILE < s) load_chunk(a, b, offset(t0 + TILE), steps(t0 + TILE),
-                                  d, na, nb);
+    if (t0 + TILE < s) load(t0 + TILE, na, nb);
     // 1. this chunk's map
     float A = 1.0f, H = 0.0f;
 #pragma unroll
@@ -123,7 +147,7 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
     for (int j = 0; j < CHUNK; ++j) {
       if (j < n) {
         h = __fadd_rn(__fmul_rn(ca[j], h), cb[j]);
-        op[static_cast<long long>(j) * d] = h;
+        op[j * step] = h;
       }
     }
 #pragma unroll
@@ -141,13 +165,15 @@ extern "C" int rglru_scan_chunk() { return CHUNK; }
 // Sequence steps one block walks per tile (WARPS chunks).
 extern "C" int rglru_scan_tile() { return TILE; }
 
-// a, b, out: (batch, s, d) float32 contiguous.
+// a, b, out: (batch, s, d) float32 contiguous; reverse 0 scans forward
+// (h from a and b), 1 backward (the adjoint from a and dL/dh in b).
 extern "C" int rglru_scan_launch(const float* a, const float* b, float* out,
-                                 int batch, int s, int d,
+                                 int batch, int s, int d, int reverse,
                                  cudaStream_t stream) {
   if (batch <= 0 || s <= 0 || d <= 0 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((d + LANES - 1) / LANES, batch);
-  rglru_scan_kernel<<<grid, THREADS, 0, stream>>>(a, b, out, s, d);
+  rglru_scan_kernel<<<grid, THREADS, 0, stream>>>(a, b, out, s, d,
+                                                  reverse != 0);
   return static_cast<int>(cudaGetLastError());
 }

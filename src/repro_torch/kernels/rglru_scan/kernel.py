@@ -17,8 +17,14 @@ One launch; `ref.rglru_scan_blocked(a, b, chunk())` computes the same
 chunk carries in the same order on the CPU, and the kernel equals it bit
 for bit.  Any S and D are taken.
 
+With ``reverse=True`` the same kernel walks the sequence from its end and
+reads ``a`` one step ahead: ``lam_t = b_t + a_{t+1} * lam_{t+1}``, the
+adjoint of the recurrence for ``b = dL/dh`` (`ops.rglru_scan`'s gradient);
+`ref.rglru_scan_blocked(a, b, chunk(), reverse=True)` equals it bit for bit.
+Each direction has its own count (``LAUNCHES``, ``REVERSE_LAUNCHES``).
+
 Bound on the H100: memory, 12 B per element (a and b read, h written),
-which is what the kernel moves.
+which is what the kernel moves, in either direction.
 """
 
 from __future__ import annotations
@@ -35,13 +41,16 @@ _SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu"
 # launches of the CUDA kernel, counted by the wrapper (a run resets it to 0
 # and reads it back to show that its path went through the kernel)
 LAUNCHES = {"rglru_scan": 0}
+# launches in reverse mode (the gradient), kept apart so that the forward
+# count reads as it always has
+REVERSE_LAUNCHES = {"rglru_scan_reverse": 0}
 
 
 def _lib():
     lib = load_library(_SOURCE)
     if lib.rglru_scan_launch.argtypes is None:
         lib.rglru_scan_launch.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int] * 3 + [ctypes.c_void_p]
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.rglru_scan_launch.restype = ctypes.c_int
         lib.rglru_scan_chunk.argtypes = []
         lib.rglru_scan_chunk.restype = ctypes.c_int
@@ -62,10 +71,11 @@ def tile() -> int:
     return int(_lib().rglru_scan_tile())
 
 
-def rglru_scan_kernel(a, b):
+def rglru_scan_kernel(a, b, *, reverse: bool = False):
     """a, b: (B, S, D) float32 contiguous CUDA tensors on one device ->
-    h (B, S, D) float32.  Launches the CUDA kernel on the current stream;
-    raises on any tensor it does not take or on a failed launch."""
+    h (B, S, D) float32 (``reverse``: the adjoint, from the end).  Launches
+    the CUDA kernel on the current stream; raises on any tensor it does not
+    take or on a failed launch."""
     ok = a.dim() == 3 and a.shape == b.shape
     for x in (a, b):
         ok = ok and (x.is_cuda and x.dtype == torch.float32
@@ -80,9 +90,10 @@ def rglru_scan_kernel(a, b):
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().rglru_scan_launch(a.data_ptr(), b.data_ptr(),
-                                       out.data_ptr(), bsz, s, d, stream)
+                                       out.data_ptr(), bsz, s, d,
+                                       int(reverse), stream)
+    name = "rglru_scan_reverse" if reverse else "rglru_scan"
     if err != 0:
-        raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES["rglru_scan"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    (REVERSE_LAUNCHES if reverse else LAUNCHES)[name] += 1
     return out

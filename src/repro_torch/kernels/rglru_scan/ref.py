@@ -17,6 +17,13 @@ incoming state (phase 2), and a re-scan of every chunk from that state
 re-scans from the same states, tile by tile in one pass, so at the kernel's
 ``chunk`` the two are equal bit for bit.  With one chunk it is the plain
 version, bit for bit.
+
+The gradient.  With ``g = dL/dh``, the adjoint ``lam_t = g_t + a_{t+1}
+lam_{t+1}`` (from ``lam_{S-1} = g_{S-1}``) gives ``db = lam`` and ``da_t =
+lam_t h_{t-1}``.  `rglru_scan_bwd_plain` walks it from the end, one step at a
+time; `rglru_scan_blocked(a, g, chunk, reverse=True)` is the kernel's
+reverse mode, the forward decomposition over the time-reversed sequence
+with ``a`` read one step ahead.
 """
 
 from __future__ import annotations
@@ -29,6 +36,12 @@ CHUNK = 16
 TILE = 256
 
 
+def _acc(x):
+    """float32, or float64 for float64 inputs (so that ``gradcheck`` can
+    hold the op's autograd function)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _check(a, b):
     if a.shape != b.shape or a.dim() != 3:
         raise ValueError(f"rglru_scan takes two (B, S, D) tensors of one "
@@ -36,10 +49,11 @@ def _check(a, b):
 
 
 def rglru_scan_ref(a, b):
-    """h_t = a_t h_{t-1} + b_t over axis 1, in float32; (B, S, D)."""
+    """h_t = a_t h_{t-1} + b_t over axis 1, in float32 (float64 for
+    float64 inputs); (B, S, D)."""
     _check(a, b)
-    a = a.float()
-    b = b.float()
+    a = _acc(a)
+    b = _acc(b)
     out = torch.empty_like(a)
     h = torch.zeros_like(a[:, 0])
     for t in range(a.shape[1]):
@@ -48,12 +62,37 @@ def rglru_scan_ref(a, b):
     return out
 
 
-def rglru_scan_blocked(a, b, chunk: int):
+def rglru_scan_bwd_plain(a, g):
+    """The adjoint lam_t = g_t + a_{t+1} lam_{t+1} over axis 1, from the
+    end, in float32; (B, S, D)."""
+    _check(a, g)
+    a = _acc(a)
+    g = _acc(g)
+    out = torch.empty_like(g)
+    lam = torch.zeros_like(g[:, 0])
+    for t in range(g.shape[1] - 1, -1, -1):
+        nxt = a[:, t + 1] if t + 1 < a.shape[1] else torch.zeros_like(lam)
+        lam = nxt * lam + g[:, t]
+        out[:, t] = lam
+    return out
+
+
+def reversed_operands(a, g):
+    """The reverse mode's virtual forward sequence: time flipped, a read
+    one step ahead (0 past the end), g in b's place."""
+    ahead = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], 1)
+    return ahead.flip(1), g.flip(1)
+
+
+def rglru_scan_blocked(a, b, chunk: int, *, reverse: bool = False):
     """The kernel's chunk decomposition over chunks of ``chunk`` steps (the
-    last chunk may be short), in float32; (B, S, D)."""
+    last chunk may be short), in float32; (B, S, D).  ``reverse``: the
+    kernel's reverse mode (the adjoint for ``b = dL/dh``)."""
     _check(a, b)
     a = a.float()
     b = b.float()
+    if reverse:
+        return rglru_scan_blocked(*reversed_operands(a, b), chunk).flip(1)
     bsz, s, d = a.shape
     n_chunks = -(-s // chunk)
     pad = n_chunks * chunk - s

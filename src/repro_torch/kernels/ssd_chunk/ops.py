@@ -9,6 +9,12 @@ _final_state``).  The tensors' device picks the path: the CUDA kernels
 the card, the plain versions
 (`ref.ssd_chunk_ref`, `ref.ssd_final_state`) when they lie on the CPU.  On
 the card it launches the kernel or raises; nothing falls back.
+
+The gradient: on the CPU, autograd runs through the plain versions.  The
+CUDA kernel has no backward yet (ROADMAP, the ``ssd_chunk`` backward
+kernel), so a call on the card with grad enabled and an input requiring it
+raises ``NotImplementedError`` rather than train an ``ssd`` layer without
+its gradient.
 """
 
 from __future__ import annotations
@@ -26,6 +32,12 @@ def ssd_chunk(x, dt, a_log, b, c, *, chunk: int = 128):
     float32."""
     dt = dt.float().contiguous()
     a_log = a_log.float().contiguous()
+    if x.is_cuda and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a_log, b, c)):
+        raise NotImplementedError(
+            "ssd_chunk has no backward kernel yet (ROADMAP: the ssd_chunk "
+            "backward kernel, so that mamba2 trains on the card); an ssd "
+            "layer trains on the CPU only")
     if x.is_cuda:
         if chunk != CHUNK:
             raise ValueError(f"the CUDA kernel scans chunks of {CHUNK} "

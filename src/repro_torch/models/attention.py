@@ -163,7 +163,9 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
 
 def attention_block(p: Attention, x, positions, cfg, *, mode, cache=None,
                     window=None, cache_len=None):
-    """Full attention sub-block.  mode: forward | prefill | decode.
+    """Full attention sub-block.  mode: forward | train | prefill | decode
+    (train is forward with the gradient: `flash_attention` is then an
+    autograd function over the kernels).
 
     Returns (out, new_cache).  Caches: dict(k, v, len) where k and v are
     (B, T, KV, D); T = min(window, cache_len) for windowed layers.  Windowed

@@ -14,6 +14,12 @@ and its cache an ``xattn`` dict (k, v); an ``attn_moe`` block carries
 `cache_to_tree` lay the port's tensors out as the reference's trees (on any
 device, ``meta`` included), so shapes and dtypes compare leaf for leaf.
 
+Training state crosses too: `grads_to_tree` lays the parameters' gradients
+out as the reference's gradient pytree, and `adamw_from_numpy` /
+`adamw_to_numpy` carry the reference's ``AdamWState`` (``step``, and ``m``,
+``v`` and ``master`` as parameter trees) to the port's `optim.adamw.AdamWState`
+(the same leaves keyed by parameter name) and back.
+
 bf16 leaves come as numpy arrays of the ``ml_dtypes`` bfloat16 type, which
 ``torch.from_numpy`` refuses; they go through float32 and back to bf16, and
 both steps are exact.  `cache_to_numpy` gives bf16 leaves as float32 arrays
@@ -123,29 +129,107 @@ def params_from_numpy(cfg, tree, device="cuda") -> Transformer:
     return model
 
 
-def _module_tree(module):
-    """A module's parameters as a nested dict keyed by name."""
+def _module_tree(module, values=None, prefix=""):
+    """``values`` of a module's parameters (keyed by their names in the
+    whole model, under ``prefix``; the parameters themselves by default) as
+    a nested dict keyed by name."""
+    if values is None:
+        values = dict(module.named_parameters())
     out: dict = {}
-    for name, x in module.named_parameters():
+    for name, _ in module.named_parameters():
         *path, leaf = name.split(".")
         node = out
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = x
+        node[leaf] = values[prefix + name]
+    return out
+
+
+def named_to_tree(model: Transformer, values: dict):
+    """One tensor per parameter (``values``, keyed as
+    ``model.named_parameters()``) in the reference's tree layout."""
+    out = _stacked_by_layer(model.keys, [
+        _module_tree(b, values, f"layers.{i}.")
+        for i, b in enumerate(model.layers)])
+    out["embed"] = _module_tree(model.embed, values, "embed.")
+    out["final_norm"] = _module_tree(model.final_norm, values, "final_norm.")
+    if model.cfg.enc_layers:
+        out["encoder"] = _stack([_module_tree(b, values, f"encoder.{i}.")
+                                 for i, b in enumerate(model.encoder)])
+        out["enc_norm"] = _module_tree(model.enc_norm, values, "enc_norm.")
     return out
 
 
 def params_to_tree(model: Transformer):
     """The port's parameters in the reference's tree layout (tensors on the
     model's device)."""
-    out = _stacked_by_layer(model.keys, [_module_tree(b)
-                                         for b in model.layers])
-    out["embed"] = _module_tree(model.embed)
-    out["final_norm"] = _module_tree(model.final_norm)
+    return named_to_tree(model, dict(model.named_parameters()))
+
+
+def grads_to_tree(model: Transformer):
+    """The parameters' gradients (``.grad``, in each parameter's dtype) in
+    the reference's tree layout, to compare leaf for leaf with the
+    reference's gradient pytree; a parameter without a gradient is an
+    error."""
+    grads = {}
+    for name, p in model.named_parameters():
+        if p.grad is None:
+            raise ValueError(f"{name} has no gradient")
+        grads[name] = p.grad
+    return named_to_tree(model, grads)
+
+
+def tree_to_named(model: Transformer, tree, device=None) -> dict:
+    """The reference's parameter-shaped tree as one tensor per parameter
+    name (the inverse of `named_to_tree`), each on ``device`` (the model's
+    by default) in the leaf's own dtype."""
+    dev = model.device if device is None else resolve_device(device)
+    out = {}
+
+    def take(prefix, sub):
+        for path, value in _leaves(sub):
+            out[prefix + path] = _tensor(value, dev)
+
+    for i, (key, period) in enumerate(model.keys):
+        take(f"layers.{i}.", _layer_tree(tree, key, period))
+    take("embed.", tree["embed"])
+    take("final_norm.", tree["final_norm"])
     if model.cfg.enc_layers:
-        out["encoder"] = _stack([_module_tree(b) for b in model.encoder])
-        out["enc_norm"] = _module_tree(model.enc_norm)
+        for i in range(model.cfg.enc_layers):
+            take(f"encoder.{i}.", _pick(tree["encoder"], i))
+        take("enc_norm.", tree["enc_norm"])
+    missing = sorted(set(n for n, _ in model.named_parameters()) - set(out))
+    if missing:
+        raise ValueError(f"reference tree lacks parameters {missing}")
     return out
+
+
+def adamw_from_numpy(model: Transformer, state, device=None):
+    """The port's `optim.adamw.AdamWState` holding the reference's
+    ``AdamWState`` ``state`` (leaves as numpy arrays)."""
+    from ..optim.adamw import AdamWState
+
+    dev = model.device if device is None else resolve_device(device)
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=dev),
+        m=tree_to_named(model, state.m, dev),
+        v=tree_to_named(model, state.v, dev),
+        master=tree_to_named(model, state.master, dev))
+
+
+def adamw_to_numpy(model: Transformer, state) -> dict:
+    """The port's AdamW state as the reference's fields: ``step`` an int,
+    ``m``, ``v`` and ``master`` float32 numpy trees in the reference's
+    layout."""
+    def host(tree):
+        if isinstance(tree, dict):
+            return {n: host(v) for n, v in tree.items()}
+        return tree.detach().cpu().numpy()
+
+    return {"step": int(state.step),
+            **{f: host(named_to_tree(model, getattr(state, f)))
+               for f in ("m", "v", "master")}}
 
 
 def cache_from_numpy(cfg, tree, device="cuda"):

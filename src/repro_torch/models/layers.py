@@ -4,8 +4,8 @@ The counterpart of ``repro/models/layers.py``.  Conventions:
 
   * parameters live in ``nn.Module``s (one per layer, named as the
     reference's pytree keys, so `models.convert` maps one onto the other);
-    they never require gradients: the port's model stack serves and does not
-    train yet, so ``softmax_xent`` waits for the training slice;
+    they are made without ``requires_grad``, so that serving builds no
+    graph, and the trainer turns it on (``model.requires_grad_()``);
   * compute dtype bf16, accumulation and normalisation float32, explicit
     everywhere;
   * initial weights are drawn from an explicit ``torch.Generator`` (in float32,
@@ -119,3 +119,21 @@ def silu(x):
 def mlp(p: MLP, x, act=silu):
     h = act(x @ p.wi_gate) * (x @ p.wi_up)
     return h @ p.wo
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits, labels, mask=None):
+    """Mean next-token cross entropy, in float32 (``logsumexp`` of the
+    float32 logits minus the gold logit); with ``mask``, the mean over the
+    positions it keeps (at least one)."""
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        m = mask.float()
+        return torch.sum(nll * m) / torch.clamp_min(torch.sum(m), 1.0)
+    return torch.mean(nll)

@@ -8,8 +8,8 @@ weights included) costs no memory.  The modality frontends are stubs by
 contract: whisper takes precomputed frame embeddings, phi-3-vision
 projected patch embeddings.
 
-Only the serving steps exist: the training step (``loss_fn``) comes with
-the training slice, and asking for it raises ``NotImplementedError``.
+The training step is `transformer.loss_fn` (model, batch) -> (loss,
+{"xent", "aux"}); the trainer (`runtime.trainer`) differentiates it.
 """
 
 from __future__ import annotations
@@ -22,11 +22,6 @@ from .layers import DTYPE
 from .transformer import init_params  # noqa: F401  (the zoo's entry point)
 
 META = torch.device("meta")
-
-_NO_TRAINING = ("the port has no training step yet: transformer.loss_fn "
-                "(with softmax_xent and the MoE aux loss) comes with the "
-                "training slice")
-
 
 def abstract_params(cfg: ArchConfig) -> TF.Transformer:
     """The model of ``cfg`` on the ``meta`` device (no weights drawn)."""
@@ -63,11 +58,11 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
 
 
 def step_fn(cfg: ArchConfig, kind: str):
-    """The step for a shape kind: `transformer.prefill` (model, tokens,
-    max_len, frontend_embeds=None) or `transformer.decode_step` (model,
-    cache, tokens, positions)."""
+    """The step for a shape kind: `transformer.loss_fn` (model, batch),
+    `transformer.prefill` (model, tokens, max_len, frontend_embeds=None) or
+    `transformer.decode_step` (model, cache, tokens, positions)."""
     if kind == "train":
-        raise NotImplementedError(f"{cfg.name}: {_NO_TRAINING}")
+        return TF.loss_fn
     if kind == "prefill":
         return TF.prefill
     if kind in ("decode", "long_decode"):

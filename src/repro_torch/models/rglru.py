@@ -10,10 +10,13 @@ causal temporal conv, and the Real-Gated Linear Recurrent Unit
 Prefill runs the recurrence over the prompt through
 `kernels.rglru_scan.ops.rglru_scan` (the CUDA kernel on the card, its plain
 version on the CPU), where the reference takes ``lax.associative_scan``.
-Decode is the O(1) single step.  The gate matrices ``w_r`` and ``w_i`` are
-float32 and multiply float32 activations, as in the reference; PyTorch
-keeps TF32 off for matrix products by default, so on the card they run in
-full float32.  GELU is the tanh approximation, ``jax.nn.gelu``'s default.
+Decode is the O(1) single step. Training (mode ``train``, forward with the
+gradient) differentiates the scan through its autograd function: the same
+kernel in reverse on the card (`kernels.rglru_scan.ops`). The gate matrices
+``w_r`` and ``w_i`` are float32 and multiply float32 activations, as in the
+reference; PyTorch keeps TF32 off for matrix products by default, so on the
+card they run in full float32. GELU is the tanh approximation,
+``jax.nn.gelu``'s default.
 """
 
 from __future__ import annotations
@@ -79,7 +82,8 @@ def rglru_scan(p: RGLRU, u):
 
 
 def rglru_block(p: RGLRU, x, *, mode, cache=None):
-    """Full recurrent sub-block.  mode: forward | prefill | decode.
+    """Full recurrent sub-block.  mode: forward | train | prefill |
+    decode.
     cache: dict(conv (B, W-1, D) bf16, h (B, D) float32)."""
     u = x @ p.w_x
     gate = F.gelu((x @ p.w_gate).float(), approximate="tanh").to(DTYPE)

@@ -2,12 +2,15 @@
 
 The counterpart of ``repro/models/ssd.py``: in_proj -> [z | x | B | C |
 dt], a depthwise causal conv with a float32 SiLU on (x, B, C), the SSD core,
-a gated RMSNorm and out_proj.  Prefill runs the SSD over the prompt through
+a gated RMSNorm and out_proj. Prefill runs the SSD over the prompt through
 `kernels.ssd_chunk.ops.ssd_chunk` (the CUDA kernel on the card, its plain
 version on the CPU), which also gives the recurrent state the cache needs;
 the reference takes its plain ``ssd_chunked`` and then ``_final_state``.
-Decode is the O(1) recurrence ``h = a h + (dt x) (x) B; y = C . h`` in
-plain PyTorch, as in the reference (it has no kernel).
+Training (mode ``train``) differentiates the plain version on the CPU; the
+kernel has no backward yet, so a training step of an ``ssd`` layer on the
+card raises (`kernels.ssd_chunk.ops`). Decode is the O(1) recurrence ``h =
+a h + (dt x) (x) B; y = C . h`` in plain PyTorch, as in the reference (it
+has no kernel).
 
 ``dt`` goes through ``jax.nn.softplus`` as the reference computes it,
 ``max(x, 0) + log1p(exp(-|x|))`` (``F.softplus`` switches to the identity
@@ -76,7 +79,7 @@ def _gate_out(p: SSD, y, z):
 
 
 def ssd_block(p: SSD, x, cfg, *, mode, cache=None):
-    """mode: forward | prefill | decode.  cache: dict(conv (B, W-1,
+    """mode: forward | train | prefill | decode.  cache: dict(conv (B, W-1,
     d_conv), h (B, H, P, N))."""
     nh, hd, st = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     z, xs, bc, dt = _split(p, x, nh, hd, st)

@@ -1,6 +1,7 @@
-"""Model assembly: the block stack, inference forward, prefill and decode.
+"""Model assembly: the block stack, the training loss, inference forward,
+prefill and decode.
 
-The counterpart of ``repro/models/transformer.py`` for serving, over every
+The counterpart of ``repro/models/transformer.py``, over every
 block kind of the reference: ``attn``, ``attn_local``, ``attn_moe`` (the
 MoE MLP, `models.moe`), ``cross`` (self attention, then cross attention to
 the encoder, then the MLP), ``rglru`` and ``ssd`` (``x + ssd(norm1(x))``
@@ -19,11 +20,23 @@ them; each ``cross`` block projects the result into its keys and values,
 which prefill leaves in the layer's ``xattn`` cache for decode.  A VLM
 configuration (phi-3-vision) takes patch embeddings (B, vision_patches, D)
 that replace the first ``vision_patches`` token embeddings; without them it
-runs on the tokens alone.  The MoE aux loss is computed and dropped: the
-loss that reads it comes with training.
+runs on the tokens alone.  The MoE aux loss is summed over the layers by the
+training forward and weighs 0.01 in `loss_fn`, as in the reference; the
+serving paths drop it.
 
-Entry points (all inference; nothing here trains):
+Training: `train_forward` runs with the gradient, each layer under
+``torch.utils.checkpoint`` (``use_reentrant=False``), the counterpart of the
+reference's ``jax.checkpoint`` on each period: a layer keeps only its input
+for the backward pass and runs again inside it.  Attention and the RG-LRU
+scan differentiate through their kernels' autograd functions on the card
+(the flash backward kernel, the scan in reverse); an ``ssd`` layer trains on
+the CPU only (see `kernels.ssd_chunk.ops`).  The parameters must require
+grad (``model.requires_grad_()``; the trainer sets it).
+
+Entry points:
   init_params(cfg, generator, device)     the model, weights drawn from gen
+  loss_fn(model, batch)                   next-token CE (+ 0.01 MoE aux)
+  train_forward(model, tokens)            logits and aux, with the gradient
   forward(model, tokens)                  logits of every position
   prefill(model, tokens, max_len)         last-token logits + cache
   init_cache(cfg, batch, max_len)         an empty cache
@@ -37,13 +50,15 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.engine import resolve_device
 from . import attention as A
 from . import moe as MOE
 from . import rglru as RG
 from . import ssd as SSD
-from .layers import DTYPE, Embed, MLP, RMSNorm, embed, mlp, unembed
+from .layers import (DTYPE, Embed, MLP, RMSNorm, embed, mlp, softmax_xent,
+                     unembed)
 
 ATTN_KINDS = ("attn", "attn_local", "attn_moe", "cross")
 
@@ -139,6 +154,16 @@ def init_params(cfg, generator: torch.Generator, *, device="cuda"):
 
 def _apply_block(blk: Block, x, positions, cfg, *, mode, cache=None,
                  cache_len=None, enc_kv=None):
+    """(new x, new cache) of one block (the serving modes)."""
+    return _run_block(blk, x, positions, cfg, mode=mode, cache=cache,
+                      cache_len=cache_len, enc_kv=enc_kv)[:2]
+
+
+def _run_block(blk: Block, x, positions, cfg, *, mode, cache=None,
+               cache_len=None, enc_kv=None):
+    """(new x, new cache, MoE aux loss: a float32 scalar, 0 for other
+    blocks)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = blk.norm1(x)
     new_cache = {}
     if blk.kind in ATTN_KINDS:
@@ -154,7 +179,7 @@ def _apply_block(blk: Block, x, positions, cfg, *, mode, cache=None,
             # the encoder's keys and values: from the cache in decode,
             # projected by the caller otherwise (and cached by prefill)
             kv = cache["xattn"] if cache and "xattn" in cache else enc_kv
-            if mode != "forward":
+            if mode in ("prefill", "decode"):
                 new_cache["xattn"] = kv
             x = x + A.cross_attention_block(blk.xattn, blk.norm3(x), kv, cfg)
     elif blk.kind == "ssd":
@@ -163,7 +188,7 @@ def _apply_block(blk: Block, x, positions, cfg, *, mode, cache=None,
             cache=None if cache is None else cache.get("ssd"))
         if s_cache is not None:
             new_cache["ssd"] = s_cache
-        return x + s_out, new_cache
+        return x + s_out, new_cache, aux
     else:
         r_out, r_cache = RG.rglru_block(
             blk.rglru, h, mode=mode,
@@ -173,13 +198,12 @@ def _apply_block(blk: Block, x, positions, cfg, *, mode, cache=None,
             new_cache["rglru"] = r_cache
     h2 = blk.norm2(x)
     if blk.kind == "attn_moe":
-        # the aux loss is dropped on the serving path
-        m_out, _ = MOE.moe_mlp(blk.moe, h2, top_k=cfg.moe.top_k,
-                               capacity_factor=cfg.moe.capacity_factor,
-                               group_size=cfg.moe_group)
+        m_out, aux = MOE.moe_mlp(blk.moe, h2, top_k=cfg.moe.top_k,
+                                 capacity_factor=cfg.moe.capacity_factor,
+                                 group_size=cfg.moe_group)
     else:
         m_out = mlp(blk.mlp, h2)
-    return x + m_out, new_cache
+    return x + m_out, new_cache, aux
 
 
 def _positions(tokens):
@@ -231,6 +255,50 @@ def _inputs(model: Transformer, tokens, frontend_embeds):
 def _cross_kv(blk: Block, enc_out, cfg):
     return None if enc_out is None else \
         A.encode_cross_kv(blk.xattn, enc_out, cfg)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _train_layer(blk: Block, cfg, positions):
+    """One layer as a function of its input (and the encoder's output, for
+    a ``cross`` layer, whose keys and values it projects inside), for
+    `checkpoint`: (new x, aux)."""
+    def run(x, enc_out):
+        x, _, aux = _run_block(blk, x, positions, cfg, mode="train",
+                               enc_kv=_cross_kv(blk, enc_out, cfg))
+        return x, aux
+    return run
+
+
+def train_forward(model: Transformer, tokens, *, frontend_embeds=None):
+    """tokens: (B, S) integer on the model's device -> (logits (B, S, V)
+    bf16, the MoE aux loss summed over the layers), with the gradient; each
+    layer runs under ``torch.utils.checkpoint`` and again in the backward
+    pass (no random state to keep: the model draws nothing)."""
+    cfg = model.cfg
+    x, positions, enc_out = _inputs(model, tokens, frontend_embeds)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk in model.layers:
+        x, aux = checkpoint(_train_layer(blk, cfg, positions), x, enc_out,
+                            use_reentrant=False, preserve_rng_state=False)
+        aux_total = aux_total + aux
+    x = model.final_norm(x)
+    return unembed(model.embed.tok, x), aux_total
+
+
+def loss_fn(model: Transformer, batch):
+    """The reference's ``loss_fn``: next-token cross entropy of the logits
+    at positions 0 .. S-2 against the labels at 1 .. S-1 (``mask``
+    optional), plus 0.01 times the MoE aux loss.  batch: dict(tokens,
+    labels, optional mask and frontend_embeds) on the model's device.
+    Returns (loss, {"xent", "aux"}), float32 scalars."""
+    logits, aux = train_forward(model, batch["tokens"],
+                                frontend_embeds=batch.get("frontend_embeds"))
+    loss = softmax_xent(logits[:, :-1], batch["labels"][:, 1:],
+                        batch.get("mask"))
+    return loss + 0.01 * aux, {"xent": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -1,2 +1,2 @@
-"""The runtime (counterpart of ``repro.runtime``): the slot server and the
-straggler policy."""
+"""The runtime (counterpart of ``repro.runtime``): the slot server, the
+trainer and the straggler policy."""

@@ -27,7 +27,15 @@ alike, whose chunk cumsums reach -10^3 (the kernels and the plain version
 take that cumsum in one order), plus one bf16 spacing for a bf16 output
 (the tensor-core kernel); the models
 on the card against the CPU ``5e-2``, the bf16 tolerance of the CPU tests
-against the reference.
+against the reference.  The gradients (the flash backward kernel, the scan's
+reverse mode, a train step): the backward kernel against its plain version
+on the same inputs within 2 bf16 spacings plus ``1e-3`` of the largest
+gradient plus ``1e-5`` (bf16 outputs, float32 sums in another order,
+float32 cancellation where a row sees one key), the reverse scan bit-equal
+to its blocked emulation and within ``1e-5`` of the largest value of its
+plain walk, a smoke train step's loss and gradient leaves on the card
+against the CPU within ``5e-2`` (the loss absolute, each leaf in relative
+L2 norm).
 """
 
 import numpy as np
@@ -38,8 +46,9 @@ torch = pytest.importorskip("torch")
 import repro_torch.core as P  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FA  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel_bwd as FAB  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    flash_attention_ref)
+    flash_attention_bwd_plain, flash_attention_ref)
 from repro_torch.kernels.flit_pack import kernel as FK  # noqa: E402
 from repro_torch.kernels.flit_pack.ref import flit_pack_ref  # noqa: E402
 from repro_torch.kernels.link_contention import kernel as LK  # noqa: E402
@@ -50,7 +59,7 @@ from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.core.engine import (_flatten_members,  # noqa: E402
                                      _initial_arrive, _round_inputs)
 from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
-    CHUNK, rglru_scan_blocked)
+    CHUNK, rglru_scan_blocked, rglru_scan_bwd_plain)
 from repro_torch.kernels.serve_round import kernel as K  # noqa: E402
 from repro_torch.kernels.serve_round import ops as SO  # noqa: E402
 from repro_torch.kernels.ssd_chunk import kernel as SK  # noqa: E402
@@ -1045,3 +1054,116 @@ def test_cuda_family_model_equals_cpu(card, arch, monkeypatch):
             else "flash_attention")
     assert launches == {n: (per_prefill + 3 * per_step) * (n == name)
                         for n in launches}, launches
+
+
+def _grad_ok(got, want):
+    """|got - want| <= 2 bf16 spacings of want + 1e-3 max|want| + 1e-5."""
+    w = want.float()
+    spacing = torch.exp2(torch.floor(torch.log2(
+        w.abs().clamp_min(2.0 ** -100))) - 7)
+    allow = 2 * spacing + 1e-3 * float(w.abs().max()) + 1e-5
+    return bool(((got.float() - w).abs() <= allow).all())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_kernel_equals_plain(card):
+    """The backward kernel (bf16, D 16 to 256) around the dK/dV kernel's
+    32-row query steps and 64- and 128-key tiles and the dQ kernel's
+    128-row tiles: causal, windowed, non-causal, S < T, GQA, MQA, one
+    query; the forward with the LSE pointer bit-identical to the one
+    without; each call counted once on the backward."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    for b, kv, g, s, t, d, causal, window in [
+            (1, 1, 4, 64, 64, 16, True, 32), (2, 2, 3, 129, 200, 128, True, 0),
+            (1, 2, 2, 70, 131, 96, False, 0), (1, 2, 1, 1, 1, 64, True, 0),
+            (1, 1, 2, 300, 300, 256, True, 40),
+            (1, 2, 4, 257, 257, 64, True, 100),
+            (1, 1, 10, 1000, 1000, 256, True, 2048),
+            (1, 8, 1, 100, 400, 64, False, 0)]:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=card).to(
+            torch.bfloat16) for shape in ((b, s, kv * g, d), (b, t, kv, d),
+                                          (b, t, kv, d), (b, s, kv * g, d)))
+        kw = dict(causal=causal, window=window)
+        out, lse = FA.flash_attention_kernel(q, k, v, return_lse=True, **kw)
+        assert torch.equal(out, FA.flash_attention_kernel(q, k, v, **kw))
+        before = FAB.BWD_LAUNCHES["flash_attention_bwd"]
+        got = FAB.flash_attention_bwd_kernel(q, k, v, out, do, lse, **kw)
+        assert FAB.BWD_LAUNCHES["flash_attention_bwd"] == before + 1
+        want = flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
+        torch.cuda.synchronize()
+        for x, gx, w in zip((q, k, v), got, want):
+            assert gx.dtype == torch.bfloat16 and gx.shape == x.shape
+            assert _grad_ok(gx, w), (s, t, d, window)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_gradient_refuses_float32(card):
+    q = torch.randn(1, 8, 2, 64, device=card, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        from repro_torch.kernels.flash_attention.ops import flash_attention
+        flash_attention(q, q.detach()[:, :, :1], q.detach()[:, :, :1])
+
+
+@pytest.mark.cuda
+def test_cuda_rglru_reverse_equals_plain(card):
+    """The reverse mode bit-equal to its blocked emulation at the kernel's
+    chunk, and within 1e-5 of the largest value of the plain reverse walk,
+    around the chunk and tile edges and at the model's width."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    for b, s, d in [(1, 1, 1), (2, 15, 31), (1, 17, 33), (4, 257, 64),
+                    (1, 4096, 2560)]:
+        r = torch.rand(b, s, d, generator=gen, device=card)
+        a = torch.exp(8.0 * r * torch.nn.functional.logsigmoid(
+            torch.linspace(2.2, 6.9, d, device=card)))
+        gr = torch.randn(b, s, d, generator=gen, device=card)
+        before = RK.REVERSE_LAUNCHES["rglru_scan_reverse"]
+        lam = RK.rglru_scan_kernel(a, gr, reverse=True)
+        assert RK.REVERSE_LAUNCHES["rglru_scan_reverse"] == before + 1
+        want = rglru_scan_bwd_plain(a, gr)
+        torch.cuda.synchronize()
+        assert torch.equal(lam, rglru_scan_blocked(a, gr, CHUNK,
+                                                   reverse=True))
+        scale = max(1.0, float(want.abs().max()))
+        assert float((lam - want).abs().max()) <= 1e-5 * scale, (b, s, d)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_equals_cpu(card):
+    """recurrentgemma-2b's smoke config (D 16, so the tensor-core flash
+    kernel and its backward): `transformer.loss_fn` and every gradient leaf
+    on the card against the same model on the CPU, through the kernels in
+    both directions; and mamba2's train step refused on the card."""
+    cfg = get_smoke_config("recurrentgemma-2b")
+    cpu = TF.init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    cpu.requires_grad_(True)
+    import copy
+
+    dev = copy.deepcopy(cpu).to(card)
+    toks = torch.randint(0, cfg.vocab, (2, 48),
+                         generator=torch.Generator().manual_seed(1))
+    before = (FAB.BWD_LAUNCHES["flash_attention_bwd"],
+              RK.REVERSE_LAUNCHES["rglru_scan_reverse"])
+    got, _ = TF.loss_fn(dev, {"tokens": toks.to(card),
+                              "labels": toks.to(card)})
+    got.backward()
+    kinds = [key.split("_", 1)[1] for key, _ in dev.keys]
+    assert (FAB.BWD_LAUNCHES["flash_attention_bwd"] - before[0],
+            RK.REVERSE_LAUNCHES["rglru_scan_reverse"] - before[1]) == (
+        kinds.count("attn_local"), kinds.count("rglru"))
+    want, _ = TF.loss_fn(cpu, {"tokens": toks, "labels": toks})
+    want.backward()
+    assert abs(float(got.detach()) - float(want.detach())) <= 5e-2
+    for (name, pd), (_, pc) in zip(dev.named_parameters(),
+                                   cpu.named_parameters()):
+        gd, gc = pd.grad.float().cpu(), pc.grad.float()
+        assert bool(torch.isfinite(gd).all()), name
+        assert float((gd - gc).norm()) <= 5e-2 * max(float(gc.norm()),
+                                                     1e-12), name
+    m2 = get_smoke_config("mamba2-1.3b")
+    model = TF.init_params(m2, torch.Generator(device=card).manual_seed(0),
+                           device=card)
+    model.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ssd_chunk backward"):
+        TF.loss_fn(model, {"tokens": toks.to(card), "labels": toks.to(card)})
+

@@ -3,7 +3,8 @@ all ten architectures at their full published configs, the ``meta``
 parameters, caches and input stand-ins have the reference's
 ``jax.eval_shape`` shapes and dtypes, leaf for leaf through `models.convert`'s
 key map, for every applicable `SHAPES` entry; the serving steps run at smoke
-size, the training step is refused; and the serving launcher runs each
+size and the training step (`transformer.loss_fn`) forward and backward at
+full size on the ``meta`` device; and the serving launcher runs each
 architecture the reference's launcher runs.
 """
 
@@ -21,6 +22,7 @@ from repro_torch.configs import (ARCH_IDS, SHAPES, get_config,  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import convert as CV  # noqa: E402
 from repro_torch.models import model_zoo as Z  # noqa: E402
+from repro_torch.models import transformer as TF  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -78,9 +80,12 @@ def test_meta_shapes_equal_reference_eval_shape(arch):
     assert checked == (4 if cfg.sub_quadratic else 3)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "whisper-base",
-                                  "phi-3-vision-4.2b"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_step_fns_serve_and_training_is_refused(arch):
+    """The serving steps run at smoke size, and the training step, which
+    this test once held refused, is `transformer.loss_fn`: at the full
+    published config on the ``meta`` device it gives a float32 scalar loss
+    and its backward pass reaches every parameter (no memory is used)."""
     cfg = get_smoke_config(arch)
     model = Z.init_params(cfg, torch.Generator().manual_seed(0),
                           device="cpu")
@@ -96,10 +101,25 @@ def test_step_fns_serve_and_training_is_refused(arch):
         model, cache, toks[:, :1], torch.full((2, 1), 12, dtype=torch.int32))
     assert tuple(logits.shape) == (2, 1, cfg.vocab)
     assert not bool(torch.isnan(logits).any())
-    with pytest.raises(NotImplementedError, match="loss_fn"):
-        Z.step_fn(cfg, "train")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        Z.train_step_fn(cfg)
+
+    full = get_config(arch)
+    step = Z.step_fn(full, "train")
+    assert step is Z.train_step_fn(full) is TF.loss_fn
+    meta = Z.abstract_params(full)
+    meta.requires_grad_(True)
+    s = full.vision_patches + 16 if full.vision_patches else 32
+    tokens = torch.empty((1, s), dtype=torch.int32, device=Z.META)
+    batch = {"tokens": tokens, "labels": tokens}
+    if full.enc_layers or full.vision_patches:
+        n = full.enc_frames if full.enc_layers else full.vision_patches
+        batch["frontend_embeds"] = torch.empty(
+            (1, n, full.d_model), dtype=torch.bfloat16, device=Z.META)
+    loss, metrics = step(meta, batch)
+    assert loss.device.type == "meta" and loss.dtype == torch.float32
+    assert loss.shape == () and set(metrics) == {"xent", "aux"}
+    loss.backward()
+    for name, p in meta.named_parameters():
+        assert p.grad is not None and p.grad.shape == p.shape, name
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
