@@ -3728,6 +3728,27 @@ def sdpa_backward_ms(torch, q, k, v, do, *, causal, window):
         return None, str(e).splitlines()[0][:200]
 
 
+def flash_bwd_launch_ms(torch, FAB, args, kw, calls=5):
+    """Device ms per call of each of the flash backward's four launches
+    (delta, dkdv, sum, dq): CUDA events the kernel records before its first
+    launch and after each (``marks``), over ``calls`` calls queued behind a
+    device spin.  (``torch.profiler`` saw none of these launches at this
+    point of the whole script, in two runs, though it did in a process of
+    its own.)"""
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(5)]
+             for _ in range(calls)]
+    for row in marks:
+        for e in row:
+            e.record()  # an event exists from its first record
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    for row in marks:
+        FAB.flash_attention_bwd_kernel(*args, marks=row, **kw)
+    torch.cuda.synchronize()
+    return {name: sum(row[i].elapsed_time(row[i + 1]) for row in marks)
+            / calls for i, name in enumerate(("delta", "dkdv", "sum", "dq"))}
+
+
 def flash_bwd_vs_plain(torch, FA, FAR):
     """The flash backward kernel at every case of `train_bwd_cases`, in
     bf16: the forward with the LSE pointer set bit-identical to the one
@@ -3736,9 +3757,12 @@ def flash_bwd_vs_plain(torch, FA, FAR):
     same inputs within FLASH_BWD_ULPS spacings plus FLASH_BWD_REL of the
     largest, and against autograd through the plain forward in float32
     within that bound widened by the plain backward's own distance from
-    autograd (see FLASH_BWD_ULPS); each call counted on the backward.  Then
+    autograd (see FLASH_BWD_ULPS); a second call on the same inputs bit
+    for bit equal to the first; each call counted on the backward.  Then
     the timed cases' device ms against the plain backward's
-    (`ref.flash_attention_bwd_plain`), the bound and SDPA's backward.
+    (`ref.flash_attention_bwd_plain`), the bound and SDPA's backward (and,
+    where the layer has a window, SDPA's ``is_causal`` backward without
+    it), with each of the four launches' device ms.
     Returns (worst abs err, the `flash_key`s held, the timings by model)."""
     from repro_torch.kernels.flash_attention import kernel_bwd as FAB
 
@@ -3764,8 +3788,12 @@ def flash_bwd_vs_plain(torch, FA, FAR):
                                          f"{lse_err}")
         before = FAB.BWD_LAUNCHES["flash_attention_bwd"]
         got = FAB.flash_attention_bwd_kernel(q, k, v, out, do, lse, **kw)
-        check(FAB.BWD_LAUNCHES["flash_attention_bwd"] == before + 1,
-              "flash_attention_bwd did not count its launch")
+        again = FAB.flash_attention_bwd_kernel(q, k, v, out, do, lse, **kw)
+        check(FAB.BWD_LAUNCHES["flash_attention_bwd"] == before + 2,
+              "flash_attention_bwd did not count its launches")
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"flash_attention_bwd: two calls differ for {c}")
+        del again
         plain = FAR.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
         auto = plain_flash_grads(torch, FAR, q, k, v, do, **kw)
         torch.cuda.synchronize()
@@ -3794,6 +3822,15 @@ def flash_bwd_vs_plain(torch, FA, FAR):
                 torch, lambda: FAR.flash_attention_bwd_plain(
                     q, k, v, out, do, lse, **kw), 2)
             lib_ms, refused = sdpa_backward_ms(torch, q, k, v, do, **kw)
+            yardstick = {}
+            if c["window"] > 0:
+                # per pair: SDPA's flash backward on the causal mask alone
+                causal_ms, _ = sdpa_backward_ms(torch, q, k, v, do,
+                                                causal=c["causal"], window=0)
+                yardstick = dict(
+                    library_is_causal_ms=causal_ms,
+                    library_is_causal_pairs=attn_pairs(s, 0, c["causal"], t)
+                    * b * h)
             bound, by = flash_bwd_bound_ms(b, s, h, kvh, d, c["window"],
                                            c["causal"], t)
             timings[c["model"]] = dict(ms=ms, plain_ms=plain_ms,
@@ -3803,8 +3840,11 @@ def flash_bwd_vs_plain(torch, FA, FAR):
                  model=c["model"], B=b, S=s, T=t, H=h, KV=kvh, D=d,
                  window=c["window"], causal=c["causal"], dtype="bfloat16",
                  host_ms_per_call=host_ms,
+                 launch_ms=flash_bwd_launch_ms(
+                     torch, FAB, (q, k, v, out, do, lse), kw),
+                 slices=FAB.slices(b, s, t, h, kvh, d, **kw),
                  unmasked_pairs=attn_pairs(s, c["window"], c["causal"], t)
-                 * b * h,
+                 * b * h, **yardstick,
                  library="scaled_dot_product_attention backward ("
                          + ("dense window mask" if c["window"] else
                             "is_causal" if c["causal"] else "no mask")
@@ -3817,6 +3857,7 @@ def flash_bwd_vs_plain(torch, FA, FAR):
          max_share_of_allowance=ratio_worst, lse_max_abs_err=lse_worst,
          tolerance=f"{FLASH_BWD_ULPS} bf16 spacings + {FLASH_BWD_REL} x "
                    f"max|grad| + {FLASH_BWD_ATOL}",
+         two_calls_bit_equal=True,
          autograd_max_abs_err=auto_err,
          autograd_share_of_allowance=auto_worst,
          autograd_share_of_widened_allowance=auto_widened,
@@ -4276,10 +4317,9 @@ def main() -> int:
                       (FA._SOURCE_TC, {f"D{d}": FA._lib_tc(
                           ).flash_attention_tc_smem(d) for d in (64, 128,
                                                                  256)}),
-                      (FAB._SOURCE, {f"{part}_D{d}": FAB._lib_bwd(
-                          ).flash_attention_bwd_smem(d, which)
-                          for which, part in ((0, "dkdv"), (1, "dq"))
-                          for d in (64, 128, 256)}),
+                      (FAB._SOURCE, {f"D{d}": FAB._lib_bwd(
+                          ).flash_attention_bwd_smem(d) for d in (64, 128,
+                                                                  256)}),
                       (SK._SOURCE_TC, SK._lib_tc().ssd_chunk_tc_smem()),
                       (SFK._SOURCE, {"opt_in_limit": SFK._lib(
                           ).sf_scan_max_smem(0)})):

@@ -29,6 +29,11 @@ sqrt(D)``; `q_tile_range` is the backward's walk over the query tiles that
 see a key tile (the mirror of `kv_tile_range`).  Float64 inputs are
 computed in float64 throughout, so that ``torch.autograd.gradcheck`` can
 hold the port's autograd function to these formulas.
+`flash_attention_bwd_tiled` runs the backward kernel's decomposition on the
+CPU: key tiles whose walk over the group's heads and their query tiles is
+cut into slices, float32 partials summed in slice order, the dQ walk over
+the key tiles in range, and (``split=True``) P and dS split hi/lo into bf16
+parts as the kernel feeds them to the tensor cores.
 """
 
 from __future__ import annotations
@@ -231,3 +236,79 @@ def flash_attention_tiled(q, k, v, *, causal: bool = True, window: int = 0,
             m = m_new
         out[..., q0:q0 + bq, :] = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.to(q.dtype)
+
+
+def flash_attention_bwd_tiled(q, k, v, o, do, lse, *, causal: bool = True,
+                              window: int = 0, bk: int = 64, bq: int = 64,
+                              head_slices: int = 1, split: bool = True):
+    """The backward kernel's decomposition on the CPU, in float32, same
+    arguments and results as `flash_attention_bwd_plain`.  dK and dV: for
+    each key tile of ``bk`` keys, the walk over the group's query heads in
+    order, each over the ``bq``-row query tiles of `q_tile_range`, is cut
+    into ``head_slices`` slices of equal length (step ``sigma n / slices``
+    to ``(sigma + 1) n / slices``); each slice sums its steps into a float32
+    partial, and the partials are added in slice order.  dQ: for each
+    ``bq``-row query tile, the ``bk``-key tiles of `kv_tile_range` in
+    order.  ``split``: P and dS enter the dV, dK and dQ products as their
+    bf16 hi and lo parts (`kernels._split.split_bf16`), each product exact
+    in float32 for bf16 operands.  The kernel's tiles are ``bk = bq = 64``;
+    its slice count is its own plan (``flash_attention_bwd_slices``)."""
+    b, s, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg, dog, og = (_grouped(x, kvh).float() for x in (q, do, o))
+    kt, vt = (x.transpose(1, 2).float() for x in (k, v))
+    lse = lse.float().reshape(b, kvh, g, s)
+    delta = (dog * og).sum(-1)
+    sqrt_d = sqrt_head_dim(d)
+    parts = split_bf16 if split else (lambda w: (w,))
+
+    def p_and_ds(rows, keys, head):
+        """P and dS (B, KV, [G,] rows, keys) of one tile; ``head`` None for
+        all of the group's heads."""
+        hs = slice(None) if head is None else head
+        qt, dot = qg[:, :, hs, rows], dog[:, :, hs, rows]
+        kk, vv = kt[:, :, keys], vt[:, :, keys]
+        if head is None:
+            kk, vv = kk[:, :, None], vv[:, :, None]
+        x = torch.matmul(qt, kk.transpose(-1, -2)) / sqrt_d
+        mask = attention_mask(s, t, causal=causal, window=window,
+                              device=q.device)[rows, keys]
+        p = torch.where(mask, torch.exp2(
+            x * LOG2E - lse[:, :, hs, rows, None]), 0.0)
+        dp = torch.matmul(dot, vv.transpose(-1, -2))
+        return p, p * (dp - delta[:, :, hs, rows, None]), qt, dot, kk
+
+    dk = torch.zeros(b, kvh, t, d)
+    dv = torch.zeros(b, kvh, t, d)
+    for k0 in range(0, t, bk):
+        keys = slice(k0, min(k0 + bk, t))
+        steps = [(head, i0) for head in range(g)
+                 for i0 in q_tile_range(k0, bk, s, bq, causal=causal,
+                                        window=window)]
+        n = len(steps)
+        for sigma in range(head_slices):
+            part_k = torch.zeros(b, kvh, keys.stop - k0, d)
+            part_v = torch.zeros_like(part_k)
+            for head, i0 in steps[sigma * n // head_slices:
+                                  (sigma + 1) * n // head_slices]:
+                rows = slice(i0, min(i0 + bq, s))
+                p, ds, qt, dot, _ = p_and_ds(rows, keys, head)
+                for w in parts(p):
+                    part_v += torch.matmul(w.transpose(-1, -2), dot)
+                for w in parts(ds):
+                    part_k += torch.matmul(w.transpose(-1, -2), qt)
+            dk[:, :, keys] += part_k
+            dv[:, :, keys] += part_v
+    dq = torch.zeros(b, kvh, g, s, d)
+    for q0 in range(0, s, bq):
+        rows = slice(q0, min(q0 + bq, s))
+        acc = torch.zeros(b, kvh, g, rows.stop - q0, d)
+        for j0 in kv_tile_range(q0, bq, t, bk, causal=causal, window=window):
+            _, ds, _, _, kk = p_and_ds(rows, slice(j0, min(j0 + bk, t)),
+                                       None)
+            for w in parts(ds):
+                acc += torch.matmul(w, kk)
+        dq[:, :, :, rows] = acc
+    return (_ungrouped(dq / sqrt_d), (dk / sqrt_d).transpose(1, 2),
+            dv.transpose(1, 2))

@@ -55,3 +55,13 @@ def test_editing_an_included_header_changes_the_library_path(tmp_path,
 def test_tensor_core_sources_hash_the_shared_header(module, headers):
     assert {p.name for p in _build.included_files(module._SOURCE_TC)} == \
         headers
+
+
+def test_backward_source_hashes_the_hopper_header():
+    """The flash backward's library is named by its source and both
+    headers it includes (`_hopper.cuh`: the wgmma, TMA and mbarrier
+    helpers; `_mma.cuh`: the hi/lo split)."""
+    from repro_torch.kernels.flash_attention import kernel_bwd as FAB
+
+    assert {p.name for p in _build.included_files(FAB._SOURCE)} == {
+        "flash_attention_bwd.cu", "_hopper.cuh", "_mma.cuh"}

@@ -1067,11 +1067,12 @@ def _grad_ok(got, want):
 
 @pytest.mark.cuda
 def test_cuda_flash_bwd_kernel_equals_plain(card):
-    """The backward kernel (bf16, D 16 to 256) around the dK/dV kernel's
-    32-row query steps and 64- and 128-key tiles and the dQ kernel's
-    128-row tiles: causal, windowed, non-causal, S < T, GQA, MQA, one
-    query; the forward with the LSE pointer bit-identical to the one
-    without; each call counted once on the backward."""
+    """The backward kernel (bf16, D 16 to 256) around its 64-key and
+    64-row tiles and the slices of each key tile's walk: causal, windowed,
+    non-causal, S < T, GQA, MQA, one query; the forward with the LSE
+    pointer bit-identical to the one without; each call counted once on
+    the backward; a second call on the same inputs bit for bit equal to
+    the first."""
     gen = torch.Generator(device=card).manual_seed(3)
     for b, kv, g, s, t, d, causal, window in [
             (1, 1, 4, 64, 64, 16, True, 32), (2, 2, 3, 129, 200, 128, True, 0),
@@ -1090,10 +1091,12 @@ def test_cuda_flash_bwd_kernel_equals_plain(card):
         got = FAB.flash_attention_bwd_kernel(q, k, v, out, do, lse, **kw)
         assert FAB.BWD_LAUNCHES["flash_attention_bwd"] == before + 1
         want = flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
+        again = FAB.flash_attention_bwd_kernel(q, k, v, out, do, lse, **kw)
         torch.cuda.synchronize()
-        for x, gx, w in zip((q, k, v), got, want):
+        for x, gx, w, g2 in zip((q, k, v), got, want, again):
             assert gx.dtype == torch.bfloat16 and gx.shape == x.shape
             assert _grad_ok(gx, w), (s, t, d, window)
+            assert torch.equal(gx, g2), (s, t, d, window)
 
 
 @pytest.mark.cuda
