@@ -100,8 +100,10 @@ paths through them:
     at full width (26 layers, AdamW state, 4,096 tokens a step) through
     `Trainer.fit` for 10 steps held to a loss rule fixed from a probe, and
     the same at lr 0, which the rule must refuse; the 100m preset's
-    checkpoint resume, bit for bit; mamba2's train step refused (its SSD
-    kernel has no backward yet).
+    checkpoint resume, bit for bit; `studies.quickstart` and the smoke
+    `studies.train_small_lm` as a user runs them (their llama's head dim 8
+    padded to 16 for both flash kernels), each with falling losses;
+    mamba2's train step refused (its SSD kernel has no backward yet).
 
 Every study's rows are held against the JAX package's, recorded on the CPU
 as constants below (`STUDY_REF`, `TRACES_REF`, `TELEMETRY_REF`,
@@ -133,6 +135,7 @@ import gc
 import hashlib
 import io
 import json
+import math
 import os
 import platform
 import re
@@ -220,6 +223,14 @@ TRAIN_LR = 1e-3
 TRAIN_WARMUP = 2
 TRAIN_100M_BATCH = 8
 TRAIN_100M_SEQ = 256
+# then the small training drivers on the card: `studies.quickstart` (its
+# smoke llama, 30 steps of 8 x 32 tokens) and SMALL_TRAIN_STEPS steps of
+# `studies.train_small_lm --preset smoke` (8 x 64): head dim 8, which the
+# autograd op pads to 16 for the tensor-core kernels; each must finish with
+# finite losses, the last below the first
+SMALL_TRAIN_ARCH = "llama3-8b"
+SMALL_TRAIN_BATCHES = ((8, 32), (8, 64))
+SMALL_TRAIN_STEPS = 20
 # the flash backward kernel against its plain version on the same inputs
 # (q, k, v, dO, the forward kernel's bf16 output and LSE; float32):
 # |got - want| <= FLASH_BWD_ULPS bf16 spacings of want plus FLASH_BWD_REL
@@ -2607,13 +2618,16 @@ def path_flash_cases():
     the cross attention of a decode step (one query); phi-3-vision-4.2b's
     prefills and forward (phase 5h); the training phase's
     recurrentgemma-2b period on PERIOD_TOKENS (its 4,096-token steps are
-    among the prefills) and the 100m preset's batch (phase 5i).
+    among the prefills), the 100m preset's batch, and the smoke llama of
+    `studies.quickstart` and `studies.train_small_lm` (D 8, padded to 16
+    under autograd: ``pad``) (phase 5i).
     serve_decode's calls are listed in `phase_flash_vs_plain`;
     `flash_shapes` holds every launch to the set checked."""
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
 
-    def calls(arch, b, lengths, *, causal=True, t=None, window=0):
-        cfg = get_config(arch)
+    def calls(arch, b, lengths, *, causal=True, t=None, window=0,
+              smoke=False):
+        cfg = (get_smoke_config if smoke else get_config)(arch)
         return [dict(b=b, kvh=cfg.n_kv, g=cfg.n_heads // cfg.n_kv,
                      d=cfg.head_dim, s=s, t=t or s, window=window,
                      causal=causal) for s in lengths]
@@ -2632,7 +2646,9 @@ def path_flash_cases():
             *calls(WHISPER_ARCH, SERVE_SLOTS, forced(WHISPER_PROMPTS)),
             *calls(WHISPER_ARCH, SERVE_SLOTS, (1, *forced(WHISPER_PROMPTS)),
                    causal=False, t=WHISPER_FRAMES),
-            *calls(VLM_ARCH, 1, forced(VLM_PROMPTS))]
+            *calls(VLM_ARCH, 1, forced(VLM_PROMPTS)),
+            *[dict(c, pad=True) for b, s in SMALL_TRAIN_BATCHES
+              for c in calls(SMALL_TRAIN_ARCH, b, (s,), smoke=True)]]
 
 
 @contextlib.contextmanager
@@ -2648,9 +2664,9 @@ def flash_shapes(OPS, seen, seen_bwd):
         seen.add(flash_key(q, k, causal=causal, window=window))
         return kernel(q, k, v, causal=causal, window=window, **kw)
 
-    def spy_bwd(q, k, v, o, do, lse, *, causal, window):
+    def spy_bwd(q, k, v, o, do, lse, *, causal, window, **kw):
         seen_bwd.add(flash_key(q, k, causal=causal, window=window))
-        return bwd(q, k, v, o, do, lse, causal=causal, window=window)
+        return bwd(q, k, v, o, do, lse, causal=causal, window=window, **kw)
 
     OPS.flash_attention_kernel = spy
     OPS.flash_attention_bwd_kernel = spy_bwd
@@ -2666,18 +2682,24 @@ def phase_flash_vs_plain(torch, FA, FAR):
     10}, D in {64, 128, 256}, S = T across the 64- and 128-row tiles and the
     2048 window, causal with and without the window, one non-causal case,
     in float32 (the CUDA-core kernel, atol 1e-4) and bf16 (the tensor-core
-    kernel, 2 ulps); plus D in {24, 200}, which bf16 takes to the CUDA-core
-    kernel (2 ulps); plus serve_decode's shapes (G 4, D 16, window 32, S 4
-    to 11 and 64); plus phi-3-vision's at its 576 patches, and every call
-    of the model paths (`path_flash_cases`: non-causal with S = T and with
-    S < T, H 32 over KV 4, H 8 over KV 8, H 32 over KV 32 at D 96).  Each
-    call is counted on the kernel it should take, and the worst error is
-    reported per kernel and dtype.  Then each kernel's time at one
-    4096-token prefill of recurrentgemma's attention layer in the dtype it
-    serves, and the tensor-core kernel's at a layer of each of phase 5h's
-    models.  Returns the worst errors, the timings and the `flash_key`s
-    held, so that `flash_shapes` can show that the paths launched no other
-    shape."""
+    kernel, 2 ulps, and its base-2 LSE within FLASH_LSE_ATOL, the call that
+    writes it bit-identical to the one that does not); plus D in {24, 200},
+    which bf16 takes to the CUDA-core kernel (2 ulps); plus serve_decode's
+    shapes (G 4, D 16, window 32, S 4 to 11 and 64); plus phi-3-vision's at
+    its 576 patches, and every call of the model paths (`path_flash_cases`:
+    non-causal with S = T and with S < T, H 32 over KV 4, H 8 over KV 8, H
+    32 over KV 32 at D 96; the small training drivers' D 8, whose bf16
+    calls take the autograd op's route: zero columns to 16 and the true D's
+    divisor); plus D 8 and 12 through that route at S < T, GQA and a
+    window.  Each call is counted on the kernel it should take, and the
+    worst error is reported per kernel and dtype.  Then each kernel's time
+    at one 4096-token prefill of recurrentgemma's attention layer in the
+    dtype it serves, and the tensor-core kernel's at a layer of each of
+    phase 5h's models (`family_timing`).  Returns the worst errors, the
+    timings and the `flash_key`s held, so that `flash_shapes` can show that
+    the paths launched no other shape."""
+    from repro_torch.kernels.flash_attention import ops as FAO
+
     gen = torch.Generator(device="cuda").manual_seed(31)
     cases = [dict(b=1, kvh=1, g=g, d=d, s=s, window=w, causal=True)
              for g in (1, 4, 10) for d in (64, 128, 256)
@@ -2697,9 +2719,17 @@ def phase_flash_vs_plain(torch, FA, FAR):
     # the D-128 tile), then every call the model paths make
     cases += [dict(b=1, kvh=32, g=1, d=96, s=576, window=0, causal=True)]
     cases += path_flash_cases()
+    # the padded route at the smoke configs' other head dim and its edges
+    cases += [dict(b=2, kvh=4, g=1, d=12, s=70, t=131, window=0,
+                   causal=False, pad=True),
+              dict(b=1, kvh=1, g=3, d=12, s=100, window=17, causal=True,
+                   pad=True),
+              dict(b=1, kvh=2, g=4, d=8, s=1, t=65, window=0, causal=True,
+                   pad=True)]
     keys = [case_key(c) for c in cases]
     cases = [c for i, c in enumerate(cases) if case_key(c) not in keys[:i]]
     worst = {"flash_attention": 0.0, "flash_attention_tc": 0.0}
+    lse_worst = 0.0
     # the shapes held, as `flash_shapes` records a launch
     checked = set()
     # (kernel, dtype) -> [cases, max abs err, max bf16 ulps]
@@ -2713,14 +2743,32 @@ def phase_flash_vs_plain(torch, FA, FAR):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (x.to(dtype) for x in (q32, k32, v32))
             kw = dict(causal=c["causal"], window=c["window"])
-            name = ("flash_attention_tc" if FA.uses_tensor_cores(dtype, d)
+            args, extra = (q, k, v), {}
+            if c.get("pad") and dtype == torch.bfloat16:
+                dp = FAO.padded_head_dim(d)
+                args = tuple(FAO.pad_head_dim(x, dp) for x in args)
+                extra = dict(sqrt_d=FA._sqrt_d(d))
+            name = ("flash_attention_tc"
+                    if FA.uses_tensor_cores(dtype, args[0].shape[-1])
                     else "flash_attention")
             before = dict(FA.LAUNCHES)
-            got = FA.flash_attention_kernel(q, k, v, **kw)
+            got = FA.flash_attention_kernel(*args, **kw, **extra)
             check({n: FA.LAUNCHES[n] - before[n] for n in before}
                   == {n: int(n == name) for n in before},
                   f"flash_attention {dtype} D={d} did not launch {name}")
-            want = FAR.flash_attention_ref(q, k, v, **kw)
+            want, lse_ref = FAR.flash_attention_ref(q, k, v, return_lse=True,
+                                                    **kw)
+            if name == "flash_attention_tc":
+                again, lse = FA.flash_attention_kernel(
+                    *args, return_lse=True, **kw, **extra)
+                lse_err = float((lse - lse_ref).abs().max())
+                lse_worst = max(lse_worst, lse_err)
+                check(torch.equal(again, got),
+                      f"{name} with the LSE pointer differs for {c}")
+                check(lse_err <= FLASH_LSE_ATOL,
+                      f"{name} LSE != plain for {c}: {lse_err}")
+                del again, lse
+            got = got[..., :d]
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             worst[name] = max(worst[name], err)
@@ -2735,10 +2783,12 @@ def phase_flash_vs_plain(torch, FA, FAR):
                 ok, ulps = bf16_within_ulps(torch, got, want, 2)
                 var[2] = max(var[2] or 0.0, ulps)
                 check(ok, f"{name} != plain (bf16) for {c}: {ulps} ulps")
-            checked.add(flash_key(q, k, **kw))
+            checked.add(flash_key(*args[:2], **kw))
     for (name, dtype), (n, err, ulps) in sorted(variants.items()):
         emit(phase="kernel_vs_plain", kernel=name, dtype=dtype, cases=n,
-             max_abs_err=err, max_ulps_bf16=ulps)
+             max_abs_err=err, max_ulps_bf16=ulps,
+             lse_max_abs_err=(lse_worst if name == "flash_attention_tc"
+                              else None))
 
     # one prefill of a 4096-token prompt in an attention layer of the model,
     # in each kernel's dtype
@@ -2790,19 +2840,26 @@ def family_timing(torch, FA, FAR, gen):
     """The tensor-core kernel at one layer of each of phase 5h's models, in
     bf16: qwen3-moe's 4,096-token prefill (H 32, KV 4, D 128, causal),
     whisper's 1,500-frame encoder over a batch of four (H 8, KV 8, D 64,
-    non-causal) and phi-3-vision's 4,096-token prefill (H 32, KV 32, D 96,
-    causal); each against its plain version's time, its bound and SDPA's
-    time for the same function (``is_causal`` with ``enable_gqa`` for the
-    causal rows, no mask for the encoder; a yardstick only, never called
-    on the path)."""
+    non-causal), phi-3-vision's 4,096-token prefill (H 32, KV 32, D 96,
+    causal), and whisper's cross attention over the batch of four at 448
+    queries and at one (a decode step) against the 1,500 frames; each
+    against its plain version's time, its bound and SDPA's time for the
+    same function (``is_causal`` with ``enable_gqa`` for the causal rows, no
+    mask for the others; a yardstick only, never called on the path), all
+    timed with CUDA events (`time_cuda`)."""
     rows = []
-    for model, b, s, h, kvh, d, causal in (
-            (MOE_ARCH, 1, 4096, 32, 4, 128, True),
-            (WHISPER_ARCH, 4, WHISPER_FRAMES, 8, 8, 64, False),
-            (VLM_ARCH, 1, 4096, 32, 32, 96, True)):
+    for model, b, s, t, h, kvh, d, causal in (
+            (MOE_ARCH, 1, 4096, 4096, 32, 4, 128, True),
+            (WHISPER_ARCH, 4, WHISPER_FRAMES, WHISPER_FRAMES, 8, 8, 64,
+             False),
+            (VLM_ARCH, 1, 4096, 4096, 32, 32, 96, True),
+            (f"{WHISPER_ARCH} cross attention", 4, 448, WHISPER_FRAMES, 8, 8,
+             64, False),
+            (f"{WHISPER_ARCH} cross attention step", 4, 1, WHISPER_FRAMES,
+             8, 8, 64, False)):
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(
-            torch.bfloat16) for shape in ((b, s, h, d), (b, s, kvh, d),
-                                          (b, s, kvh, d)))
+            torch.bfloat16) for shape in ((b, s, h, d), (b, t, kvh, d),
+                                          (b, t, kvh, d)))
         ms, host_ms = time_cuda(torch, lambda: FA.flash_attention_kernel(
             q, k, v, causal=causal), 20)
         plain_ms, _ = time_cuda(torch, lambda: FAR.flash_attention_ref(
@@ -2817,13 +2874,13 @@ def family_timing(torch, FA, FAR, gen):
         lib_err = float((sdpa().transpose(1, 2).float()
                          - FA.flash_attention_kernel(
                              q, k, v, causal=causal).float()).abs().max())
-        bound, by = flash_bound_ms(b, s, h, kvh, d, 0, 2, causal)
-        row = dict(model=model, B=b, S=s, H=h, KV=kvh, D=d, causal=causal,
-                   ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                   library_ms=lib_ms)
+        bound, by = flash_bound_ms(b, s, h, kvh, d, 0, 2, causal, t)
+        row = dict(model=model, B=b, S=s, T=t, H=h, KV=kvh, D=d,
+                   causal=causal, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                   bound_by=by, library_ms=lib_ms)
         emit(phase="kernel_timing", kernel="flash_attention_tc",
              dtype="bfloat16", window=0, host_ms_per_call=host_ms,
-             unmasked_pairs=attn_pairs(s, 0, causal) * b * h,
+             unmasked_pairs=attn_pairs(s, 0, causal, t) * b * h,
              library="scaled_dot_product_attention ("
                      + ("is_causal, " if causal else "no mask, ")
                      + "enable_gqa)", library_max_abs_diff=lib_err, **row)
@@ -3666,11 +3723,13 @@ def train_bwd_cases():
     training layer of each model (timed: recurrentgemma-2b's, qwen3-moe's H
     32 over KV 4 at D 128, phi-3-vision's H 32 at D 96, whisper's encoder
     non-causal at 1,500 frames and its cross attention, 448 queries
-    against 1,500 keys), and edges (D 16, S < T causal and not, one query,
-    ragged tiles, D 256 with a window, GQA)."""
-    from repro_torch.configs import get_config
+    against 1,500 keys), the small training drivers' smoke llama (D 8,
+    which the autograd op pads to 16), and edges (D 16, D 12 padded, S < T
+    causal and not, one query, ragged tiles, D 256 with a window, GQA)."""
+    from repro_torch.configs import get_config, get_smoke_config
 
     rg = get_config(MODEL_ARCH)
+    small = get_smoke_config(SMALL_TRAIN_ARCH)
     rgk = dict(kvh=rg.n_kv, g=rg.n_heads // rg.n_kv, d=rg.head_dim,
                window=rg.window, causal=True)
     return [
@@ -3692,6 +3751,11 @@ def train_bwd_cases():
         dict(b=1, s=1, kvh=2, g=1, d=64, window=0, causal=True),
         dict(b=1, s=300, kvh=1, g=2, d=256, window=40, causal=True),
         dict(b=1, s=257, kvh=2, g=4, d=64, window=100, causal=True),
+        *[dict(b=b, s=s, kvh=small.n_kv, g=small.n_heads // small.n_kv,
+               d=small.head_dim, window=0, causal=True)
+          for b, s in SMALL_TRAIN_BATCHES],
+        dict(b=2, s=70, t=131, kvh=4, g=1, d=12, window=0, causal=False),
+        dict(b=1, s=100, kvh=1, g=3, d=12, window=17, causal=True),
     ]
 
 
@@ -3758,13 +3822,19 @@ def flash_bwd_vs_plain(torch, FA, FAR):
     largest, and against autograd through the plain forward in float32
     within that bound widened by the plain backward's own distance from
     autograd (see FLASH_BWD_ULPS); a second call on the same inputs bit
-    for bit equal to the first; each call counted on the backward.  Then
+    for bit equal to the first; each call counted on the backward.  A head
+    dim that is not a multiple of 16 takes the autograd op's route (q, k,
+    v, dO padded with zero columns to 16, both kernels given the true D's
+    divisor, the results sliced back), held to the plain versions at the
+    true D, and the op itself (`ops.flash_attention` under autograd) gives
+    the same output and gradients bit for bit.  Then
     the timed cases' device ms against the plain backward's
     (`ref.flash_attention_bwd_plain`), the bound and SDPA's backward (and,
     where the layer has a window, SDPA's ``is_causal`` backward without
     it), with each of the four launches' device ms.
     Returns (worst abs err, the `flash_key`s held, the timings by model)."""
     from repro_torch.kernels.flash_attention import kernel_bwd as FAB
+    from repro_torch.kernels.flash_attention import ops as FAO
 
     gen = torch.Generator(device="cuda").manual_seed(43)
     worst = ratio_worst = lse_worst = 0.0
@@ -3777,8 +3847,12 @@ def flash_bwd_vs_plain(torch, FA, FAR):
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(
             torch.bfloat16) for shape in ((b, s, h, d), (b, t, kvh, d),
                                           (b, t, kvh, d), (b, s, h, d)))
-        plain_out = FA.flash_attention_kernel(q, k, v, **kw)
-        out, lse = FA.flash_attention_kernel(q, k, v, return_lse=True, **kw)
+        dp = FAO.padded_head_dim(d)
+        qp, kp, vp, dop = (FAO.pad_head_dim(x, dp) for x in (q, k, v, do))
+        pkw = dict(kw, sqrt_d=FA._sqrt_d(d))
+        plain_out = FA.flash_attention_kernel(qp, kp, vp, **pkw)
+        out, lse = FA.flash_attention_kernel(qp, kp, vp, return_lse=True,
+                                             **pkw)
         check(torch.equal(out, plain_out),
               f"flash forward with the LSE pointer differs for {c}")
         _, lse_ref = FAR.flash_attention_ref(q, k, v, return_lse=True, **kw)
@@ -3787,13 +3861,24 @@ def flash_bwd_vs_plain(torch, FA, FAR):
         check(lse_err <= FLASH_LSE_ATOL, f"flash LSE != plain for {c}: "
                                          f"{lse_err}")
         before = FAB.BWD_LAUNCHES["flash_attention_bwd"]
-        got = FAB.flash_attention_bwd_kernel(q, k, v, out, do, lse, **kw)
-        again = FAB.flash_attention_bwd_kernel(q, k, v, out, do, lse, **kw)
+        got = FAB.flash_attention_bwd_kernel(qp, kp, vp, out, dop, lse, **pkw)
+        again = FAB.flash_attention_bwd_kernel(qp, kp, vp, out, dop, lse,
+                                               **pkw)
         check(FAB.BWD_LAUNCHES["flash_attention_bwd"] == before + 2,
               "flash_attention_bwd did not count its launches")
         check(all(torch.equal(x, y) for x, y in zip(got, again)),
               f"flash_attention_bwd: two calls differ for {c}")
         del again
+        out, got = out[..., :d], [x[..., :d] for x in got]
+        if dp != d:
+            # the autograd op takes the same route
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            op_out = FAO.flash_attention(*leaves, **kw)
+            op_grads = torch.autograd.grad(op_out, leaves, do)
+            check(torch.equal(op_out, out) and all(
+                torch.equal(x, y) for x, y in zip(op_grads, got)),
+                f"ops.flash_attention's padded route differs for {c}")
+            del leaves, op_out, op_grads
         plain = FAR.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
         auto = plain_flash_grads(torch, FAR, q, k, v, do, **kw)
         torch.cuda.synchronize()
@@ -3812,8 +3897,8 @@ def flash_bwd_vs_plain(torch, FA, FAR):
             auto_err = max(auto_err, float((g.float() - a).abs().max()))
             check(ok, f"flash_attention_bwd {name} != autograd for {c}: "
                   f"{widened} of the widened allowance")
-        checked.add(flash_key(q, k, **kw))
-        del plain, auto, got
+        checked.add(flash_key(qp, kp, **kw))
+        del plain, auto, got, qp, kp, vp, dop
         if "model" in c:
             ms, host_ms = time_cuda(
                 torch, lambda: FAB.flash_attention_bwd_kernel(
@@ -4179,14 +4264,62 @@ def ssd_train_raises(torch):
     emit(phase="train_ssd_refused", arch=cfg.name, message=raised)
 
 
+def small_training_on_card(torch, FA, RK):
+    """The small training drivers on the card, as a user runs them:
+    `studies.quickstart.main("cuda")` (its fabric question, 30 steps of the
+    smoke llama, the autotuner) and `studies.train_small_lm` with ``--preset
+    smoke`` for SMALL_TRAIN_STEPS steps into a fresh checkpoint directory.
+    Their llama has head dim 8, which the autograd op pads to 16 for the
+    tensor-core forward and backward kernels.  Each run's counts are set to
+    0 before it and read after it: each must launch both flash kernels and
+    not the CUDA-core one, and finish with finite losses, the last below
+    the first (each driver returns its trainer).  Returns the launches of
+    both runs."""
+    from repro_torch.studies import quickstart, train_small_lm
+
+    total = {}
+    for name in ("quickstart", "train_small_lm"):
+        zero_train_counts(FA, RK)
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                tempfile.TemporaryDirectory() as ckpt:
+            if name == "quickstart":
+                trainer = quickstart.main("cuda")
+            else:
+                trainer = train_small_lm.main([
+                    "--preset", "smoke", "--steps", str(SMALL_TRAIN_STEPS),
+                    "--ckpt-dir", ckpt, "--device", "cuda"])
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        launches = train_counts(FA, RK)
+        losses = [m["loss"] for m in trainer.metrics_log]
+        emit(phase="small_training", driver=name, arch=trainer.cfg.name,
+             head_dim=trainer.cfg.head_dim, steps=len(losses),
+             losses=losses, host_s=host_s, launches=launches,
+             printed_lines=len(out.getvalue().splitlines()))
+        check(len(losses) > 1 and all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0],
+              f"{name}: the losses do not fall on the card: {losses}")
+        check(launches["flash_attention_tc"] > 0
+              and launches["flash_attention_bwd"] > 0
+              and launches["flash_attention"] == 0,
+              f"{name}: the flash launches {launches}")
+        for n, c in launches.items():
+            total[n] = total.get(n, 0) + c
+    return total
+
+
 def phase_training(torch, FA, FAR, RK, RR):
     """Phase 5i: training on the card, after phase 5h has freed its models.
     The flash backward and the RG-LRU scan's reverse mode against their
     plain versions (and timed); one full-width recurrentgemma-2b period on
     the card against the CPU; TRAIN_STEPS full-width steps held to the loss
     rule, and the same at lr 0, which the rule must refuse; the 100m
-    preset's checkpoint resume, bit for bit; mamba2's train step refused.
-    Returns (the training paths' launches, worst errors, timings)."""
+    preset's checkpoint resume, bit for bit; `studies.quickstart` and the
+    smoke `studies.train_small_lm` (head dim 8 through the padded route);
+    mamba2's train step refused.  Returns (the training paths' launches,
+    worst errors, timings)."""
     gc.collect()
     torch.cuda.empty_cache()
     start = torch.cuda.memory_allocated()
@@ -4222,6 +4355,7 @@ def phase_training(torch, FA, FAR, RK, RR):
     zero_train_counts(FA, RK)
     resume_on_card(torch, FA)
     add(train_counts(FA, RK))
+    add(small_training_on_card(torch, FA, RK))
     ssd_train_raises(torch)
     emit(phase="training", host_s=time.perf_counter() - t0,
          kernel_checks_s=kernels_s, **{f"{n}_launches": c

@@ -8,9 +8,10 @@ are CUDA C++ for ``sm_90a``, built with ``nvcc`` at first use
 stream.  The wrapper picks one by dtype and head dim:
 
 * bf16 with D a multiple of 16 (the served models' case):
-  ``csrc/flash_attention_tc.cu``, FlashAttention-2 on the tensor cores
-  (``mma.sync``), 128-row query tiles, the weights split hi/lo against V;
-  counted in ``LAUNCHES["flash_attention_tc"]``;
+  ``csrc/flash_attention_tc.cu``, FlashAttention-2 redesigned for Hopper
+  (``wgmma`` fed by TMA behind ``mbarrier`` s, a producer warp and one or two
+  consumer warpgroups of 64 query rows, 64-key tiles, the weights split
+  hi/lo against V); counted in ``LAUNCHES["flash_attention_tc"]``;
 * float32, or bf16 with another D: ``csrc/flash_attention.cu``, float32 on
   the CUDA cores, 64-row query tiles; counted in
   ``LAUNCHES["flash_attention"]``.
@@ -33,7 +34,9 @@ pair at 989 TFLOP/s bf16.
 
 The gradient (`ops.flash_attention` under autograd): the tensor-core kernel
 writes the rows' base-2 log-sum-exp on request (``return_lse=True``) for
-the backward kernel (`kernel_bwd`).
+the backward kernel (`kernel_bwd`).  ``sqrt_d`` divides the scores in place
+of the square root of the tensors' D: the autograd op pads a bf16 head dim
+that is not a multiple of 16 with zero columns and passes the true D's.
 """
 
 from __future__ import annotations
@@ -108,7 +111,7 @@ def _sqrt_d(d: int) -> float:
 
 
 def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
-                           return_lse: bool = False):
+                           return_lse: bool = False, sqrt_d=None):
     """q: (B, S, H, D); k, v: (B, T, KV, D); contiguous CUDA tensors of one
     dtype (float32 or bf16) on one device, with S <= T, H a multiple of KV,
     D a multiple of 4 and at most 256 -> (B, S, H, D) in q's dtype.
@@ -116,7 +119,9 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
     CUDA-core kernel otherwise (`uses_tensor_cores`), on the current
     stream; raises on any tensor it does not take or on a failed launch.
     ``return_lse`` (the tensor-core kernel only): also the rows' base-2
-    log-sum-exp, float32 (B, H, S), for the backward kernel."""
+    log-sum-exp, float32 (B, H, S), for the backward kernel.  ``sqrt_d``:
+    the scores' divisor (default: the square root of D, rounded to
+    float32)."""
     b, s, t, h, kvh, d = _check(q, k, v)
     tc = uses_tensor_cores(q.dtype, d)
     if return_lse and not tc:
@@ -128,7 +133,7 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) \
         if return_lse else None
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    sqrt_d = _sqrt_d(d)
+    sqrt_d = _sqrt_d(d) if sqrt_d is None else float(sqrt_d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if tc:

@@ -70,13 +70,15 @@ def slices(b, s, t, h, kvh, d, *, causal: bool, window: int) -> int:
 
 
 def flash_attention_bwd_kernel(q, k, v, o, do, lse, *, causal: bool = True,
-                               window: int = 0, marks=None):
+                               window: int = 0, sqrt_d=None, marks=None):
     """The gradient of `flash_attention_kernel` (bf16, D a multiple of 16):
     q, o and do (B, S, H, D), k and v (B, T, KV, D), contiguous bf16 CUDA
     tensors; lse (B, H, S) float32, the forward's base-2 log-sum-exp ->
     (dq, dk, dv) bf16 in the inputs' layouts.  Launches the four kernels of
     ``csrc/flash_attention_bwd.cu`` on the current stream (one count);
-    raises on any tensor it does not take or on a failed launch.  ``marks``:
+    raises on any tensor it does not take or on a failed launch.
+    ``sqrt_d``: the forward's divisor of the scores (default: the square
+    root of D, rounded to float32).  ``marks``:
     five ``torch.cuda.Event`` s, each recorded once already, that the call
     records before its first launch and after each of the four, to time
     them."""
@@ -100,7 +102,8 @@ def flash_attention_bwd_kernel(q, k, v, o, do, lse, *, causal: bool = True,
             *(e.cuda_event for e in marks))
         err = lib.flash_attention_bwd_launch(
             *(x.data_ptr() for x in (q, k, v, o, do, lse, dq, dk, dv, ws)),
-            *shape, int(causal), int(window), n, _sqrt_d(d), stream, events)
+            *shape, int(causal), int(window), n,
+            _sqrt_d(d) if sqrt_d is None else float(sqrt_d), stream, events)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")

@@ -14,7 +14,10 @@ query tiles, the KV tiles each visits (`kv_tile_range`, the skipping of
 dead tiles), the online softmax.  With ``split=True`` it also rounds as the
 tensor-core kernel does: the float32 weights split hi/lo into bf16
 (`kernels._split.split_bf16`) and ``P_hi V + P_lo V`` in float32, on that
-kernel's 128-row query and 64-key tiles.  The CPU tests hold it against the
+kernel's 64-key tiles and 128-row query blocks (64 rows at D 256).  The
+plain versions take an optional ``head_dim``, the D whose square root
+divides the scores where the tensors' D was padded with zero columns (the
+autograd op's path for bf16 at D 8 or 12).  The CPU tests hold it against the
 plain version at small tiles and at the kernels' own, so the tile walk and
 the split are tested here and not only on the card.
 
@@ -66,6 +69,8 @@ def sqrt_head_dim(d: int, device=torch.device("cpu")) -> torch.Tensor:
 
 
 def _divisor(d, x):
+    """sqrt(d) as the divisor of the scores ``x``: float64 for float64
+    scores, else `sqrt_head_dim` on their device."""
     if x.dtype == torch.float64:
         return torch.tensor(math.sqrt(d), dtype=torch.float64,
                             device=x.device)
@@ -85,10 +90,10 @@ def attention_mask(sq: int, t: int, *, causal: bool, window: int, device):
     return mask
 
 
-def _scores(q, k, causal, window):
+def _scores(q, k, causal, window, head_dim=None):
     """Masked scores (B, KV, G, S, T) and the mask, in the grouped
-    layout."""
-    d = q.shape[-1]
+    layout; divided by sqrt(``head_dim``), by default q's D."""
+    d = q.shape[-1] if head_dim is None else head_dim
     qa = _acc(q)
     s = torch.einsum("bkgsd,bktd->bkgst", qa, _acc(k).to(qa.dtype)) \
         / _divisor(d, qa)
@@ -98,12 +103,14 @@ def _scores(q, k, causal, window):
 
 
 def flash_attention_grouped(q, k, v, *, causal: bool = True,
-                            window: int = 0, return_lse: bool = False):
+                            window: int = 0, return_lse: bool = False,
+                            head_dim=None):
     """The reference's ``flash_attention_ref`` in its grouped layout: q (B,
     KV, G, S, D); k, v: (B, KV, T, D) -> (B, KV, G, S, D) in q's dtype
     (and, with ``return_lse``, the rows' base-2 log-sum-exp (B, KV, G,
-    S))."""
-    s, _ = _scores(q, k, causal, window)
+    S)).  ``head_dim``: the D whose square root divides the scores, where
+    the tensors' D was padded with zero columns (default: their own)."""
+    s, _ = _scores(q, k, causal, window, head_dim)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", w, _acc(v).to(w.dtype)).to(
         q.dtype)
@@ -125,15 +132,17 @@ def _ungrouped(x):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        return_lse: bool = False):
+                        return_lse: bool = False, head_dim=None):
     """The plain version in the model layout, as the kernel takes it: q (B,
     S, H, D), k and v (B, T, KV, D) -> (B, S, H, D), query heads grouped per
     KV head (`flash_attention_grouped` on the regrouped tensors).  With
-    ``return_lse``: (out, lse2), lse2 (B, H, S) in the compute type."""
+    ``return_lse``: (out, lse2), lse2 (B, H, S) in the compute type.
+    ``head_dim`` as in `flash_attention_grouped`."""
     b, s, h, _ = q.shape
     out = flash_attention_grouped(_grouped(q, k.shape[2]), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=causal,
-                                  window=window, return_lse=return_lse)
+                                  window=window, return_lse=return_lse,
+                                  head_dim=head_dim)
     if return_lse:
         out, lse = out
         return _ungrouped(out), lse.reshape(b, h, s)
@@ -141,26 +150,26 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True,
-                            window: int = 0):
+                            window: int = 0, head_dim=None):
     """The backward kernel's plain version: q, o and do (B, S, H, D); k, v
     (B, T, KV, D); lse (B, H, S), the forward's base-2 log-sum-exp ->
     (dq, dk, dv) in the compute type (float32, or float64 for float64
     inputs), the query heads of a KV head's group summed into its dk and
-    dv."""
+    dv.  ``head_dim`` as in `flash_attention_grouped`."""
     b, s, h, d = q.shape
     kvh = k.shape[2]
     qg = _acc(_grouped(q, kvh))
     kt, vt = (_acc(x.transpose(1, 2)).to(qg.dtype) for x in (k, v))
     dog = _acc(_grouped(do, kvh)).to(qg.dtype)
     og = _acc(_grouped(o, kvh)).to(qg.dtype)
-    x, mask = _scores(qg, kt, causal, window)
+    x, mask = _scores(qg, kt, causal, window, head_dim)
     lse = lse.to(qg.dtype).reshape(b, kvh, h // kvh, s, 1)
     p = torch.where(mask, torch.exp2(x * LOG2E - lse), 0.0)
     dv = torch.einsum("bkgst,bkgsd->bktd", p, dog)
     dp = torch.einsum("bkgsd,bktd->bkgst", dog, vt)
     delta = (dog * og).sum(-1, keepdim=True)
     ds = p * (dp - delta)
-    sqrt_d = _divisor(d, qg)
+    sqrt_d = _divisor(d if head_dim is None else head_dim, qg)
     dq = torch.einsum("bkgst,bktd->bkgsd", ds, kt) / sqrt_d
     dk = torch.einsum("bkgst,bkgsd->bktd", ds, qg) / sqrt_d
     return _ungrouped(dq), dk.transpose(1, 2), dv.transpose(1, 2)
@@ -191,14 +200,19 @@ def q_tile_range(k0: int, bk: int, s: int, bq: int, *, causal: bool,
 
 
 def flash_attention_tiled(q, k, v, *, causal: bool = True, window: int = 0,
-                          bq: int = 64, bk: int = 64, split: bool = False):
+                          bq: int = 64, bk: int = 64, split: bool = False,
+                          head_dim=None):
     """The CUDA kernels' algorithm on the CPU, in the grouped layout of
     `flash_attention_grouped`: query tiles of ``bq`` rows walk the KV tiles of
     ``bk`` keys that `kv_tile_range` keeps, in order, with the online
-    softmax (masked scores at -inf contribute 0) in float32.  ``split``:
-    the weights times V as ``P_hi V + P_lo V`` (the tensor-core kernel,
-    whose tiles are ``bq`` 128 and ``bk`` 64)."""
-    d = q.shape[-1]
+    softmax (masked scores at -inf contribute 0) in float32: each tile's
+    weights ``P`` and row sums are taken before the accumulator, rescaled
+    by the moved max, adds ``P V``.  ``split``: the weights times V as
+    ``P_hi V + P_lo V`` (the tensor-core kernel, whose tiles are ``bk`` 64
+    and ``bq`` 128, or 64 at D above 128; a warpgroup's 64 rows skip a tile
+    none of them sees, which leaves its state as visiting it would).
+    ``head_dim`` as in `flash_attention_grouped`."""
+    d = q.shape[-1] if head_dim is None else head_dim
     sq, t = q.shape[3], k.shape[2]
     qf, kf, vf = q.float(), k.float(), v.float()
     dev = q.device

@@ -17,7 +17,9 @@ import argparse
 import numpy as np
 
 
-def main(device="cuda") -> None:
+def main(device="cuda"):
+    """Runs the three steps, printing as the reference's example does;
+    returns the trainer of step 2 (its ``metrics_log`` holds the losses)."""
     # ---- 1. the paper: which fabric should my 8+8 CXL system use? -------
     from ..core import (RequesterSpec, build_workload, request_stats,
                         simulate)
@@ -67,6 +69,7 @@ def main(device="cuda") -> None:
     for s in autotune(dims, TPUFabric(16, 16), device=device)[:3]:
         print(f"  {s.layout.name:12s} step={s.step_s * 1e3:7.1f} ms "
               f"bound={s.bound} hbm={s.hbm_bytes_per_chip / 2**30:.2f} GiB")
+    return trainer
 
 
 if __name__ == "__main__":

@@ -50,7 +50,8 @@ def test_editing_an_included_header_changes_the_library_path(tmp_path,
 
 
 @pytest.mark.parametrize("module,headers", [
-    (FA, {"flash_attention_tc.cu", "_mma.cuh"}),
+    (FA, {"flash_attention_tc.cu", "_hopper.cuh", "_mma.cuh",
+          "flash_scale.cuh"}),
     (SK, {"ssd_chunk_tc.cu", "_mma.cuh", "chunk_walk.cuh"})])
 def test_tensor_core_sources_hash_the_shared_header(module, headers):
     assert {p.name for p in _build.included_files(module._SOURCE_TC)} == \
@@ -58,10 +59,12 @@ def test_tensor_core_sources_hash_the_shared_header(module, headers):
 
 
 def test_backward_source_hashes_the_hopper_header():
-    """The flash backward's library is named by its source and both
-    headers it includes (`_hopper.cuh`: the wgmma, TMA and mbarrier
-    helpers; `_mma.cuh`: the hi/lo split)."""
+    """The flash backward's library is named by its source and the headers
+    it includes (`_hopper.cuh`: the wgmma, TMA and mbarrier helpers;
+    `_mma.cuh`: the hi/lo split; `flash_scale.cuh`: the score scaling and
+    exp it shares with the forward)."""
     from repro_torch.kernels.flash_attention import kernel_bwd as FAB
 
     assert {p.name for p in _build.included_files(FAB._SOURCE)} == {
-        "flash_attention_bwd.cu", "_hopper.cuh", "_mma.cuh"}
+        "flash_attention_bwd.cu", "_hopper.cuh", "_mma.cuh",
+        "flash_scale.cuh"}

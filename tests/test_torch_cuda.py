@@ -29,9 +29,11 @@ take that cumsum in one order), plus one bf16 spacing for a bf16 output
 on the card against the CPU ``5e-2``, the bf16 tolerance of the CPU tests
 against the reference.  The gradients (the flash backward kernel, the scan's
 reverse mode, a train step): the backward kernel against its plain version
-on the same inputs within 2 bf16 spacings plus ``1e-3`` of the largest
-gradient plus ``1e-5`` (bf16 outputs, float32 sums in another order,
-float32 cancellation where a row sees one key), the reverse scan bit-equal
+on the same inputs (and, at the padded head dims 8 and 12, the plain
+backward at the true D against the op's sliced gradients) within 2 bf16
+spacings plus ``1e-3`` of the largest gradient plus ``1e-5`` (bf16
+outputs, float32 sums in another order, float32 cancellation where a row
+sees one key), the reverse scan bit-equal
 to its blocked emulation and within ``1e-5`` of the largest value of its
 plain walk, a smoke train step's loss and gradient leaves on the card
 against the CPU within ``5e-2`` (the loss absolute, each leaf in relative
@@ -1097,6 +1099,75 @@ def test_cuda_flash_bwd_kernel_equals_plain(card):
             assert gx.dtype == torch.bfloat16 and gx.shape == x.shape
             assert _grad_ok(gx, w), (s, t, d, window)
             assert torch.equal(gx, g2), (s, t, d, window)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_tc_wgmma_kernel_equals_plain_with_lse(card):
+    """The tensor-core forward (wgmma fed by TMA, one or two consumer
+    warpgroups of 64 rows) at D 16, 64, 96, 128 and 256 around its 64-key
+    tiles and 128-row (64 at D 256) blocks: one query, S < T, ragged tiles,
+    causal, windowed and non-causal, GQA and MQA; the output within 2 ulps
+    of the plain version, the base-2 LSE within 1e-3 of the plain one, the
+    call that writes it bit-identical to the one that does not, and two
+    calls bit-equal."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    for b, kv, g, s, t, d, causal, window in [
+            (1, 1, 4, 1, 1, 16, True, 0), (2, 2, 2, 1, 77, 64, False, 0),
+            (1, 2, 3, 63, 200, 96, True, 0),
+            (1, 1, 2, 129, 129, 128, True, 40),
+            (2, 1, 3, 200, 333, 128, False, 70),
+            (1, 1, 10, 300, 300, 256, True, 64),
+            (1, 2, 1, 65, 130, 256, False, 0),
+            (1, 4, 2, 127, 127, 16, True, 9),
+            (4, 8, 1, 1, 1500, 64, False, 0)]:
+        q, k, v = (torch.randn(shape, generator=gen, device=card).to(
+            torch.bfloat16) for shape in ((b, s, kv * g, d), (b, t, kv, d),
+                                          (b, t, kv, d)))
+        kw = dict(causal=causal, window=window)
+        out = FA.flash_attention_kernel(q, k, v, **kw)
+        again, lse = FA.flash_attention_kernel(q, k, v, return_lse=True,
+                                               **kw)
+        want, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again), (s, t, d)
+        assert bf16_within_ulps(out, want, 2), (s, t, d, window)
+        assert float((lse - lse_ref).abs().max()) <= 1e-3, (s, t, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 12])
+def test_cuda_flash_padded_head_dim_gradients_equal_plain(card, d):
+    """bf16 at the smoke configs' head dims 8 and 12 under autograd: the op
+    pads q, k and v with zero columns to 16 for both tensor-core kernels
+    (one launch each), divides by the true D's square root and slices back;
+    its output within 2 ulps of the plain version and its gradients within
+    the backward's bound of the plain backward at the true D."""
+    from repro_torch.kernels.flash_attention import ops as FAO
+
+    gen = torch.Generator(device=card).manual_seed(d)
+    for b, kv, g, s, t, causal, window in [
+            (8, 2, 4, 32, 32, True, 0), (2, 4, 1, 70, 131, False, 0),
+            (1, 1, 3, 100, 100, True, 17)]:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=card).to(
+            torch.bfloat16) for shape in ((b, s, kv * g, d), (b, t, kv, d),
+                                          (b, t, kv, d), (b, s, kv * g, d)))
+        kw = dict(causal=causal, window=window)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        before = (dict(FA.LAUNCHES), FAB.BWD_LAUNCHES["flash_attention_bwd"])
+        out = FAO.flash_attention(*leaves, **kw)
+        grads = torch.autograd.grad(out, leaves, do)
+        assert {n: FA.LAUNCHES[n] - before[0][n] for n in FA.LAUNCHES} == {
+            "flash_attention": 0, "flash_attention_tc": 1}
+        assert FAB.BWD_LAUNCHES["flash_attention_bwd"] == before[1] + 1
+        assert out.shape == q.shape and out.dtype == torch.bfloat16
+        want, lse = flash_attention_ref(q, k, v, return_lse=True, **kw)
+        assert bf16_within_ulps(out.detach(), want, 2), (s, t, d)
+        plain = flash_attention_bwd_plain(q, k, v, out.detach(), do, lse,
+                                          **kw)
+        torch.cuda.synchronize()
+        for x, gx, w in zip((q, k, v), grads, plain):
+            assert gx.shape == x.shape
+            assert _grad_ok(gx, w), (s, t, d, window)
 
 
 @pytest.mark.cuda

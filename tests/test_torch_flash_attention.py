@@ -10,8 +10,13 @@ Tolerances:
   walk (dead tiles skipped, online softmax), against the plain version: the
   same ``1e-4``; with ``split=True`` (the tensor-core kernel's roundings:
   the float32 weights split hi/lo into bf16 against V) on bf16 inputs, the
-  same ``1e-4`` against the plain version and against the reference's
-  ``flash_attention_ref``: the split keeps 2^-17 of each term;
+  same ``1e-4`` against the plain version, the reference's
+  ``flash_attention_ref`` and its interpreted kernel: the split keeps
+  2^-17 of each term;
+* the padded head dim (D 8 and 12 padded with zero columns to 16, the
+  scores divided by the true D's square root), sliced back, against the
+  unpadded call: ``1e-6`` (float32 sums over extra zero columns in another
+  blocking);
 * `kernels._split.split_bf16`: ``hi + lo`` within 2^-17 of each float32
   value, relative, and equal to a bf16 value;
 * the model-layout op against the reference's ``ops.flash_attention(impl=
@@ -47,6 +52,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels._split import split_bf16  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as pkernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as pops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as pref  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_grouped, flash_attention_tiled, kv_tile_range)
 from repro_torch.models import attention as A  # noqa: E402
@@ -133,12 +139,13 @@ def test_tiled_emulation_equals_plain(b, kv, g, s, d, causal, window, bq,
     close(got, want, F32_TOL, f"tiled bq={bq} bk={bk}")
 
 
-@pytest.mark.parametrize("bq,bk", [(128, 64), (16, 8)])
+@pytest.mark.parametrize("bq,bk", [(128, 64), (64, 64), (16, 8)])
 @pytest.mark.parametrize("b,kv,g,s,d,causal,window", CASES)
 def test_split_emulation_equals_plain_and_reference(b, kv, g, s, d, causal,
                                                     window, bq, bk):
     """The tensor-core kernel's roundings (P split hi/lo against V) on bf16
-    inputs, at its own tiles (128 query rows, 64 keys) and at small ones."""
+    inputs, at its own tiles (64 keys; 128 query rows, 64 at D 256) and at
+    small ones."""
     q, k, v = (f32(jnp.asarray(x).astype(jnp.bfloat16))
                for x in grouped(s * 5 + bq, b, kv, g, s, d))
     tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
@@ -154,6 +161,72 @@ def test_split_emulation_equals_plain_and_reference(b, kv, g, s, d, causal,
     close(got32, jax_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                          causal=causal, window=window), F32_TOL,
           f"split bq={bq} bk={bk} vs flash_attention_ref")
+
+
+@pytest.mark.parametrize("bq", [128, 64])
+@pytest.mark.parametrize("b,kv,g,s,d,causal,window", [
+    (1, 2, 2, 192, 16, True, 0), (1, 1, 3, 128, 32, True, 40),
+    (2, 1, 2, 192, 16, False, 0), (1, 2, 1, 64, 16, False, 24)])
+def test_split_emulation_at_the_kernel_tiles_equals_interpreted_kernel(
+        b, kv, g, s, d, causal, window, bq):
+    """The tensor-core kernel's walk and roundings at its own tiles (64-key
+    tiles; a block of 128 query rows, or 64 at D 256), past several tiles,
+    against the reference's Pallas kernel run interpreted at its own
+    blocks (S a multiple of them, as it asks; 192 rows leave the emulation
+    a ragged 128-row block)."""
+    q, k, v = (f32(jnp.asarray(x).astype(jnp.bfloat16))
+               for x in grouped(s + bq, b, kv, g, s, d))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = flash_attention_tiled(tq, tk, tv, causal=causal, window=window,
+                                bq=bq, bk=64, split=True)
+    want = flash_attention_gqa(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=causal, window=window,
+                               q_blk=64, kv_blk=64, interpret=True)
+    close(got, want, F32_TOL, f"split bq={bq} vs flash_attention_gqa")
+
+
+# (b, kv, g, s, t, d, causal, window) at the smoke configs' head dims 8 and
+# 12: GQA, causal, windowed, non-causal, S < T
+PAD_CASES = [(2, 2, 4, 32, 32, 8, True, 0), (1, 1, 3, 40, 40, 8, True, 9),
+             (2, 4, 1, 19, 45, 12, False, 0), (1, 2, 2, 30, 50, 12, True, 7),
+             (1, 1, 2, 33, 33, 12, False, 11)]
+
+
+@pytest.mark.parametrize("b,kv,g,s,t,d,causal,window", PAD_CASES)
+def test_padded_head_dim_equals_unpadded(b, kv, g, s, t, d, causal, window):
+    """The autograd op's path on the card for a bf16 head dim that is not a
+    multiple of 16: q, k and v padded with zero columns to
+    `ops.padded_head_dim`, the scores divided by the true D's square root
+    (``head_dim``), the output sliced back.  Through the plain version and
+    the split emulation at the kernel's tiles, the output and the base-2
+    LSE equal the unpadded call's within ``1e-6`` (float32 sums over the
+    extra zero columns, taken in another blocking)."""
+    rng = np.random.default_rng(s * 3 + d)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+               for shape in ((b, s, kv * g, d), (b, t, kv, d), (b, t, kv, d)))
+    dp = pops.padded_head_dim(d)
+    assert dp == 16
+    qp, kp, vp = (pops.pad_head_dim(x, dp) for x in (q, k, v))
+    assert qp.shape[-1] == dp and not qp[..., d:].any()
+    kw = dict(causal=causal, window=window)
+    want, lse = pref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    got, lse_p = pref.flash_attention_ref(qp, kp, vp, return_lse=True,
+                                          head_dim=d, **kw)
+    close(got[..., :d], want, 1e-6, "padded plain")
+    assert not got[..., d:].any()
+    close(lse_p, lse, 1e-6, "padded lse")
+    # without the true D the padded call divides by sqrt(16), not sqrt(d)
+    assert not torch.allclose(pref.flash_attention_ref(qp, kp, vp, **kw)[
+        ..., :d], want, atol=1e-3)
+    gq = pref._grouped(qp.to(torch.bfloat16), kv)
+    kt, vt = (x.to(torch.bfloat16).transpose(1, 2) for x in (kp, vp))
+    tiled = flash_attention_tiled(gq.float(), kt.float(), vt.float(),
+                                  bq=128, bk=64, split=True, head_dim=d, **kw)
+    gw = pref._grouped(q.to(torch.bfloat16), kv).float()
+    plain = flash_attention_grouped(
+        gw, k.to(torch.bfloat16).float().transpose(1, 2),
+        v.to(torch.bfloat16).float().transpose(1, 2), **kw)
+    close(tiled[..., :d], plain, F32_TOL, "padded split emulation")
 
 
 @pytest.mark.parametrize("scale", [1.0, 2.0 ** -60, 2.0 ** 60])

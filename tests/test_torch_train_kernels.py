@@ -13,6 +13,10 @@ Tolerances:
   absolute plus ``1e-5`` relative (the same sums in another order);
 * ``gradcheck`` at float64 with its defaults (the CPU path computes in
   float64 for float64 inputs);
+* the padded head dim (D 8 and 12 padded with zero columns to 16, the
+  scores divided by the true D's square root), sliced back, against the
+  unpadded call: ``1e-6`` (float32 sums over extra zero columns in another
+  blocking);
 * mamba2-1.3b's smoke config, whose ``ssd`` layer trains through the
   SSD's plain version on the CPU (the CUDA kernel has no backward yet):
   `transformer.loss_fn` and every gradient leaf against the reference run
@@ -83,6 +87,44 @@ def test_flash_bwd_plain_equals_autograd(case):
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == torch.float32
         torch.testing.assert_close(g, w, atol=2e-5, rtol=1e-5)
+
+
+# (b, s, t, kv, g, d, causal, window) at the smoke configs' head dims 8
+# and 12: GQA, causal, windowed, non-causal, S < T
+PAD_CASES = [
+    (2, 32, 32, 2, 4, 8, True, 0),
+    (1, 30, 30, 1, 3, 8, True, 6),
+    (2, 19, 41, 4, 1, 12, False, 0),
+    (1, 25, 44, 2, 2, 12, True, 9),
+]
+
+
+@pytest.mark.parametrize("case", PAD_CASES)
+def test_flash_bwd_padded_head_dim_equals_unpadded(case):
+    """The route the autograd op takes on the card for a bf16 head dim that
+    is not a multiple of 16, through the plain versions: q, k, v and dO
+    padded with zero columns to `ops.padded_head_dim`, the scores divided by
+    the true D's square root (``head_dim``), the LSE and dq, dk, dv of the
+    padded call, sliced back, equal to the unpadded call's within ``1e-6``
+    (float32 sums over extra zero columns in another blocking), and the
+    padded columns' gradients zero."""
+    q, k, v, do = _qkv(case, seed=3)
+    kw = dict(causal=case[6], window=case[7])
+    d = q.shape[-1]
+    dp = FOPS.padded_head_dim(d)
+    assert dp == 16
+    qp, kp, vp, dop = (FOPS.pad_head_dim(x, dp) for x in (q, k, v, do))
+    o, lse = FR.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    op, lse_p = FR.flash_attention_ref(qp, kp, vp, return_lse=True,
+                                       head_dim=d, **kw)
+    torch.testing.assert_close(lse_p, lse, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(op[..., :d], o, atol=1e-6, rtol=1e-6)
+    want = FR.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    got = FR.flash_attention_bwd_plain(qp, kp, vp, op, dop, lse_p,
+                                       head_dim=d, **kw)
+    for g, w in zip(got, want):
+        assert not g[..., d:].any()
+        torch.testing.assert_close(g[..., :d], w, atol=1e-6, rtol=1e-6)
 
 
 @pytest.mark.parametrize("case", FLASH_CASES[:4])
