@@ -2987,18 +2987,26 @@ def ssd_bound_ms(b, s, h, p, n, elem_bytes, chunk=128):
 
 def phase_ssd_vs_plain(torch, SK, SR):
     """The SSD chunk kernels against their plain version, y and the final
-    state: S in {1, 5, 127, 128, 129, 300, 4096}, B in {1, 2}, the model's
+    state: S in {1, 5, 127, 128, 129, 300, 421, 4096}, B in {1, 2}, and S
+    16,384 (the server's longest prompt, 128 chunks) at B 1, the model's
     heads (H 64, P 64, N 128) plus the smoke config's (4, 16, 16) and
     ragged ones (3, 24, 40) and (3, 20, 40), float32 inputs (the CUDA-core
     kernel) and bf16 (the tensor-core kernel, or the CUDA-core one for P
     20), each call counted on the kernel it should take, both input
-    families, all held to SSD_TOL (a bf16 y to one bf16 spacing more).
-    Every case is reported before any is checked.  Then each kernel's time
-    at one 4,096-token prefill of a model layer in the dtype it serves, and
-    the tensor-core kernel's launches in a profile."""
+    families, all held to SSD_TOL (a bf16 y to one bf16 spacing more).  S
+    421 at B 1 puts the tensor-core kernel's segment boundary (2 segments
+    of 2 chunks) one chunk before the ragged tail; B 1,100 with
+    60 heads puts 66,000 blocks in the tensor-core kernel's grid.  Each
+    tensor-core call is made twice and must give the same bits in y and
+    the state.  Every case is reported before any is checked.  Then each
+    kernel's time at one 4,096-token prefill of a model layer in the dtype
+    it serves (the tensor-core kernel's also at 1, 2 and 4 segments a head,
+    and at 16,384 tokens), and the tensor-core kernel's launches in a
+    profile: one kernel a call, and memsets."""
     gen = torch.Generator(device="cuda").manual_seed(41)
-    shapes = [(b, s, 64, 64, 128) for s in (1, 5, 127, 128, 129, 300, 4096)
-              for b in (1, 2)]
+    shapes = [(b, s, 64, 64, 128)
+              for s in (1, 5, 127, 128, 129, 300, 421, 4096) for b in (1, 2)]
+    shapes += [(1, 16_384, 64, 64, 128)]
     shapes += [(2, s, 4, 16, 16) for s in (1, 128, 300)]
     shapes += [(2, s, 3, 24, 40) for s in (5, 129, 300)]
     # P not a multiple of 8: bf16 takes the CUDA-core kernel
@@ -3022,6 +3030,11 @@ def phase_ssd_vs_plain(torch, SK, SR):
                       f"ssd_chunk {dtype} P={p} N={n} did not launch {name}")
                 want = SR.ssd_chunk_ref(x, dt, a_log, bm, cm)
                 want_state = SR.ssd_final_state(x, dt, a_log, bm)
+                same = True
+                if name == "ssd_chunk_tc":
+                    y2, state2 = SK.ssd_chunk_kernel(x, dt, a_log, bm, cm)
+                    same = bool(torch.equal(y2, y)
+                                and torch.equal(state2, state))
                 torch.cuda.synchronize()
                 extra = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
                 gy, wy = y.float(), want.float()
@@ -3040,12 +3053,30 @@ def phase_ssd_vs_plain(torch, SK, SR):
                 w[1] = max(w[1], err_s)
                 w[2] = max(w[2], ratio_y, ratio_s)
                 if not (y.dtype == dtype and ratio_y <= 1 and ratio_s <= 1
-                        and bool(torch.isfinite(gy).all())):
+                        and same and bool(torch.isfinite(gy).all())):
                     failed.append(dict(shape=(b, s, h, p, n), family=key[0],
                                        kernel=name, dtype=key[2],
                                        max_abs_err_y=err_y,
                                        max_abs_err_state=err_s,
-                                       ratio_y=ratio_y, ratio_state=ratio_s))
+                                       ratio_y=ratio_y, ratio_state=ratio_s,
+                                       two_calls_bit_equal=same))
+    # the tensor-core kernel's grid past 65,535 blocks (B * H = 66,000)
+    x, dt, a_log, bm, cm = (t.to(torch.bfloat16) if i in (0, 3, 4) else t
+                            for i, t in enumerate(ssd_inputs(
+                                torch, gen, 1100, 1, 60, 8, 16, True)))
+    y, state = SK.ssd_chunk_kernel(x, dt, a_log, bm, cm)
+    want = SR.ssd_chunk_ref(x, dt, a_log, bm, cm).float()
+    want_state = SR.ssd_final_state(x, dt, a_log, bm)
+    big_y = float(((y.float() - want).abs() / (
+        atol + (rtol + 2.0 ** -7) * want.abs())).max())
+    big_s = float(((state - want_state).abs() / (
+        atol + rtol * want_state.abs())).max())
+    emit(phase="kernel_vs_plain", kernel="ssd_chunk_tc", family="model",
+         dtype="bfloat16", shape=[1100, 1, 60, 8, 16],
+         worst_ratio_to_tolerance=max(big_y, big_s))
+    if not (big_y <= 1 and big_s <= 1):
+        failed.append(dict(shape=(1100, 1, 60, 8, 16), kernel="ssd_chunk_tc",
+                           ratio_y=big_y, ratio_state=big_s))
     for (family, name, dtype), (ey, es, r) in sorted(worst.items()):
         emit(phase="kernel_vs_plain", kernel=name, family=family,
              dtype=dtype, max_abs_err_y=ey, max_abs_err_state=es,
@@ -3073,17 +3104,42 @@ def phase_ssd_vs_plain(torch, SK, SR):
             b, s, h, p, n, torch.finfo(dtype).bits // 8)
         timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                              bound_by=by, library_ms=None)
+        extra = {}
+        if name == "ssd_chunk_tc":
+            # what the segments buy (one segment a head: 64 blocks, half
+            # the card; four: two waves), and the server's longest prompt
+            # at the rule's segments
+            extra["segments"] = SK.segment_count(b, h, s)
+            extra["ms_by_segments"] = {
+                seg: time_cuda(torch, lambda: SK.ssd_chunk_kernel(
+                    x, dt, a_log, bm, cm, segments=seg), 20)[0]
+                for seg in (1, 2, 4)}
+            long = [t.to(dtype) if i in (0, 3, 4) else t
+                    for i, t in enumerate(ssd_inputs(
+                        torch, gen, b, 16_384, h, p, n, True))]
+            extra["segments_s16384"] = SK.segment_count(b, h, 16_384)
+            extra["ms_s16384"], _ = time_cuda(
+                torch, lambda: SK.ssd_chunk_kernel(*long), 10)
+            extra["bound_ms_s16384"] = ssd_bound_ms(
+                b, 16_384, h, p, n, torch.finfo(dtype).bits // 8)[0]
+            del long
         emit(phase="kernel_timing", kernel=name, B=b, S=s, H=h, P=p, N=n,
              dtype=f"{str(dtype).split('.')[1]} x, b, c; float32 dt, state",
              host_ms_per_call=host_ms, bytes=nbytes, flops=flops,
              library="none: no PyTorch call computes an SSD chunk scan",
-             **timings[name])
+             **timings[name], **extra)
         if name == "ssd_chunk_tc":
-            # the time of each of the kernel's three launches (chunk
-            # states, the walk, chunk outputs), over ten calls
-            emit(phase="device_profile", workload="ssd_chunk_x10",
-                 **profile_device(torch, lambda: [SK.ssd_chunk_kernel(
-                     x, dt, a_log, bm, cm) for _ in range(10)]))
+            # the kernel and its workspace memset over ten calls: one
+            # kernel a call and nothing else but memsets
+            prof = profile_device(torch, lambda: [SK.ssd_chunk_kernel(
+                x, dt, a_log, bm, cm) for _ in range(10)])
+            emit(phase="device_profile", workload="ssd_chunk_x10", **prof)
+            check(sum(k["calls"] for k in prof["top_kernels"]
+                      if "ssd_tc" in k["name"]) == 10
+                  and all("ssd_tc" in k["name"]
+                          or k["name"].startswith("Memset")
+                          for k in prof["top_kernels"]),
+                  "ssd_chunk_tc is not one kernel a call")
     return {name: max([w[0] for k, w in worst.items() if k[1] == name],
                       default=0.0) for name in SK.LAUNCHES}, timings
 
@@ -4460,7 +4516,11 @@ def main() -> int:
         log = _build.LOGS.get(src)
         emit(phase="ptxas", source=str(src.relative_to(ROOT)),
              dynamic_smem_bytes=smem,
-             kernels=ptxas_summary(log) if log else "built before this run")
+             kernels=ptxas_summary(log) if log else "built before this run",
+             # ptxas's notes (C75xx), "wgmma.mma_async instructions are
+             # serialized" among them
+             notes=sorted(set(re.findall(r"\((C75\d\d)\)", log or ""))),
+             wgmma_serialized="are serialized" in (log or ""))
 
     # phase 2: each kernel against its plain version, and its time
     worst_round = phase_round_vs_plain(torch, K, ref)

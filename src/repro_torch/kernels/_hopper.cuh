@@ -1,11 +1,13 @@
-// Hopper pieces shared by the port's warp-specialised kernels (first user:
-// flash_attention/csrc/flash_attention_bwd.cu), for NVIDIA H100 (sm_90a):
+// Hopper pieces shared by the port's warp-specialised kernels
+// (flash_attention/csrc/flash_attention_bwd.cu, flash_attention_tc.cu,
+// ssd_chunk/csrc/ssd_chunk_tc.cu), for NVIDIA H100 (sm_90a):
 //
 //   * mbarriers: init, arrive, arrive with an expected byte count, and a
 //     parity wait that traps after about ten seconds, so that a protocol
 //     fault ends the launch with an error instead of hanging the card;
 //   * copies by the Tensor Memory Accelerator: a 4-d tiled load through a
 //     tensor map, and a plain bulk copy, both completing on an mbarrier;
+//     a 4-d tiled store, waited for by bulk group;
 //     tensor maps are encoded on the host by the driver's
 //     cuTensorMapEncodeTiled, reached through the runtime
 //     (cudaGetDriverEntryPoint), so a library built with `nvcc -shared`
@@ -121,6 +123,33 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// the box at (c0, c1, c2, c3) of a 4-d tensor map from shared memory to
+// device memory (rows or columns outside the tensor are not written), in
+// this thread's bulk group; `src` in the layout tma_load_4d writes
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until this thread's bulk groups have read their shared memory
+// (READ) or completed
+template <bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) global ->
 // shared, completing `bar`'s transaction bytes
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
@@ -162,6 +191,12 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
   return d;
 }
 
+// orders this thread's generic-proxy writes to shared memory before later
+// reads of it by the async proxy (a wgmma operand written by the threads)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -198,6 +233,11 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][C]) {
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define HOP_F32(d, i) \
   HOP_F8(d, i), HOP_F8(d, i + 8), HOP_F8(d, i + 16), HOP_F8(d, i + 24)
+#define HOP_W8(d, i)                                                      \
+  "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]),             \
+      "=f"(d[i + 4]), "=f"(d[i + 5]), "=f"(d[i + 6]), "=f"(d[i + 7])
+#define HOP_W32(d, i) \
+  HOP_W8(d, i), HOP_W8(d, i + 8), HOP_W8(d, i + 16), HOP_W8(d, i + 24)
 
 #define HOP_R32                                                   \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "  \
@@ -242,6 +282,32 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// The first product of a chain, d = a b (scale-d false), its accumulators
+// written only, so that the compiler keeps no earlier value of d alive
+// through the loop: the m64n64k16 products above, both operands in shared
+// memory (K-major) or A in registers (B MN-major).
+__device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32],
+                                                   uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" HOP_R32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HOP_W32(d, 0)
+      : "l"(da), "l"(db), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64_first(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" HOP_R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : HOP_W32(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
+}
+
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
@@ -279,6 +345,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 
 #undef HOP_F8
 #undef HOP_F32
+#undef HOP_W8
+#undef HOP_W32
 #undef HOP_R32
 #undef HOP_R64
 #undef HOP_R128

@@ -1,7 +1,6 @@
-// Phase 2 of the SSD chunk scan, shared by ssd_chunk.cu (the CUDA-core
-// kernel) and ssd_chunk_tc.cu (the tensor-core kernel): the walk over the
-// chunks that gives each chunk its incoming state and writes the final
-// state.
+// Phase 2 of the SSD chunk scan of ssd_chunk.cu (the CUDA-core kernel):
+// the walk over the chunks that gives each chunk its incoming state and
+// writes the final state.
 
 #pragma once
 

@@ -1,6 +1,7 @@
-// Mamba-2 SSD chunk scan on Hopper's tensor cores (sm_90a, mma.sync), for
-// bf16 x, b and c with P and N multiples of 8 (P <= 64, N <= 128).  Float32
-// inputs and other shapes take the CUDA-core kernel in ssd_chunk.cu.
+// Mamba-2 SSD chunk scan on Hopper's tensor cores (sm_90a: wgmma, TMA,
+// mbarriers), for bf16 x, b and c with P and N multiples of 8 (P <= 64,
+// N <= 128).  Float32 inputs and other shapes take the CUDA-core kernel in
+// ssd_chunk.cu.
 //
 // Replaces: repro/kernels/ssd_chunk/kernel.py::ssd_chunk_pallas, the Pallas
 // TPU kernel computing, for x (B, S, H, P), dt (B, S, H), a_log (H,) and
@@ -9,576 +10,721 @@
 //   y_diag = (C B^T . exp(cs_i - cs_j) [j <= i]) (x * dt)
 //   y_off  = (C state_in^T) . exp(cs_i)
 //   state  = state_in * exp(cs_last) + (x * dt . exp(cs_last - cs_j))^T B
-// in float32, with the (P, N) state carried from chunk to chunk.
+// in float32, with the (P, N) state carried from chunk to chunk in VMEM
+// over an ordered grid.  This kernel also writes the state after the last
+// step (the reference's _final_state).
 //
-// Design.  The three phases of ssd_chunk.cu (chunk states, the walk giving
-// each chunk its incoming state, chunk outputs; one fused launch when S fits
-// one chunk), with the products on the tensor cores and one block per
-// (chunk, group of HG heads, batch row) of 8 warps:
-//   * B and C of the chunk go to shared memory once per block (cp.async),
-//     and the block computes G = C B^T (128 x 128 over N) once, for all its
-//     heads, and keeps its lower triangle in shared memory in the
-//     accumulator fragments' own layout.  The CUDA-core kernel recomputed G
-//     for every head.
-//   * Per head, x (and, for the outputs, the incoming state, staged over
-//     B once G is made) goes to shared memory by cp.async while the head
-//     before computes.  The chunk cumsum is taken in order, one float32 add
-//     a step (ref.cumsum), for all the group's heads at once.
-//   * Outputs: M_ij = G_ij exp(cs_i - cs_j) dt_j for j <= i, else 0 (a
-//     select: the exp overflows above the diagonal), formed in registers
-//     from G's fragments, split in three bf16 parts (_mma.cuh) into A
-//     fragments, and y_diag = M_hi x + M_mid x + M_lo x with x's bf16
-//     fragments from ldmatrix.trans.  y_off = exp(cs_i) (C state_in^T)
-//     with state_in in three parts in shared memory.  dt moves from x * dt
-//     into M, so x stays exact bf16.  Warp w takes the 16-row blocks q and
-//     7 - q (q = w % 4) for half of P, so that every warp has 9 of the
-//     triangle's 36 blocks (with one row block a warp, the last would have
-//     8 and the first 1).
-//   * Chunk states: (x w)^T B with w_j = dt_j exp(cs_last - cs_j), x w in
-//     three parts in shared memory and B exact.
-//   * Every float32 operand goes in three bf16 parts, which carry it
-//     exactly, not the two (hi, lo) of flash_attention_tc.cu: on
-//     model-like inputs (dt near 1, |M| and the states up to 10^2) the
-//     hi/lo split's 2^-17 of each term moved outputs near zero past the
-//     atol of 3e-5: 1.20 of the tolerance with M in two parts in the CPU
-//     rehearsal (kernels/rehearse.py), then up to 3.4 with the states in
-//     two parts on the card.
-//   * Products that are exactly zero are skipped by warp-uniform tests, which
-//     changes no result: rows whose exp(cs_i) or w_j underflows to 0 (cs
-//     reaches -10^3 on model-like inputs) and blocks of M far below the
-//     diagonal.
-//   * The parts of a product accumulate in the tensor cores, hi, then mid,
-//     then lo, into the running float32 sum.
-// The chunk states go through device memory to the walk (chunk_walk.cuh)
-// and back, as in ssd_chunk.cu.  The tail chunk's missing steps and the
-// padding of P and N to multiples of 16 are zeros, which neither decay nor
-// contribute.  Shared memory: 215,040 bytes (one block per SM).
+// Design.  One launch (after a memset of the status words); the chunk
+// states never go to device memory.
+//   * Work unit: (batch row, head, segment of consecutive chunks), T
+//     segments a head (kernel.py::segment_count: as many as one wave of
+//     blocks holds, one block an SM; 2 at mamba2-1.3b's B 1, H 64).  A
+//     block takes its unit id from an atomicAdd on a counter in the
+//     workspace, so every unit before its own was taken by a block that is
+//     already running, and segments k - 1 and k of a head have neighbouring
+//     ids: a segment never waits on a block that is not resident.  The grid
+//     is one-dimensional (B * H * T may pass 65,535).
+//   * Two passes a segment.  Pass 1 (every segment but a head's last): the
+//     segment's aggregate from a zero state, the state updates over its
+//     chunks chained in order, and the product D of its chunk decays.  Then
+//     a chained hand-off: segment k waits for segment k - 1's inclusive
+//     state and publishes inclusive_k = inclusive_{k-1} D + aggregate_k
+//     (payload, __threadfence, then a release store of its status word;
+//     the reader polls with acquire and __nanosleep backoff and reads the
+//     payload from the L2).  The chain fixes the order of every sum, so two
+//     calls give the same bits.  Pass 2: the segment's chunks in order from
+//     its incoming state; the last segment writes the final state.  A
+//     sequence of one chunk is one unit: no pass 1, no hand-off.
+//   * A block is two consumer warpgroups, a producer warp and a scan warp
+//     (320 threads).  The producer's first lane streams each chunk (x
+//     16 KB, B 32 KB and, in pass 2, C 32 KB) by TMA over the model layout
+//     (4-d tensor maps, 128-byte swizzle) into a ring of two stages behind
+//     full / empty mbarriers.  Rows past S and columns past P or N arrive
+//     as zeros, which neither decay nor contribute.  The scan warp reads
+//     the chunk's dt, takes its cumsum in order, one float32 add a step
+//     (ref.cumsum: logA rounded, then added; the chunk cumsums reach -10^3
+//     on the model's inputs, where another order moves exp(cs_i - cs_j) by
+//     about 1e-4), and writes exp(cs_i), w_j = dt_j exp(cs_last - cs_j) and
+//     the chunk decay beside it, behind a ready mbarrier: the 128 dependent
+//     adds run ahead of the consumers, off their path.
+//   * Consumer warpgroup wg owns chunk rows 64 wg .. 64 wg + 63 of y and
+//     state columns n 64 wg .. 64 wg + 63.  Per chunk of pass 2:
+//       - G = C B^T over keys 0-63 (wgmma, both operands in shared memory,
+//         exact bf16, one part), turned in registers into M_ij = G_ij
+//         exp(cs_i - cs_j) dt_j for j <= i (the mask multiplies; exp as
+//         ex2.approx), split in three parts into A operands, and y = M x
+//         (wgmma with A in registers, x read MN-major from the stage); the
+//         same over keys 64-127;
+//       - y_off = C state_in^T from the incoming state's three bf16 parts
+//         in shared memory; y += exp(cs_i) y_off; y to device memory in
+//         bf16 by a TMA store, staged over the warpgroup's rows of C;
+//       - the state update: state = state * decay + (x w)^T B, x read
+//         transposed from the stage by ldmatrix, times w, split in three
+//         parts into A operands, B read MN-major; the new state's three
+//         parts to shared memory for the next chunk (between chunks the
+//         state lives there: hi + mid + lo gives it back exactly).
+//     Pass 1 runs the state update alone.  dt sits in M and w, so x stays
+//     exact bf16.  Every float32 operand that meets an exact bf16 one (M,
+//     x w, the incoming state) goes in three bf16 parts, which carry it
+//     exactly; the parts accumulate hi, then mid, then lo.  Products run in
+//     groups of two k16 steps through two A buffers, one formed while the
+//     other's products run; every chain of products starts from zero, and
+//     its sum with other terms is made on the CUDA cores after the wait.
+// What ptxas taught (its notes in the build log; kernel_timing's times):
+//   * no product may sit on a branch, even one uniform over the block: a
+//     runtime test around each k16 step made every product a group of its
+//     own (so all MAX_N columns are multiplied, zeros past N), and a test
+//     around a group (skipping state updates whose w underflows, or the
+//     keys 64-127 that warpgroup 0 never sees) serialized every wgmma (note
+//     C7512); both warpgroups run the same products, warpgroup 0's on an M
+//     of zeros;
+//   * accumulators written only by their first product (scale-d false with
+//     write-only operands) keep the four arrays from living through the
+//     loop; before that ptxas serialized every wgmma (C7511);
+//   * a select around each exp of M compiled to a branch per value, which
+//     left the exps' latencies unoverlapped.
+// Shared memory: two stages of 80 KB, the state's three parts (48 KB), the
+// scan's arrays: 217,176 bytes, one block an SM; 168 registers (the cap of
+// ten warps), no spills.
 //
 // Bound on the H100: memory.  One layer's prefill at S = 4096 (B 1, H 64,
 // P 64, N 128, x and y bf16) moves 72.4 MB (21.6 us at 3.35 TB/s) against
-// 12.9 GFLOP of minimal work (13.0 us at the 989 TFLOP/s bf16 tensor-core
-// rate); the three-part splits triple the products that take a float32
-// operand, and the chunk states add 4 x 67 MB of traffic.  wgmma, TMA and
-// keeping the chunk states on chip are later work.
-//
-// Interface: plain C, called through ctypes on PyTorch's current stream; the
-// launches are checked with cudaGetLastError and its error code returned
+// 12.9 GFLOP of minimal work.  The kernel does about 53 GFLOP on the tensor
+// cores at T = 2 (the three-part splits; G for all 128 x 128 entries a head;
+// pass 1 on half the chunks), 54 us at the 989 TFLOP/s bf16 rate; x and B
+// are read twice where a segment has a pass 1, the second time mostly from
+// the L2.
+
+// Interface: plain C, called through ctypes on PyTorch's current stream;
+// the launch is checked with cudaGetLastError and its error code returned
 // (0 = success).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include <initializer_list>
+
+#include "../../_hopper.cuh"
 #include "../../_mma.cuh"
-#include "chunk_walk.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using namespace hopper;
 
+constexpr unsigned FULL = 0xffffffffu;
 constexpr int Q = 128;  // chunk length
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int HG = 8;  // heads per block
 constexpr int MAX_P = 64;
 constexpr int MAX_N = 128;
-constexpr int LDB = MAX_N + 8;  // row stride (bf16) of B, C, the state
-constexpr int LDX = MAX_P + 8;  // row stride (bf16) of x and of x w
-constexpr int RB = Q / 16;      // 16-row blocks of a chunk
-// G's lower triangle of 16 x 16 blocks, each as two n8 accumulator tiles
-// stored lane by lane (a float4 a lane), so that any warp reads any block
-// in its own fragment layout
-constexpr int G_TILES = RB * (RB + 1);
-constexpr size_t SMEM_BYTES =
-    sizeof(bf16) * (2 * Q * LDB + 2 * Q * LDX + 3 * Q * LDX) +
-    sizeof(float4) * G_TILES * 32 + sizeof(float) * 4 * HG * Q;
+constexpr int STAGES = 2;
+constexpr int CONSUMERS = 256;           // two warpgroups
+constexpr int THREADS = CONSUMERS + 64;  // and the producer and scan warps
+constexpr int SYNC = 1;                  // the consumers' named barrier
+constexpr int STEPS = 2;  // k16 steps of a group of products, A in registers
+// a 128-row block of 64 bf16 columns in the 128-byte swizzle, and 64 rows
+// of it
+constexpr int BLK = Q * 128;
+constexpr int HALF = 64 * 128;
+// a stage: x (one block), B and C (two blocks each)
+constexpr int B_OFF = BLK;
+constexpr int C_OFF = 3 * BLK;
+constexpr int STAGE = 5 * BLK;
+// one bf16 part of the state, (p, n) K-major: two blocks of 64 rows
+constexpr int PART = 2 * HALF;
+constexpr int PARTS = STAGES * STAGE;
+// the scan's arrays a stage: dt, cs, exp(cs), w, then the chunk decay
+constexpr int SCAN = PARTS + 3 * PART;
+constexpr int SCAN_FLOATS = 4 * Q + 4;
+constexpr int BARS = SCAN + STAGES * SCAN_FLOATS * 4;
+constexpr int BYTES = BARS + 3 * STAGES * 8 + 8;
 
-// One block per (chunk, head group, batch row).  STATE: each head's chunk
-// state (to `states`, with its decay, or to `final_state` when the sequence
-// is one chunk).  Y: each head's chunk output, with the incoming state read
-// from `states` for every chunk but the first.
-template <bool Y, bool STATE>
-__device__ __forceinline__ void ssd_tc_body(
-    const bf16* __restrict__ x, const float* __restrict__ dt,
-    const float* __restrict__ a_log, const bf16* __restrict__ bm,
-    const bf16* __restrict__ cm, bf16* __restrict__ y,
-    float* __restrict__ states, float* __restrict__ decay,
-    float* __restrict__ final_state, int s, int h, int p, int n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* bs = reinterpret_cast<bf16*>(smem);  // Q x LDB
-  bf16* cs = bs + Q * LDB;                   // Q x LDB
-  bf16* xs = cs + Q * LDB;                   // 2 stages x Q x LDX
-  // x w in three parts (Q x LDX each), or the incoming state in three
-  // (MAX_P x LDB each)
-  bf16* rs = xs + 2 * Q * LDX;
-  float4* gs = reinterpret_cast<float4*>(rs + 3 * Q * LDX);  // G
-  float* dts = reinterpret_cast<float*>(gs + G_TILES * 32);  // HG x Q
-  float* css = dts + HG * Q;                                 // cumsums
-  float* ecs = css + HG * Q;                                 // exp(cs_i)
-  float* wts = ecs + HG * Q;  // dt_j exp(cs_last - cs_j)
+struct Args {
+  CUtensorMap x, b, c;  // boxes of 64 columns x 128 rows
+  CUtensorMap yo;       // y, boxes of 64 columns x 64 rows
+  const float* dt;
+  const float* a_log;
+  float* state;
+  int* head;        // the unit counter, then a status word a unit
+  float* ws_state;  // an inclusive (p, n) state a unit
+  int s, h, p, n, nc, segments;
+};
 
-  const int c = blockIdx.x, nc = gridDim.x, h0 = blockIdx.y * HG;
-  const long long bi = blockIdx.z;
-  const int nh = min(HG, h - h0);
-  const int t0 = c * Q, len = min(Q, s - t0);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, qd = lane & 3;
-  const int p16 = (p + 15) & ~15, n16 = (n + 15) & ~15;
-  const bool state_in = Y && c > 0;
-  const long long pn = static_cast<long long>(p) * n;
+// A descriptor's start-address field (bits 0-13) holds the shared-memory
+// address / 16, so the operand `off` bytes further is the descriptor plus
+// off / 16 (no carry: shared memory ends below 2^18 bytes).
+__device__ __forceinline__ uint64_t at(uint64_t base, int off) {
+  return base + static_cast<uint64_t>(off >> 4);
+}
 
-  // The copy loops below run over the largest shapes (MAX_P, MAX_N) with
-  // fixed trip counts, so they unroll and issue their loads together;
-  // entries past p16, n16 are skipped (and never read).
-  // B and C of the chunk (zero past the sequence's end and past n)
-  const bf16* bsrc = bm + (bi * s + t0) * static_cast<long long>(n);
-  const bf16* csrc = cm + (bi * s + t0) * static_cast<long long>(n);
-#pragma unroll
-  for (int it = 0; it < Q * (MAX_N / 8) / THREADS; ++it) {
-    const int e = tid + it * THREADS;
-    const int r = e / (MAX_N / 8), k = e % (MAX_N / 8);
-    if (k * 8 < n16) {
-      const bool ok = r < len && k * 8 < n;
-      const long long off = ok ? r * static_cast<long long>(n) + k * 8 : 0;
-      mma::cp_async16(bs + r * LDB + k * 8, bsrc + off, ok);
-      if (Y) mma::cp_async16(cs + r * LDB + k * 8, csrc + off, ok);
+// 64 rows of a K-major operand `off` bytes into shared memory, its 64-column
+// blocks `blk` bytes apart: the k16 step kk (kbase: the descriptor of the
+// shared memory's start, K-major)
+__device__ __forceinline__ uint64_t kmajor(uint64_t kbase, int off, int blk,
+                                           int kk) {
+  return at(kbase, off + (kk >> 2) * blk + (kk & 3) * 32);
+}
+
+// one 64-column block of a 128-row tile `off` bytes into shared memory,
+// read MN-major (B transposed): the k16 step kk (mbase: the descriptor of
+// the shared memory's start, MN-major)
+__device__ __forceinline__ uint64_t mnmajor(uint64_t mbase, int off,
+                                            int kk) {
+  return at(mbase, off + kk * 2048);
+}
+
+// exp(x) for x <= 0 as 2^(x log2 e) by the SFU (ex2.approx, 2 ulp), where
+// expf takes eight instructions; x log2 e rounds once, so the result is
+// within about |x| 2^-24 of exp(x) relatively (6e-6 at x = -100; below
+// about -104 both are 0).  Used for M alone: its 64 exps a thread and
+// chunk dominated the warpgroups' work there.
+__device__ __forceinline__ float exp_fast(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x * 1.4426950408889634f));
+  return r;
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+ssd_tc(const __grid_constant__ Args a) {
+  extern __shared__ __align__(1024) unsigned char sm[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + BARS);
+  uint64_t* ready = full + STAGES;
+  uint64_t* empty = ready + STAGES;
+  int* unit_s = reinterpret_cast<int*>(empty + STAGES);
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    if (smem_u32(sm) % 1024 != 0) __trap();
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(ready + i, 1);
+      mbar_init(empty + i, CONSUMERS / 32);
     }
+    mbar_fence_init();
+    *unit_s = atomicAdd(a.head, 1);
   }
-  // x of head h0 + hh into a stage (zero past the end and past p)
-  auto load_x = [&](int hh, int stage) {
-    bf16* dst = xs + stage * Q * LDX;
-    const bf16* src = x + ((bi * s + t0) * h + h0 + hh) *
-                              static_cast<long long>(p);
+  if (a.n <= 64) {
+    // TMA loads one 64-column block of B and C: the other stays zero
+    for (int e = tid; e < STAGES * 2 * (BLK / 16); e += THREADS) {
+      const int st = e / (2 * (BLK / 16)), r = e % (2 * (BLK / 16));
+      reinterpret_cast<uint4*>(sm + st * STAGE +
+                               (r < BLK / 16 ? B_OFF : C_OFF) +
+                               BLK)[r % (BLK / 16)] = make_uint4(0, 0, 0, 0);
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  const int unit = *unit_s;
+  const int T = a.segments;
+  const int bh = unit / T, k = unit - bh * T;
+  const int bi = bh / a.h, hd = bh - bi * a.h;
+  const int c_lo = static_cast<int>(static_cast<long long>(k) * a.nc / T);
+  const int c_hi = static_cast<int>(static_cast<long long>(k + 1) * a.nc / T);
+  const int n1 = k < T - 1 ? c_hi - c_lo : 0;  // chunks of pass 1
+  const int items = n1 + c_hi - c_lo;           // chunks streamed
+  auto chunk_of = [&](int i) { return c_lo + (i < n1 ? i : i - n1); };
+  auto scan_of = [&](int i) {
+    return reinterpret_cast<float*>(sm + SCAN) + (i % STAGES) * SCAN_FLOATS;
+  };
+
+  if (tid >= CONSUMERS) {
+    const int lane = tid & 31;
+    if (tid == CONSUMERS) {  // the producer warp's first lane: the loads
+      const int nb = (a.n + 63) / 64;
+      for (int i = 0; i < items; ++i) {
+        const int st = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty + st, (i / STAGES - 1) & 1);
+        const bool with_c = i >= n1;
+        const int t0 = chunk_of(i) * Q;
+        unsigned char* base = sm + st * STAGE;
+        mbar_expect_tx(full + st, BLK + (with_c ? 2 : 1) * nb * BLK);
+        tma_load_4d(base, &a.x, full + st, 0, hd, t0, bi);
+        for (int cb = 0; cb < nb; ++cb) {
+          tma_load_4d(base + B_OFF + cb * BLK, &a.b, full + st, cb * 64, 0,
+                      t0, bi);
+          if (with_c)
+            tma_load_4d(base + C_OFF + cb * BLK, &a.c, full + st, cb * 64, 0,
+                        t0, bi);
+        }
+      }
+    } else if (tid >= CONSUMERS + 32) {  // the scan warp
+      const float al = -expf(a.a_log[hd]);
+      // the chunk's dt (zero past S), loaded one item ahead so that the
+      // loads run under the item before's cumsum
+      auto load_dt = [&](int i, float (&v)[Q / 32]) {
+        const int t0 = chunk_of(i) * Q;
 #pragma unroll
-    for (int it = 0; it < Q * (MAX_P / 8) / THREADS; ++it) {
-      const int e = tid + it * THREADS;
-      const int r = e / (MAX_P / 8), k = e % (MAX_P / 8);
-      if (k * 8 < p16) {
-        const bool ok = r < len && k * 8 < p;
-        mma::cp_async16(
-            dst + r * LDX + k * 8,
-            ok ? src + r * static_cast<long long>(h) * p + k * 8 : x, ok);
+        for (int m = 0; m < Q / 32; ++m) {
+          const int j = lane + 32 * m;
+          v[m] = t0 + j < a.s ? a.dt[(static_cast<long long>(bi) * a.s + t0 +
+                                      j) * a.h + hd]
+                              : 0.f;
+        }
+      };
+      float next[Q / 32];
+      load_dt(0, next);
+      for (int i = 0; i < items; ++i) {
+        const int st = i % STAGES;
+        float cur[Q / 32];
+#pragma unroll
+        for (int m = 0; m < Q / 32; ++m) cur[m] = next[m];
+        if (i + 1 < items) load_dt(i + 1, next);
+        if (i >= STAGES) mbar_wait(empty + st, (i / STAGES - 1) & 1);
+        float* f = scan_of(i);
+#pragma unroll
+        for (int m = 0; m < Q / 32; ++m) f[lane + 32 * m] = cur[m];
+        __syncwarp();
+        if (lane == 0) {
+          float run = 0.f;
+#pragma unroll 16
+          for (int j = 0; j < Q; ++j) {
+            run = __fadd_rn(run, __fmul_rn(al, f[j]));
+            f[Q + j] = run;
+          }
+        }
+        __syncwarp();
+        const float last = f[2 * Q - 1];
+#pragma unroll
+        for (int m = 0; m < Q / 32; ++m) {
+          const int j = lane + 32 * m;
+          f[2 * Q + j] = expf(f[Q + j]);
+          f[3 * Q + j] = __fmul_rn(f[j], expf(__fsub_rn(last, f[Q + j])));
+        }
+        if (lane == 0) f[4 * Q] = expf(last);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(ready + st);
       }
     }
+    return;
+  }
+
+  // the consumers; the warpgroup broadcast from lane 0, so that the
+  // compiler sees it uniform
+  const int wg = __shfl_sync(FULL, tid >> 7, 0);
+  const int w = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, qd = lane & 3;
+  const int pr = 16 * w + g;  // this thread's state rows pr, pr + 8
+  const int ir = 64 * wg + pr;  // and chunk rows ir, ir + 8
+  const long long pn = static_cast<long long>(a.p) * a.n;
+  unsigned char* parts = sm + PARTS;
+
+  // the state (rows p, columns n of this warpgroup's half) and its update,
+  // y (rows i, columns p), G or y_off (rows i, 64 columns), and two buffers
+  // of A operands (STEPS k16 steps in three parts), so that one is formed
+  // while the other's products run.  Every chain of products starts from
+  // zero with a product that only writes its accumulators (the compiler
+  // then keeps no earlier value of them alive: with all four arrays live
+  // through the loop ptxas serialized every wgmma, note C7511); its sums
+  // with other values are made after the wait, on the CUDA cores.
+  float st[32], y[32], gacc[32], cacc[32];
+  uint32_t A[2][3][STEPS][4];
+#pragma unroll
+  for (int r = 0; r < 32; ++r) st[r] = 0.f;
+
+  // the descriptors of the shared memory's start, made anew for each chunk
+  // (the empty asm hides that they do not change, so that the compiler
+  // does not hoist every operand's descriptor out of the loop into
+  // registers of its own)
+  auto bases = [&](uint64_t& kbase, uint64_t& mbase) {
+    const unsigned char* p = sm;
+    asm volatile("" : "+l"(p));
+    kbase = desc_sw128(p, 16, 1024);
+    mbase = desc_sw128(p, BLK, 1024);
   };
-  load_x(0, 0);
-  mma::cp_async_commit();
-
-#pragma unroll
-  for (int it = 0; it < HG * Q / THREADS; ++it) {
-    const int e = tid + it * THREADS;
-    const int hh = e / Q, j = e % Q;
-    dts[e] = hh < nh && j < len ? dt[(bi * s + t0 + j) * h + h0 + hh] : 0.f;
-  }
-  __syncthreads();
-  // the cumsums, one head a thread, in order, one float32 add a step (the
-  // plain version's order: the chunk cumsums reach -10^3 on the model's
-  // inputs, where another order moves exp(cs_i - cs_j) by about 1e-4);
-  // logA rounds before it is summed
-  if (tid < nh) {
-    const float a = -expf(a_log[h0 + tid]);
-    float run = 0.f;
-    for (int k = 0; k < Q; ++k) {
-      run = __fadd_rn(run, __fmul_rn(a, dts[tid * Q + k]));
-      css[tid * Q + k] = run;
+  auto wait_in = [&](int i) {
+    mbar_wait(full + i % STAGES, (i / STAGES) & 1);
+    mbar_wait(ready + i % STAGES, (i / STAGES) & 1);
+  };
+  auto release = [&](int i) {  // this warp is done with the stage
+    __syncwarp();
+    if (lane == 0) {
+      if ((tid & 127) == 0) bulk_wait<true>();  // y's store has read it
+      mbar_arrive(empty + i % STAGES);
     }
-  }
-  __syncthreads();
-  for (int e = tid; e < nh * Q; e += THREADS) {
-    const int hh = e / Q;
-    ecs[e] = expf(css[e]);
-    wts[e] = __fmul_rn(dts[e], expf(__fsub_rn(css[hh * Q + Q - 1], css[e])));
-  }
-  if (STATE && !Y && tid < nh)
-    decay[(bi * h + h0 + tid) * nc + c] = expf(css[tid * Q + Q - 1]);
-
-  if (Y) {
-    // G = C B^T, once for the block: warp w the blocks (w, 0..w) of its
-    // lower triangle
-    mma::cp_async_wait<0>();
-    __syncthreads();
-    float gacc[Q / 8][4];
+  };
+  // the values of A buffer b are made here (not moved by the compiler)
+  auto fence_a = [&](int b) {
 #pragma unroll
-    for (int j = 0; j < Q / 8; ++j)
-      gacc[j][0] = gacc[j][1] = gacc[j][2] = gacc[j][3] = 0.f;
+    for (int q = 0; q < 3; ++q) fence_regs(A[b][q]);
+  };
+  // d (+)= A_b B over STEPS k16 steps from k16 step kk0 of the MN-major
+  // operand `off` bytes into shared memory (d overwritten when `fresh`);
+  // committed, not waited for
+  auto issue_rs = [&](float(&d)[32], int b, uint64_t mbase, int off, int kk0,
+                      bool fresh) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < STEPS; ++kk) {
+      const uint64_t db = mnmajor(mbase, off, kk0 + kk);
+      if (fresh && kk == 0)
+        wgmma_rs_n64_first(d, A[b][0][kk], db);
+      else
+        wgmma_rs_n64(d, A[b][0][kk], db);
+      wgmma_rs_n64(d, A[b][1][kk], db);
+      wgmma_rs_n64(d, A[b][2][kk], db);
+    }
+    wgmma_commit();
+  };
+  // gacc = C E^T over all MAX_N columns (zero past N): C this warpgroup's
+  // chunk rows, E 64 rows K-major `off` bytes into shared memory, its
+  // 64-column blocks `blk` bytes apart; `parts` of them (E, E + PART, ...)
+  // summed; committed.  No product sits on a branch: ptxas makes every
+  // product behind a runtime test a group of its own, waited for before
+  // the next.
+  auto issue_ss = [&](uint64_t kbase, int crow, int off, int blk,
+                      int parts) {
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < MAX_N / 16; ++kk) {
-      if (kk * 16 < n16) {
-        uint32_t a[4];
-        mma::ldmatrix_x4(a, cs + (warp * 16 + (lane & 15)) * LDB + kk * 16 +
-                                ((lane >> 4) << 3));
+      const uint64_t da = kmajor(kbase, crow, BLK, kk);
 #pragma unroll
-        for (int np = 0; np < RB; ++np) {
-          if (np <= warp) {
-            uint32_t b[4];
-            mma::ldmatrix_x4(
-                b, bs + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDB +
-                       kk * 16 + (((lane >> 3) & 1) << 3));
-            mma::mma_bf16(gacc[2 * np], a, b[0], b[1]);
-            mma::mma_bf16(gacc[2 * np + 1], a, b[2], b[3]);
+      for (int q = 0; q < 3; ++q)
+        if (q < parts) {
+          const uint64_t db = kmajor(kbase, off + q * PART, blk, kk);
+          if (kk + q == 0)
+            wgmma_ss_n64_first(gacc, da, db);
+          else
+            wgmma_ss_n64(gacc, da, db, 1);
+        }
+    }
+    wgmma_commit();
+  };
+  // (x w)^T over the chunk steps of k16 steps kk0 .. kk0 + STEPS - 1 into A
+  // buffer b: x read transposed by ldmatrix from the swizzled stage
+  auto form_xw = [&](int b, const unsigned char* xs, const float* wv,
+                     int kk0) {
+    const int mat = lane >> 3;
+#pragma unroll
+    for (int kk = 0; kk < STEPS; ++kk) {
+      const int j0 = 16 * (kk0 + kk);
+      const int j = j0 + 8 * (mat >> 1) + (lane & 7);
+      const int ch = 2 * w + (mat & 1);
+      uint32_t v[4];
+      mma::ldmatrix_x4_trans(v, xs + j * 128 + ((ch ^ (j & 7)) << 4));
+      const float2 w0 = *reinterpret_cast<const float2*>(wv + j0 + 2 * qd);
+      const float2 w1 =
+          *reinterpret_cast<const float2*>(wv + j0 + 8 + 2 * qd);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float2 xv =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v[r]));
+        const float2 ww = r < 2 ? w0 : w1;
+        mma::split3(__fmul_rn(xv.x, ww.x), __fmul_rn(xv.y, ww.y),
+                    A[b][0][kk][r], A[b][1][kk][r], A[b][2][kk][r]);
+      }
+    }
+    fence_a(b);
+  };
+  // M over the keys of k16 steps kk0 .. kk0 + STEPS - 1 of the 64 keys from
+  // 64 cb, from G's accumulators, into A buffer b.  Straight-line code: a
+  // select around each exp made the compiler branch around it, one value
+  // at a time, and the exps' latencies no longer overlapped; so every exp
+  // is taken (of 0 above the diagonal, where exp(cs_i - cs_j) would
+  // overflow) and the causal mask multiplies.  Warpgroup 0's rows see no
+  // key of block 1: its M there is 0 and no exp is taken.
+  auto form_m = [&](int b, const float* f, int cb, int kk0) {
+    const float* cs = f + Q;
+    const float c0 = cs[ir], c1 = cs[ir + 8];
+    const bool seen = 64 * cb <= 64 * wg + 63;
+#pragma unroll
+    for (int kk = 0; kk < STEPS; ++kk) {
+      float m[8] = {};
+      if (seen) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int t = 2 * (kk0 + kk) + u;
+          const int j = 64 * cb + 8 * t + 2 * qd;
+          const float2 cj = *reinterpret_cast<const float2*>(cs + j);
+          const float2 dj = *reinterpret_cast<const float2*>(f + j);
+          const float* gv = gacc + 4 * t;
+          const float sj[2] = {cj.x, cj.y}, dtj[2] = {dj.x, dj.y};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool causal = j + (e & 1) <= (e < 2 ? ir : ir + 8);
+            const float ex =
+                exp_fast(causal ? __fsub_rn(e < 2 ? c0 : c1, sj[e & 1]) : 0.f);
+            m[4 * u + e] = __fmul_rn(__fmul_rn(gv[e], ex), dtj[e & 1]) *
+                           (causal ? 1.f : 0.f);
           }
         }
       }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        mma::split3(m[2 * r], m[2 * r + 1], A[b][0][kk][r], A[b][1][kk][r],
+                    A[b][2][kk][r]);
     }
-    const int tri = warp * (warp + 1) / 2;
+    fence_a(b);
+  };
+  // cacc = (x w)^T B over this warpgroup's columns, the four groups of k16
+  // steps in turn through the two A buffers; then state = state * decay +
+  // cacc
+  auto update = [&](int so, const float* f, uint64_t mbase) {
+    const int boff = so + B_OFF + wg * BLK;
 #pragma unroll
-    for (int np = 0; np < RB; ++np) {
-      if (np <= warp) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const float* v = gacc[2 * np + half];
-          gs[((tri + np) * 2 + half) * 32 + lane] =
-              make_float4(v[0], v[1], v[2], v[3]);
-        }
-      }
+    for (int grp = 0; grp < Q / 16 / STEPS; ++grp) {
+      if (grp >= 2) wgmma_wait<1>();  // the buffer's last products are done
+      form_xw(grp & 1, sm + so, f + 3 * Q, grp * STEPS);
+      issue_rs(cacc, grp & 1, mbase, boff, grp * STEPS, grp == 0);
     }
-  }
-  // the incoming state of head h0 + hh, float32 (p16 x n16 of MAX_P x
-  // MAX_N, zero past p and n), into the staging area over B: B is read only
-  // for G when Y and not STATE, which is when an incoming state exists
-  float* stg = reinterpret_cast<float*>(bs);
-  auto load_state = [&](int hh) {
-    const float* src = states + ((bi * h + h0 + hh) * nc + c) * pn;
+    wgmma_wait<0>();
+    fence_regs(cacc);
+    const float d = f[4 * Q];
 #pragma unroll
-    for (int it = 0; it < MAX_P * (MAX_N / 4) / THREADS; ++it) {
-      const int e = tid + it * THREADS;
-      const int r = e / (MAX_N / 4), k = e % (MAX_N / 4);
-      if (r < p16 && k * 4 < n16) {
-        const bool ok = r < p && k * 4 < n;
-        mma::cp_async16(stg + r * MAX_N + k * 4,
-                        ok ? src + r * n + k * 4 : src, ok);
+    for (int r = 0; r < 32; ++r)
+      st[r] = __fadd_rn(__fmul_rn(st[r], d), cacc[r]);
+  };
+  // this thread's elements of a (p, n) float32 state in device memory
+  auto each_elem = [&](auto&& fn) {
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int n = 64 * wg + 8 * t + 2 * qd;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int p = pr + 8 * hf;
+        fn(st[4 * t + 2 * hf], st[4 * t + 2 * hf + 1],
+           p < a.p && n < a.n ? static_cast<long long>(p) * a.n + n : -1LL);
       }
     }
   };
-  if (state_in) {
-    __syncthreads();  // every warp is done with B
-    load_state(0);
+
+  // this thread's elements of the state in the three parts that y_off
+  // reads (after every consumer is done with the parts before), and back
+  auto part_off = [&](int t, int hf) {
+    const int p = pr + 8 * hf, nl = 8 * t + 2 * qd;
+    return wg * HALF + p * 128 + (((nl >> 3) ^ (p & 7)) << 4) + (nl & 7) * 2;
+  };
+  auto write_parts = [&]() {
+    named_sync(SYNC, CONSUMERS);
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        uint32_t hi, mid, lo;
+        mma::split3(st[4 * t + 2 * hf], st[4 * t + 2 * hf + 1], hi, mid, lo);
+        const int off = part_off(t, hf);
+        *reinterpret_cast<uint32_t*>(parts + off) = hi;
+        *reinterpret_cast<uint32_t*>(parts + PART + off) = mid;
+        *reinterpret_cast<uint32_t*>(parts + 2 * PART + off) = lo;
+      }
+    fence_proxy_async();
+    named_sync(SYNC, CONSUMERS);
+  };
+  auto read_parts = [&]() {
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int off = part_off(t, hf);
+        const float2 hi = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(parts + off));
+        const float2 mid = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(parts + PART + off));
+        const float2 lo = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(parts + 2 * PART + off));
+        st[4 * t + 2 * hf] = __fadd_rn(__fadd_rn(hi.x, mid.x), lo.x);
+        st[4 * t + 2 * hf + 1] = __fadd_rn(__fadd_rn(hi.y, mid.y), lo.y);
+      }
+  };
+
+  // pass 1: the segment's aggregate from a zero state, and its decay
+  float decay = 1.f;
+  for (int i = 0; i < n1; ++i) {
+    uint64_t kbase, mbase;
+    bases(kbase, mbase);
+    wait_in(i);
+    const float* f = scan_of(i);
+    decay = __fmul_rn(decay, f[4 * Q]);
+    update((i % STAGES) * STAGE, f, mbase);
+    release(i);
   }
-  mma::cp_async_commit();
 
-  // the outputs' work: warp w takes the 16-row blocks q and 7 - q, q = w %
-  // 4, which together hold 9 of the triangle's 36 blocks, and half of P
-  const int quad = warp & 3, pcol = (warp >> 2) * (MAX_P / 2);
-  const bool y_cols = pcol < p16;
-
-  for (int hh = 0; hh < nh; ++hh) {
-    const int head = h0 + hh, stage = hh & 1;
-    const bf16* xst = xs + stage * Q * LDX;
-    const long long bh = bi * h + head;
-    // this head's x and incoming state have landed, and every warp is
-    // done with the head before
-    mma::cp_async_wait<0>();
-    __syncthreads();
-    bf16* sh = rs;
-    bf16* sm = rs + MAX_P * LDB;
-    bf16* sl = rs + 2 * MAX_P * LDB;
-    if (state_in) {
-      // the incoming state in three parts
-#pragma unroll
-      for (int it = 0; it < MAX_P * (MAX_N / 2) / THREADS; ++it) {
-        const int e = tid + it * THREADS;
-        const int pp = e / (MAX_N / 2), k2 = (e % (MAX_N / 2)) * 2;
-        if (pp < p16 && k2 < n16) {
-          const float2 f =
-              *reinterpret_cast<const float2*>(stg + pp * MAX_N + k2);
-          uint32_t hi, mid, lo;
-          mma::split3(f.x, f.y, hi, mid, lo);
-          *reinterpret_cast<uint32_t*>(sh + pp * LDB + k2) = hi;
-          *reinterpret_cast<uint32_t*>(sm + pp * LDB + k2) = mid;
-          *reinterpret_cast<uint32_t*>(sl + pp * LDB + k2) = lo;
+  // the chained hand-off: inclusive_k = inclusive_{k-1} decay + aggregate
+  if (T > 1) {
+    int* status = a.head + 1;
+    float* mine = a.ws_state + static_cast<long long>(unit) * pn;
+    if (k > 0) {
+      if (tid == 0) {
+        const long long start = clock64();
+        unsigned ns = 32;
+        while (ld_acquire(status + unit - 1) == 0) {
+          __nanosleep(ns);
+          ns = min(ns * 2, 1024u);
+          if (clock64() - start > (1LL << 34)) __trap();
         }
       }
-      __syncthreads();
+      named_sync(SYNC, CONSUMERS);
+      const float* prev = mine - pn;
+      each_elem([&](float& s0, float& s1, long long off) {
+        const float2 v = off >= 0 ? __ldcg(reinterpret_cast<const float2*>(
+                                        prev + off))
+                                  : make_float2(0.f, 0.f);
+        if (n1 > 0 && off >= 0)
+          *reinterpret_cast<float2*>(mine + off) =
+              make_float2(__fadd_rn(__fmul_rn(v.x, decay), s0),
+                          __fadd_rn(__fmul_rn(v.y, decay), s1));
+        s0 = v.x;
+        s1 = v.y;
+      });
+    } else {
+      each_elem([&](float& s0, float& s1, long long off) {
+        if (off >= 0)
+          *reinterpret_cast<float2*>(mine + off) = make_float2(s0, s1);
+        s0 = s1 = 0.f;
+      });
     }
-    // the next head's loads run behind this head's products
-    if (hh + 1 < nh) {
-      load_x(hh + 1, stage ^ 1);
-      if (state_in) load_state(hh + 1);
+    if (n1 > 0) {
+      __threadfence();
+      named_sync(SYNC, CONSUMERS);
+      if (tid == 0) st_release(status + unit, 1);
     }
-    mma::cp_async_commit();
-    const float* csh = css + hh * Q;
-    const float* dth = dts + hh * Q;
+  }
 
-    if (Y && y_cols) {
-      // acc[rr][j]: row block rb(rr), the n8 tile j of this warp's P half
-      float acc[2][MAX_P / 16][4];
+  // pass 2: the outputs.  Between chunks the state lives in shared memory
+  // as its three bf16 parts, which y_off reads and which give it back
+  // exactly (hi + mid + lo, each sum exact) to the accumulators for the
+  // update: its registers are free while y is made.
+  write_parts();
+  for (int i = n1; i < items; ++i) {
+    const int t0 = chunk_of(i) * Q;
+    const int so = (i % STAGES) * STAGE;  // the stage's offset
+    const int crow = so + C_OFF + wg * HALF;  // this warpgroup's rows of C
+    const float* f = scan_of(i);
+    uint64_t kbase, mbase;
+    bases(kbase, mbase);
+    wait_in(i);
+
+    // y = M x over keys 0-63, then 64-127, each G = C B^T made first; each
+    // group of M's A operands made while the group before runs
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr)
+    for (int cb = 0; cb < 2; ++cb) {
+      issue_ss(kbase, crow, so + B_OFF + cb * HALF, BLK, 1);
+      wgmma_wait<0>();
+      fence_regs(gacc);
 #pragma unroll
-        for (int j = 0; j < MAX_P / 16; ++j)
-          acc[rr][j][0] = acc[rr][j][1] = acc[rr][j][2] = acc[rr][j][3] = 0.f;
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int rb = rr == 0 ? quad : RB - 1 - quad;
-        const int i0 = rb * 16 + g, i1 = i0 + 8;
-        // y_off = exp(cs_i) (C state_in^T), skipped where exp(cs_i) is 0
-        // on all 16 rows (it underflows once cs_i < -104)
-        if (state_in && __any_sync(0xffffffffu, ecs[hh * Q + i0] != 0.f ||
-                                                    ecs[hh * Q + i1] != 0.f)) {
-#pragma unroll
-          for (int kk = 0; kk < MAX_N / 16; ++kk) {
-            if (kk * 16 < n16) {
-              uint32_t a[4];
-              mma::ldmatrix_x4(a, cs + (rb * 16 + (lane & 15)) * LDB +
-                                      kk * 16 + ((lane >> 4) << 3));
-#pragma unroll
-              for (int pl = 0; pl < MAX_P / 32; ++pl) {
-                const int pp = pcol / 16 + pl;
-                if (pp * 16 < p16) {
-                  const int off =
-                      (pp * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDB +
-                      kk * 16 + (((lane >> 3) & 1) << 3);
-                  uint32_t bh_[4], bm_[4], bl_[4];
-                  mma::ldmatrix_x4(bh_, sh + off);
-                  mma::ldmatrix_x4(bm_, sm + off);
-                  mma::ldmatrix_x4(bl_, sl + off);
-#pragma unroll
-                  for (int half = 0; half < 2; ++half) {
-                    const int i = 2 * half;
-                    float(&d)[4] = acc[rr][2 * pl + half];
-                    mma::mma_bf16(d, a, bh_[i], bh_[i + 1]);
-                    mma::mma_bf16(d, a, bm_[i], bm_[i + 1]);
-                    mma::mma_bf16(d, a, bl_[i], bl_[i + 1]);
-                  }
-                }
-              }
-            }
-          }
-          const float e0 = ecs[hh * Q + i0], e1 = ecs[hh * Q + i1];
-#pragma unroll
-          for (int j = 0; j < MAX_P / 16; ++j) {
-            acc[rr][j][0] *= e0;
-            acc[rr][j][1] *= e0;
-            acc[rr][j][2] *= e1;
-            acc[rr][j][3] *= e1;
-          }
-        }
-        // y_diag = M_hi x + M_mid x + M_lo x over the key blocks of the
-        // row block's part of the lower triangle
-        const int tri = rb * (rb + 1) / 2;
-        for (int kb = 0; kb <= rb; ++kb) {
-          float mv[2][4];
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const float4 gv = gs[((tri + kb) * 2 + half) * 32 + lane];
-            const float gf[4] = {gv.x, gv.y, gv.z, gv.w};
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int j = kb * 16 + half * 8 + 2 * qd + (e & 1);
-              const int i = e < 2 ? i0 : i1;
-              mv[half][e] =
-                  j <= i ? __fmul_rn(__fmul_rn(gf[e], expf(__fsub_rn(
-                                                          csh[i], csh[j]))),
-                                     dth[j])
-                         : 0.f;
-            }
-          }
-          // a block of M that is all 0 (exp(cs_i - cs_j) underflows far
-          // below the diagonal) adds nothing
-          if (!__any_sync(0xffffffffu, mv[0][0] != 0.f || mv[0][1] != 0.f ||
-                                           mv[0][2] != 0.f || mv[0][3] != 0.f ||
-                                           mv[1][0] != 0.f || mv[1][1] != 0.f ||
-                                           mv[1][2] != 0.f || mv[1][3] != 0.f))
-            continue;
-          uint32_t mh[4], mm[4], ml[4];
-          mma::acc_to_a3(mv[0], mv[1], mh, mm, ml);
-#pragma unroll
-          for (int pl = 0; pl < MAX_P / 32; ++pl) {
-            const int pp = pcol / 16 + pl;
-            if (pp * 16 < p16) {
-              uint32_t b[4];
-              mma::ldmatrix_x4_trans(
-                  b, xst +
-                         (kb * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) *
-                             LDX +
-                         pp * 16 + ((lane >> 4) << 3));
-#pragma unroll
-              for (int half = 0; half < 2; ++half) {
-                float(&d)[4] = acc[rr][2 * pl + half];
-                mma::mma_bf16(d, mh, b[2 * half], b[2 * half + 1]);
-                mma::mma_bf16(d, mm, b[2 * half], b[2 * half + 1]);
-                mma::mma_bf16(d, ml, b[2 * half], b[2 * half + 1]);
-              }
-            }
-          }
-        }
-      }
-      bf16* yd = y + ((bi * s + t0) * h + head) * static_cast<long long>(p);
-      const long long row = static_cast<long long>(h) * p;
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int rb = rr == 0 ? quad : RB - 1 - quad;
-        const int i0 = rb * 16 + g, i1 = i0 + 8;
-#pragma unroll
-        for (int j = 0; j < MAX_P / 16; ++j) {
-          const int col = pcol + j * 8 + 2 * qd;
-          if (col < p) {
-            if (i0 < len)
-              *reinterpret_cast<__nv_bfloat162*>(yd + i0 * row + col) =
-                  __floats2bfloat162_rn(acc[rr][j][0], acc[rr][j][1]);
-            if (i1 < len)
-              *reinterpret_cast<__nv_bfloat162*>(yd + i1 * row + col) =
-                  __floats2bfloat162_rn(acc[rr][j][2], acc[rr][j][3]);
-          }
-        }
+      for (int grp = 0; grp < 4 / STEPS; ++grp) {
+        form_m(grp & 1, f, cb, grp * STEPS);
+        issue_rs(y, grp & 1, mbase, so, 4 * cb + grp * STEPS,
+                 cb == 0 && grp == 0);
       }
     }
-
-    if (STATE) {
-      // (x w) in three parts, w_j = dt_j exp(cs_last - cs_j) (the region
-      // holds no incoming state when STATE)
-      bf16* xh = rs;
-      bf16* xm = rs + Q * LDX;
-      bf16* xl = rs + 2 * Q * LDX;
-      const float* w = wts + hh * Q;
-#pragma unroll 8
-      for (int it = 0; it < Q * (MAX_P / 2) / THREADS; ++it) {
-        const int e = tid + it * THREADS;
-        const int j = e / (MAX_P / 2), k2 = (e % (MAX_P / 2)) * 2;
-        if (k2 < p16) {
-          const float2 xv = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(xst + j * LDX + k2));
-          uint32_t hi, mid, lo;
-          mma::split3(__fmul_rn(xv.x, w[j]), __fmul_rn(xv.y, w[j]), hi, mid,
-                      lo);
-          *reinterpret_cast<uint32_t*>(xh + j * LDX + k2) = hi;
-          *reinterpret_cast<uint32_t*>(xm + j * LDX + k2) = mid;
-          *reinterpret_cast<uint32_t*>(xl + j * LDX + k2) = lo;
-        }
-      }
-      __syncthreads();
-      // state (P, N) = (x w)^T B: warp (row group of 16, half of N)
-      const int pr = (warp & 3) * 16, n0 = (warp >> 2) * 64;
-      if (pr < p16 && n0 < n16) {
-        float sacc[8][4];
+    // y_off = C state_in^T, the incoming state in its three parts; y +=
+    // exp(cs_i) y_off
+    issue_ss(kbase, crow, PARTS, HALF, 3);
+    wgmma_wait<0>();
+    fence_regs(y);
+    fence_regs(gacc);
+    {
+      const float e0 = f[2 * Q + ir], e1 = f[2 * Q + ir + 8];
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < Q / 16; ++kk) {
-          // rows whose w_j is 0 (exp(cs_last - cs_j) underflows, or past
-          // the end) add nothing
-          if (__any_sync(0xffffffffu, w[kk * 16 + (lane & 15)] != 0.f)) {
-            const int off = (kk * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDX +
-                            pr + (((lane >> 3) & 1) << 3);
-            uint32_t ah[4], am[4], al[4];
-            mma::ldmatrix_x4_trans(ah, xh + off);
-            mma::ldmatrix_x4_trans(am, xm + off);
-            mma::ldmatrix_x4_trans(al, xl + off);
-#pragma unroll
-            for (int np = 0; np < 4; ++np) {
-              if (n0 + np * 16 < n16) {
-                uint32_t b[4];
-                mma::ldmatrix_x4_trans(
-                    b, bs +
-                           (kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) *
-                               LDB +
-                           n0 + np * 16 + ((lane >> 4) << 3));
-#pragma unroll
-                for (int half = 0; half < 2; ++half) {
-                  const int i = 2 * half;
-                  float(&d)[4] = sacc[2 * np + half];
-                  mma::mma_bf16(d, ah, b[i], b[i + 1]);
-                  mma::mma_bf16(d, am, b[i], b[i + 1]);
-                  mma::mma_bf16(d, al, b[i], b[i + 1]);
-                }
-              }
-            }
-          }
-        }
-        float* dst =
-            nc == 1 ? final_state + bh * pn : states + (bh * nc + c) * pn;
-        const int r0 = pr + g, r1 = r0 + 8;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = n0 + j * 8 + 2 * qd;
-          if (col < n) {
-            if (r0 < p)
-              *reinterpret_cast<float2*>(dst + r0 * n + col) =
-                  make_float2(sacc[j][0], sacc[j][1]);
-            if (r1 < p)
-              *reinterpret_cast<float2*>(dst + r1 * n + col) =
-                  make_float2(sacc[j][2], sacc[j][3]);
-          }
-        }
+      for (int t = 0; t < 8; ++t) {
+        y[4 * t] = __fadd_rn(__fmul_rn(gacc[4 * t], e0), y[4 * t]);
+        y[4 * t + 1] = __fadd_rn(__fmul_rn(gacc[4 * t + 1], e0), y[4 * t + 1]);
+        y[4 * t + 2] = __fadd_rn(__fmul_rn(gacc[4 * t + 2], e1), y[4 * t + 2]);
+        y[4 * t + 3] = __fadd_rn(__fmul_rn(gacc[4 * t + 3], e1), y[4 * t + 3]);
       }
     }
+    {
+      // y in bf16 to device memory by TMA, staged over this warpgroup's
+      // rows of C (read by no other product of this chunk) in the layout
+      // the store reads; rows past S and columns past P are not written
+      unsigned char* ys = sm + crow;
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = pr + 8 * hf;
+          *reinterpret_cast<__nv_bfloat162*>(ys + r * 128 +
+                                             ((t ^ (r & 7)) << 4) + 4 * qd) =
+              __floats2bfloat162_rn(y[4 * t + 2 * hf], y[4 * t + 2 * hf + 1]);
+        }
+      fence_proxy_async();
+      named_sync(SYNC + 1 + wg, 128);
+      if ((tid & 127) == 0) {
+        tma_store_4d(&a.yo, ys, 0, hd, t0 + 64 * wg, bi);
+        bulk_commit();
+      }
+    }
+    read_parts();
+    update(so, f, mbase);
+    // the new state's parts, once every consumer is done with the old
+    if (i + 1 < items) write_parts();
+    release(i);
+  }
+
+  if ((tid & 127) == 0) bulk_wait<false>();
+  if (k == T - 1) {
+    float* out = a.state + static_cast<long long>(bh) * pn;
+    each_elem([&](float& s0, float& s1, long long off) {
+      if (off >= 0) *reinterpret_cast<float2*>(out + off) = make_float2(s0, s1);
+    });
   }
 }
 
-#define SSD_TC_ARGS                                                         \
-  const bf16 *__restrict__ x, const float *__restrict__ dt,                 \
-      const float *__restrict__ a_log, const bf16 *__restrict__ bm,         \
-      const bf16 *__restrict__ cm, bf16 *__restrict__ y,                    \
-      float *__restrict__ states, float *__restrict__ decay,                \
-      float *__restrict__ final_state, int s, int h, int p, int n
-#define SSD_TC_PASS \
-  x, dt, a_log, bm, cm, y, states, decay, final_state, s, h, p, n
-
-// phase 1: each chunk's state and decay
-__global__ void __launch_bounds__(THREADS, 1) ssd_tc_states(SSD_TC_ARGS) {
-  ssd_tc_body<false, true>(SSD_TC_PASS);
-}
-// phase 3: each chunk's output from its incoming state
-__global__ void __launch_bounds__(THREADS, 1) ssd_tc_outputs(SSD_TC_ARGS) {
-  ssd_tc_body<true, false>(SSD_TC_PASS);
-}
-// one chunk: the output and the final state
-__global__ void __launch_bounds__(THREADS, 1) ssd_tc_fused(SSD_TC_ARGS) {
-  ssd_tc_body<true, true>(SSD_TC_PASS);
-}
-
-using Kernel = void (*)(SSD_TC_ARGS);
-
-cudaError_t launch(Kernel kernel, dim3 grid, const void* x, const float* dt,
-                   const float* a_log, const void* b, const void* c, void* y,
-                   float* states, float* decay, float* final_state, int s,
-                   int h, int p, int n, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(SMEM_BYTES));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const bf16*>(x), dt, a_log, static_cast<const bf16*>(b),
-      static_cast<const bf16*>(c), static_cast<bf16*>(y), states, decay,
-      final_state, s, h, p, n);
-  return cudaGetLastError();
-}
+long long header_ints(long long units) { return (1 + units + 3) / 4 * 4; }
 
 }  // namespace
 
 extern "C" int ssd_chunk_tc_len() { return Q; }
 extern "C" int ssd_chunk_tc_max_p() { return MAX_P; }
 extern "C" int ssd_chunk_tc_max_n() { return MAX_N; }
-extern "C" int ssd_chunk_tc_smem() { return static_cast<int>(SMEM_BYTES); }
+extern "C" int ssd_chunk_tc_smem() { return BYTES; }
 
-// x, y: (batch, s, h, p); b, c: (batch, s, n), all bf16; dt: (batch, s, h)
-// and a_log: (h,) float32; final_state: (batch, h, p, n) float32.  states:
-// (batch, h, ceil(s / Q), p, n) and decay: (batch, h, ceil(s / Q)) float32
-// scratch, unused (and may be null) when s <= Q.  Everything contiguous;
-// p and n multiples of 8, p <= MAX_P, n <= MAX_N.
+// bytes of the workspace a call with `units` = batch * h * segments takes:
+// the unit counter and a status word a unit (zeroed by the launch, padded
+// to 16 bytes), then a (p, n) float32 state a unit
+extern "C" long long ssd_chunk_tc_workspace(long long units, int p, int n) {
+  return header_ints(units) * 4 + units * p * n * 4;
+}
+
+// x, y: (batch, s, h, p); b, c: (batch, s, n), all bf16 and 16-byte
+// aligned; dt: (batch, s, h) and a_log: (h,) float32; final_state: (batch,
+// h, p, n) float32; ws: ssd_chunk_tc_workspace(batch * h * segments, p, n)
+// bytes, 16-byte aligned.  Everything contiguous; p and n multiples of 8,
+// p <= MAX_P, n <= MAX_N, 1 <= segments <= ceil(s / Q).
 extern "C" int ssd_chunk_tc_launch(const void* x, const float* dt,
                                    const float* a_log, const void* b,
                                    const void* c, void* y, float* final_state,
-                                   float* states, float* decay, int batch,
-                                   int s, int h, int p, int n,
-                                   cudaStream_t stream) {
+                                   void* ws, int batch, int s, int h, int p,
+                                   int n, int segments, cudaStream_t stream) {
+  const int nc = s > 0 ? (s + Q - 1) / Q : 0;
+  const long long units = static_cast<long long>(batch) * h * segments;
   if (batch <= 0 || s <= 0 || h <= 0 || p <= 0 || n <= 0 || p > MAX_P ||
-      n > MAX_N || p % 8 != 0 || n % 8 != 0 || batch > 65535 ||
-      static_cast<long long>(batch) * h > 65535)
+      n > MAX_N || p % 8 != 0 || n % 8 != 0 || segments < 1 ||
+      segments > nc || units >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nc = (s + Q - 1) / Q;
-  const dim3 grid(nc, (h + HG - 1) / HG, batch);
-  if (nc == 1)
-    return static_cast<int>(launch(ssd_tc_fused, grid, x, dt, a_log, b, c, y,
-                                   nullptr, nullptr, final_state, s, h, p, n,
-                                   stream));
-  cudaError_t err = launch(ssd_tc_states, grid, x, dt, a_log, b, c, y, states,
-                           decay, final_state, s, h, p, n, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_chunk_walk(states, decay, final_state, nc, p * n, batch * h,
-                          stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch(ssd_tc_outputs, grid, x, dt, a_log, b, c, y,
-                                 states, decay, final_state, s, h, p, n,
-                                 stream));
+  for (const void* ptr : {x, b, c, static_cast<const void*>(y),
+                          static_cast<const void*>(ws)})
+    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+  Args a{};
+  int err = bf16_map_4d(&a.x, x, p, h, s, batch, Q);
+  if (err == 0) err = bf16_map_4d(&a.b, b, n, 1, s, batch, Q);
+  if (err == 0) err = bf16_map_4d(&a.c, c, n, 1, s, batch, Q);
+  if (err == 0) err = bf16_map_4d(&a.yo, y, p, h, s, batch, 64);
+  if (err != 0) return err;
+  a.dt = dt;
+  a.a_log = a_log;
+  a.state = final_state;
+  a.head = static_cast<int*>(ws);
+  a.ws_state = reinterpret_cast<float*>(static_cast<int*>(ws) +
+                                        header_ints(units));
+  a.s = s, a.h = h, a.p = p, a.n = n, a.nc = nc, a.segments = segments;
+  cudaError_t e = cudaMemsetAsync(ws, 0, header_ints(units) * 4, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaFuncSetAttribute(ssd_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ssd_tc<<<static_cast<unsigned>(units), THREADS, BYTES, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -7,26 +7,25 @@ CUDA C++ for ``sm_90a``, built with ``nvcc`` at first use
 stream.  The wrapper picks one by dtype and shape:
 
 * bf16 x, b and c with P and N multiples of 8 (the served model's case):
-  ``csrc/ssd_chunk_tc.cu``, the products on the tensor cores (``mma.sync``),
-  ``C B^T`` once per chunk for a group of heads, each float32 operand split
-  into three bf16 parts against exact bf16 ones; counted in
+  ``csrc/ssd_chunk_tc.cu``, one launch (after one memset of its status
+  words): a block per (batch row, head, segment of chunks), `segment_count`
+  segments a head, ``wgmma`` fed by TMA, the running (P, N) state kept in
+  registers from chunk to chunk and handed from segment to segment through
+  a small workspace in a fixed chain; every float32 operand split into
+  three bf16 parts against exact bf16 ones; counted in
   ``LAUNCHES["ssd_chunk_tc"]``;
 * float32 inputs, or bf16 of another shape: ``csrc/ssd_chunk.cu``, float32
-  FMA on the CUDA cores; counted in ``LAUNCHES["ssd_chunk"]``.
+  FMA on the CUDA cores, three phases (chunk states, a walk over the chunks,
+  chunk outputs); counted in ``LAUNCHES["ssd_chunk"]``.
 
 Nothing falls back from one to the other.
 
 What they compute: `ref.ssd_chunk_ref` (the SSD output y) and
 `ref.ssd_final_state` (the recurrent state after the last step) in one
-call, up to the order of the float32 sums.  The TPU kernel carried the
-(P, N) state across an ordered grid of chunks; CUDA blocks have no order,
-so both run the reference's decomposition in three phases over chunks of
-`CHUNK` steps (chunk states, a walk over the chunks for each chunk's
-incoming state, each chunk's output; one launch when S fits one chunk).
-`ref.ssd_chunk_blocked` and `ref.ssd_chunk_split` run the same
-decomposition on the CPU, rounding as the CUDA-core and the tensor-core
-kernel do.  Any S is taken (the tail chunk is masked); P and N up to
-`MAX_P` and `MAX_N`.
+call, up to the order of the float32 sums, over chunks of `CHUNK` steps
+(the tail chunk masked).  `ref.ssd_chunk_segmented` runs the tensor-core
+kernel's decomposition and roundings on the CPU, `ref.ssd_chunk_blocked`
+the CUDA-core kernel's.  Any S is taken; P and N up to `MAX_P` and `MAX_N`.
 
 Bound on the H100: memory.  One layer's prefill of mamba2-1.3b at S = 4096
 moves 72.4 MB (x and y in bf16, b, c, dt and the final state) against 12.9
@@ -52,17 +51,21 @@ CHUNK = 128
 MAX_P = 64
 MAX_N = 128
 
+# streaming multiprocessors of the H100 (SXM), which `segment_count` fills
+# once
+SMS = 132
+
 # launches of each CUDA kernel, counted by the wrapper (a run resets them to
 # 0 and reads them back to show that its path went through the kernels)
 LAUNCHES = {"ssd_chunk": 0, "ssd_chunk_tc": 0}
 
 
-def _load(source, prefix: str, n_ints: int):
+def _load(source, prefix: str, n_ptrs: int, n_ints: int):
     lib = load_library(source)
     launch = getattr(lib, f"{prefix}_launch")
     if launch.argtypes is None:
-        launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * n_ints + [
-            ctypes.c_void_p]
+        launch.argtypes = [ctypes.c_void_p] * n_ptrs + [
+            ctypes.c_int] * n_ints + [ctypes.c_void_p]
         launch.restype = ctypes.c_int
         sizes = [getattr(lib, f"{prefix}_{x}") for x in ("len", "max_p",
                                                           "max_n")]
@@ -77,11 +80,30 @@ def _load(source, prefix: str, n_ints: int):
 
 
 def _lib():
-    return _load(_SOURCE, "ssd_chunk", 6)
+    return _load(_SOURCE, "ssd_chunk", 9, 6)
 
 
 def _lib_tc():
-    return _load(_SOURCE_TC, "ssd_chunk_tc", 5)
+    lib = _load(_SOURCE_TC, "ssd_chunk_tc", 8, 6)
+    lib.ssd_chunk_tc_workspace.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_int]
+    lib.ssd_chunk_tc_workspace.restype = ctypes.c_longlong
+    return lib
+
+
+def segment_count(bsz: int, h: int, s: int) -> int:
+    """Segments a head for the tensor-core kernel at batch ``bsz``, ``h``
+    heads and ``s`` steps: as many as one wave of blocks holds (a block
+    takes an SM: 217 KB of shared memory), at most one a chunk, at least
+    one.  So 1 where the sequence is one chunk or the B * H units alone
+    fill the card's `SMS`, and 2 at mamba2-1.3b's B 1, H 64 for any S past
+    one chunk.  A second wave waits for the first, and every segment but a
+    head's last runs a pass over its chunks of its own, so the fewest
+    segments that fill the card once take the least time (`chip_smoke.py`'s
+    ``kernel_timing`` line for ``ssd_chunk_tc`` times 1, 2 and 4 segments
+    at B 1, H 64, S 4,096)."""
+    n_chunks = -(-s // CHUNK)
+    return max(1, min(n_chunks, SMS // (bsz * h)))
 
 
 def uses_tensor_cores(dtype, p: int, n: int) -> bool:
@@ -91,14 +113,16 @@ def uses_tensor_cores(dtype, p: int, n: int) -> bool:
     return dtype == torch.bfloat16 and p % 8 == 0 and n % 8 == 0
 
 
-def ssd_chunk_kernel(x, dt, a_log, b, c):
+def ssd_chunk_kernel(x, dt, a_log, b, c, *, segments: int | None = None):
     """x (B, S, H, P), b and c (B, S, N), all float32 or all bf16; dt
     (B, S, H) and a_log (H,) float32; contiguous CUDA tensors on one
     device.  Returns (y (B, S, H, P) in x's dtype, final state (B, H, P, N)
     float32).  Launches the tensor-core kernel for bf16 with P and N
     multiples of 8, the CUDA-core kernel otherwise (`uses_tensor_cores`),
     on the current stream; raises on any tensor it does not take or on a
-    failed launch."""
+    failed launch.  ``segments`` sets the tensor-core kernel's segments a
+    head (at most one a chunk), for tests and timing; by default
+    `segment_count` of the shape."""
     ok = (x.dim() == 4 and b.dim() == 3 and c.shape == b.shape
           and b.shape[:2] == x.shape[:2] and dt.shape == x.shape[:3]
           and a_log.shape == x.shape[2:3]
@@ -123,27 +147,33 @@ def ssd_chunk_kernel(x, dt, a_log, b, c):
                               device=x.device)
     # every element is written by the kernel
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    ptrs = (x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+            c.data_ptr(), y.data_ptr(), state.data_ptr())
+    tc = uses_tensor_cores(x.dtype, p, n)
     n_chunks = -(-s // CHUNK)
-    if n_chunks > 1:
+    if tc:
+        lib = _lib_tc()
+        seg = segment_count(bsz, h, s) if segments is None else max(
+            1, min(int(segments), n_chunks))
+        # the unit counter and status words, then an inclusive state a unit
+        ws = torch.empty(lib.ssd_chunk_tc_workspace(bsz * h * seg, p, n),
+                         dtype=torch.uint8, device=x.device)
+    elif n_chunks > 1:
         states = torch.empty((bsz, h, n_chunks, p, n), dtype=torch.float32,
                              device=x.device)
         decay = torch.empty((bsz, h, n_chunks), dtype=torch.float32,
                             device=x.device)
-        scratch = (states.data_ptr(), decay.data_ptr())
-    else:
-        scratch = (None, None)
-    ptrs = (x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
-            c.data_ptr(), y.data_ptr(), state.data_ptr(), *scratch)
-    tc = uses_tensor_cores(x.dtype, p, n)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if tc:
-            err = _lib_tc().ssd_chunk_tc_launch(*ptrs, bsz, s, h, p, n,
-                                                stream)
+            err = lib.ssd_chunk_tc_launch(*ptrs, ws.data_ptr(), bsz, s, h, p,
+                                          n, seg, stream)
         else:
+            scratch = ((states.data_ptr(), decay.data_ptr())
+                       if n_chunks > 1 else (None, None))
             err = _lib().ssd_chunk_launch(
-                *ptrs, int(x.dtype == torch.bfloat16), bsz, s, h, p, n,
-                stream)
+                *ptrs, *scratch, int(x.dtype == torch.bfloat16), bsz, s, h,
+                p, n, stream)
     name = "ssd_chunk_tc" if tc else "ssd_chunk"
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

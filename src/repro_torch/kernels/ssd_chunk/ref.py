@@ -1,5 +1,5 @@
-"""Plain PyTorch version of the SSD chunk scan kernel, and a CPU emulation
-of the kernel's blocked algorithm.
+"""Plain PyTorch version of the SSD chunk scan kernels, and CPU emulations
+of the two kernels' algorithms.
 
 `ssd_chunk_ref` is the counterpart of ``repro/models/ssd.py::ssd_chunked``
 (the oracle ``repro/kernels/ssd_chunk/ref.py`` names for the Pallas kernel),
@@ -8,7 +8,7 @@ min(chunk, S)`` steps, ``logA = -exp(a_log) * dt``, the masked segment sums,
 the intra-chunk term ``y_diag``, the chunk states, the sequential pass over
 the chunks, then the inter-chunk term ``y_off``.  The chunk cumsum of
 ``logA`` is taken in order, one float32 add a step (`cumsum`), as the CUDA
-kernel takes it.  `ssd_final_state` ports ``_final_state``: the recurrent
+kernels take it.  `ssd_final_state` ports ``_final_state``: the recurrent
 state after the last step.  Shapes:
 
     x (B, S, H, P)   dt (B, S, H)   a_log (H,)   b, c (B, S, N)
@@ -18,21 +18,27 @@ computed in float32, y comes back in x's dtype and the state in float32.
 The CPU path and the tests use these; on the card they are the yardstick
 the kernel is held against.
 
-`ssd_chunk_blocked` runs the CUDA kernel's decomposition with whole-tensor
-PyTorch: chunks of ``chunk`` steps (the tail chunk zero-padded, as the
+`ssd_chunk_blocked` runs the CUDA-core kernel's decomposition
+(``csrc/ssd_chunk.cu``) with whole-tensor PyTorch: chunks of ``chunk`` steps (the tail chunk zero-padded, as the
 kernel masks it), each chunk's state contribution and decay (phase 1), a
 walk over the chunks giving each its incoming state and the final state
 (phase 2), and each chunk's output, ``y_off`` from the incoming state plus
 ``y_diag`` over query-row tiles of ``rows`` (phase 3).  With one chunk,
 phases 1 and 3 are one pass and phase 2 is skipped.
 
-`ssd_chunk_split` runs the same three phases with the tensor-core kernel's
-arithmetic: ``G = C B^T`` once per chunk, shared by the heads; ``dt`` folded
-into ``M_ij = G_ij exp(cs_i - cs_j) dt_j``; the chunk states as ``(x w)^T
-B`` with ``w_j = dt_j exp(cs_last - cs_j)``; every float32 operand of a
-product that meets an exact bf16 one (``M``, ``x w``, the incoming state)
-split into three bf16 parts (hi, mid, lo; `kernels._split.split_bf16`),
-each part multiplied in float32.
+`ssd_chunk_segmented` runs the tensor-core kernel's decomposition and
+arithmetic (``csrc/ssd_chunk_tc.cu``): each head's chunks cut into ``segments`` segments of consecutive
+chunks; pass 1, each segment but the last from a zero state (its aggregate
+and the product of its chunk decays); the chained hand-off ``inclusive_k =
+inclusive_{k-1} D_k + aggregate_k``; pass 2, each segment's chunks in order
+from its incoming state: ``y = exp(cs_i) (C state^T) + M x`` with ``dt``
+folded into ``M_ij = G_ij exp(cs_i - cs_j) dt_j`` (``G = C B^T``), then
+``state = state exp(cs_last) + (x w)^T B`` with ``w_j = dt_j exp(cs_last -
+cs_j)``.  Every float32 operand of a product that meets an exact bf16 one
+(``M``, ``x w``, the state) is split into three bf16 parts (hi, mid, lo;
+`kernels._split.split_bf16`), each part multiplied in float32; each product
+is made from zero and added to the other term after it, as the kernel adds
+its accumulators on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -157,8 +163,8 @@ def ssd_final_state(x, dt, a_log, b, c=None, *, chunk: int = 128):
 def _walk(states, chunk_decay):
     """Phase 2: (each chunk's incoming state, or None for one chunk; the
     final state), from the chunk states (b,c,h,p,n) and decays (b,c,h).
-    The kernels overwrite each chunk's contribution with its incoming state,
-    in place."""
+    The CUDA-core kernel overwrites each chunk's contribution with its
+    incoming state, in place."""
     if states.shape[1] == 1:
         return None, states[:, 0]
     incoming = torch.empty_like(states)
@@ -185,38 +191,62 @@ def _chunks(x, dt, a_log, b, c, chunk):
             c.reshape(bsz, nc, chunk, n).float(), cs)
 
 
-def ssd_chunk_split(x, dt, a_log, b, c, *, chunk: int = 128):
-    """The tensor-core kernel's three phases and roundings over chunks of
-    ``chunk`` steps: (y in x's dtype, final state float32)."""
+def ssd_chunk_segmented(x, dt, a_log, b, c, *, chunk: int = 128,
+                        segments: int = 1):
+    """The tensor-core kernel's segments, passes and roundings over chunks
+    of ``chunk`` steps, at most one segment a chunk: (y in x's dtype, final
+    state float32)."""
     _check(x, dt, a_log, b, c)
     bsz, s, h, p = x.shape
     x_c, dt_c, b_c, c_c, cs = _chunks(x, dt, a_log, b, c, chunk)
     nc = x_c.shape[1]
-
-    def two(eq, hi_lo, other):
-        return sum(torch.einsum(eq, half, other) for half in hi_lo)
-
-    # phase 1: (x w)^T B, w_j = dt_j exp(cs_last - cs_j), x w split
+    n_seg = max(1, min(int(segments), nc))
+    bounds = [k * nc // n_seg for k in range(n_seg + 1)]
+    decay = torch.exp(cs[..., -1])                            # (b,c,h)
     w = dt_c * torch.exp(cs[..., -1:] - cs)                   # (b,c,h,q)
-    xw = split_bf16(x_c * w.permute(0, 1, 3, 2)[..., None], 3)  # (b,c,q,h,p)
-    states = two("bcjhp,bcjn->bchpn", xw, b_c)
-    incoming, final = _walk(states, torch.exp(cs[..., -1]))
-
-    # phase 3: y_off = exp(cs_i) (C state_in^T), then y_diag = M x
-    y = x_c.new_zeros(x_c.shape)
-    if incoming is not None:
-        y[:, 1:] = two("bchpn,bcin->bcihp", split_bf16(incoming[:, 1:], 3),
-                       c_c[:, 1:]) \
-            * torch.exp(cs[:, 1:]).permute(0, 1, 3, 2)[..., None]
-    g = torch.einsum("bcin,bcjn->bcij", c_c, b_c)[:, :, None]  # shared
-    seg = cs[..., :, None] - cs[..., None, :]                 # (b,c,h,i,j)
+    ecs = torch.exp(cs).permute(0, 1, 3, 2)[..., None]        # (b,c,q,h,1)
     causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
                                    device=x.device))
-    m = torch.where(causal, g * torch.exp(seg) * dt_c[..., None, :],
-                    torch.zeros((), device=x.device))
-    y = y + two("bchij,bcjhp->bcihp", split_bf16(m, 3), x_c)
+    zero = torch.zeros((), device=x.device)
+
+    def parts(eq, weights, other):
+        return sum(torch.einsum(eq, part, other)
+                   for part in split_bf16(weights, 3))
+
+    def step(state, ci):
+        """The state after chunk ci: state exp(cs_last) + (x w)^T B."""
+        xw = x_c[:, ci] * w[:, ci].permute(0, 2, 1)[..., None]  # (b,q,h,p)
+        return state * decay[:, ci, :, None, None] + parts(
+            "bjhp,bjn->bhpn", xw, b_c[:, ci])
+
+    # pass 1 (each segment but the last, from a zero state) and the chained
+    # hand-off: inclusive_k = inclusive_{k-1} D_k + aggregate_k
+    start = b_c.new_zeros((bsz, h, p, b_c.shape[-1]))
+    incoming = [start]
+    for k in range(n_seg - 1):
+        agg, prod = start, torch.ones_like(decay[:, 0])
+        for ci in range(bounds[k], bounds[k + 1]):
+            agg = step(agg, ci)
+            prod = prod * decay[:, ci]
+        incoming.append(agg if k == 0 else
+                        incoming[-1] * prod[..., None, None] + agg)
+
+    # pass 2: y = exp(cs_i) (C state^T) + M x, chunk by chunk from each
+    # segment's incoming state
+    y = x_c.new_zeros(x_c.shape)
+    for k in range(n_seg):
+        state = incoming[k]
+        for ci in range(bounds[k], bounds[k + 1]):
+            g = torch.einsum("bin,bjn->bij", c_c[:, ci], b_c[:, ci])
+            seg = cs[:, ci, :, :, None] - cs[:, ci, :, None, :]  # (b,h,i,j)
+            m = torch.where(causal, g[:, None] * torch.exp(seg)
+                            * dt_c[:, ci, :, None, :], zero)
+            y_off = parts("bhpn,bin->bihp", state, c_c[:, ci])
+            y[:, ci] = y_off * ecs[:, ci] + parts("bhij,bjhp->bihp", m,
+                                                  x_c[:, ci])
+            state = step(state, ci)
     y = y.reshape(bsz, nc * chunk, h, p)[:, :s]
-    return y.to(x.dtype), final
+    return y.to(x.dtype), state
 
 
 def ssd_chunk_blocked(x, dt, a_log, b, c, *, chunk: int = 128,

@@ -576,12 +576,15 @@ def ssd_inputs(gen, card, b, s, h, p, n, model_like):
 def test_cuda_ssd_kernel_equals_plain(card):
     """Around the 128-step chunk edge, ragged tails, one and two batch rows,
     the model's head shape and the smoke config's, float32 and bf16, both
-    input families; y and the final state."""
+    input families; y and the final state.  S 421 puts the tensor-core
+    kernel's segment boundary one chunk before the ragged tail; S 16,384 is
+    the server's longest prompt (128 chunks)."""
     gen = torch.Generator(device=card).manual_seed(2)
     for b, s, h, p, n in [(1, 1, 64, 64, 128), (2, 5, 64, 64, 128),
                           (1, 127, 64, 64, 128), (2, 128, 4, 16, 16),
                           (1, 129, 64, 64, 128), (2, 300, 3, 24, 40),
-                          (1, 1000, 64, 64, 128)]:
+                          (1, 421, 64, 64, 128), (1, 1000, 64, 64, 128),
+                          (1, 16_384, 64, 64, 128)]:
         for model_like in (False, True):
             atol, rtol = 3e-5, 3e-4
             args = ssd_inputs(gen, card, b, s, h, p, n, model_like)
@@ -605,16 +608,27 @@ def test_cuda_ssd_kernel_equals_plain(card):
 @pytest.mark.cuda
 def test_cuda_ssd_tc_kernel_equals_plain(card):
     """The tensor-core kernel (bf16, P and N multiples of 8): S around the
-    128-step chunk, P and N padded to 16 inside (24, 40), head groups that
-    do not fill a block (H 3, 12), the model's shape (1, 4,096, 64, 64,
-    128), both input families; each call raises the tensor-core counter and
-    not the other.  Float32, and bf16 with P not a multiple of 8, take the
-    CUDA-core kernel, held to the same tolerances."""
+    128-step chunk, P and N padded inside (24, 40, 16), head counts that do
+    not fill the card (H 3, 4, 12: many segments a head), the model's shape
+    at S 4,096 and 16,384, S 421 (two segments of two chunks: the boundary
+    one chunk before the ragged tail) and S 933 (also at 1, 2, 3 and 7
+    segments; at 7 the last boundary is one chunk before the ragged tail),
+    B * H of 66,000
+    blocks, both input families;
+    each call raises the tensor-core counter and not the other, and a
+    second call on the same inputs gives the same bits.  Float32, and bf16
+    with P not a multiple of 8, take the CUDA-core kernel, held to the same
+    tolerances."""
     gen = torch.Generator(device=card).manual_seed(4)
     atol, rtol = 3e-5, 3e-4
-    for b, s, h, p, n in [(1, 1, 64, 64, 128), (2, 129, 12, 64, 128),
-                          (1, 300, 3, 24, 40), (2, 257, 4, 16, 16),
-                          (1, 4096, 64, 64, 128)]:
+    cases = [(1, 1, 64, 64, 128, None), (2, 129, 12, 64, 128, None),
+             (1, 300, 3, 24, 40, None), (2, 257, 4, 16, 16, None),
+             (1, 4096, 64, 64, 128, None), (1, 16_384, 64, 64, 128, None),
+             (1, 421, 64, 64, 128, None), (1, 933, 64, 64, 128, None)]
+    cases += [(1, 933, 64, 64, 128, seg) for seg in (1, 2, 3, 7)]
+    # more blocks than a grid's second dimension takes (B * H > 65,535)
+    cases += [(1100, 1, 60, 8, 16, None)]
+    for b, s, h, p, n, segments in cases:
         for model_like in (False, True):
             x, dt, a_log, bm, cm = (
                 t.to(torch.bfloat16) if i in (0, 3, 4) else t
@@ -622,18 +636,22 @@ def test_cuda_ssd_tc_kernel_equals_plain(card):
                                                  model_like)))
             out = []
             counts = launched(SK.LAUNCHES, lambda: out.append(
-                SK.ssd_chunk_kernel(x, dt, a_log, bm, cm)))
+                SK.ssd_chunk_kernel(x, dt, a_log, bm, cm,
+                                    segments=segments)))
             assert counts == {"ssd_chunk": 0, "ssd_chunk_tc": 1}
             y, state = out[0]
             want = ssd_chunk_ref(x, dt, a_log, bm, cm)
             want_state = ssd_final_state(x, dt, a_log, bm)
+            y2, state2 = SK.ssd_chunk_kernel(x, dt, a_log, bm, cm,
+                                             segments=segments)
             torch.cuda.synchronize()
-            case = (b, s, h, p, n, model_like)
+            case = (b, s, h, p, n, segments, model_like)
             assert y.dtype == torch.bfloat16, case
             assert torch.allclose(y.float(), want.float(), atol=atol,
                                   rtol=rtol + 2.0 ** -7), case
             assert torch.allclose(state, want_state, atol=atol,
                                   rtol=rtol), case
+            assert torch.equal(y2, y) and torch.equal(state2, state), case
     for dtype, p in ((torch.float32, 64), (torch.bfloat16, 20)):
         for model_like in (False, True):
             args = [t.to(dtype) if i in (0, 3, 4) else t

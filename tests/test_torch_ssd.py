@@ -18,11 +18,11 @@ Tolerances:
 * bf16 x, b and c: the output in bf16, one bf16 spacing (``rtol = 2^-7``)
   plus ``atol = 3e-5``, since float32 sums a few ulps apart may round to
   neighbouring bf16 values;
-* `ref.ssd_chunk_split`, the tensor-core kernel's roundings (``C B^T``
-  shared by the heads, ``dt`` folded into ``M``, every float32 operand
-  split in three bf16 parts), on bf16 inputs: y within
-  ``3e-5`` plus ``3e-4`` and one bf16 spacing relative, the final state
-  within ``3e-5 / 3e-4``, against the plain version and against the
+* `ref.ssd_chunk_segmented`, the tensor-core kernel's segments, passes and
+  roundings (pass 1's aggregates, the chained hand-off, ``dt`` folded into
+  ``M``, every float32 operand split in three bf16 parts), on bf16 inputs:
+  y within ``3e-5`` plus ``3e-4`` and one bf16 spacing relative, the final
+  state within ``3e-5 / 3e-4``, against the plain version and against the
   reference's ``ssd_chunked`` and ``_final_state``;
 * `kernels._split.split_bf16` in three parts gives back every float32
   value of the normal range exactly;
@@ -48,7 +48,7 @@ from repro_torch.kernels._split import split_bf16  # noqa: E402
 from repro_torch.kernels.ssd_chunk import kernel as pkernel  # noqa: E402
 from repro_torch.kernels.ssd_chunk import ops as pops  # noqa: E402
 from repro_torch.kernels.ssd_chunk.ref import (  # noqa: E402
-    ssd_chunk_blocked, ssd_chunk_ref, ssd_chunk_split, ssd_final_state)
+    ssd_chunk_blocked, ssd_chunk_ref, ssd_chunk_segmented, ssd_final_state)
 from repro_torch.models import ssd as SSD  # noqa: E402
 from repro_torch.models.convert import fill_module  # noqa: E402
 
@@ -185,26 +185,74 @@ def test_blocked_emulation_equals_plain(chunk, rows, s):
               f"blocked state ({chunk}, {rows}, {s})")
 
 
+def _segmented_vs_plain_and_reference(args, chunk, segments, what):
+    """`ssd_chunk_segmented` on bf16 x, b and c against the plain version
+    and the reference's ``ssd_chunked`` and ``_final_state``."""
+    tin = bf16_args(args)
+    jin = [jnp.asarray(a) if i in (1, 2) else jnp.asarray(a).astype(
+        jnp.bfloat16) for i, a in enumerate(args)]
+    y, state = ssd_chunk_segmented(*tin, chunk=chunk, segments=segments)
+    assert y.dtype == torch.bfloat16 and state.dtype == torch.float32
+    rtol = RTOL + 2.0 ** -7
+    close(y.float(), ssd_chunk_ref(*tin, chunk=chunk).float(), f"{what} y",
+          rtol=rtol)
+    close(state, ssd_final_state(*tin, chunk=chunk), f"{what} state")
+    close(y.float(), f32(JSSD.ssd_chunked(*jin, chunk=chunk)),
+          f"{what} y vs ssd_chunked", rtol=rtol)
+    close(state, JSSD._final_state(*jin, chunk=chunk),
+          f"{what} state vs _final_state")
+
+
 @pytest.mark.parametrize("s,chunk", [(1, 128), (7, 16), (45, 16), (129, 128),
                                      (300, 128), (64, 32)])
 @pytest.mark.parametrize("model_like", [False, True])
 def test_split_emulation_equals_plain_and_reference(s, chunk, model_like):
-    """The tensor-core kernel's three phases and roundings on bf16 inputs
-    (one chunk, ragged tails, many chunks), y and the final state."""
+    """The tensor-core kernel's roundings on bf16 inputs (one chunk, ragged
+    tails, many chunks), y and the final state, through its segmented
+    emulation at two segments (one where the sequence is one chunk)."""
     args = inputs(11 * s + chunk, 2, s, 3, 8, 16, model_like=model_like)
-    tin = bf16_args(args)
-    jin = [jnp.asarray(a) if i in (1, 2) else jnp.asarray(a).astype(
-        jnp.bfloat16) for i, a in enumerate(args)]
-    y, state = ssd_chunk_split(*tin, chunk=chunk)
-    assert y.dtype == torch.bfloat16 and state.dtype == torch.float32
-    rtol = RTOL + 2.0 ** -7
-    close(y.float(), ssd_chunk_ref(*tin, chunk=chunk).float(),
-          f"split y S={s}", rtol=rtol)
-    close(state, ssd_final_state(*tin, chunk=chunk), f"split state S={s}")
-    close(y.float(), f32(JSSD.ssd_chunked(*jin, chunk=chunk)),
-          f"split y vs ssd_chunked S={s}", rtol=rtol)
-    close(state, JSSD._final_state(*jin, chunk=chunk),
-          f"split state vs _final_state S={s}")
+    _segmented_vs_plain_and_reference(args, chunk, 2, f"split S={s}")
+
+
+@pytest.mark.parametrize("s", [45, 100])
+@pytest.mark.parametrize("segments", [1, 2, 3, 4])
+@pytest.mark.parametrize("model_like", [False, True])
+def test_segmented_emulation_equals_plain_and_reference(s, segments,
+                                                        model_like):
+    """Segments of consecutive chunks of 16 steps: S 45 is three chunks, the
+    last ragged (four segments asked for: one a chunk); S 100 is seven, so
+    the last segment is longer than the first and ends in the ragged chunk
+    (bounds 0, 3, 7 / 0, 2, 4, 7 / 0, 1, 3, 5, 7)."""
+    args = inputs(7 * s + segments, 2, s, 3, 8, 16, model_like=model_like)
+    _segmented_vs_plain_and_reference(args, 16, segments,
+                                      f"S={s} T={segments}")
+
+
+def test_segmented_emulation_hand_off_is_the_walk():
+    """Any segment count gives the final state of one segment up to the
+    float32 rounding of the decays' product and of the hand-off's sums."""
+    tin = bf16_args(inputs(5, 1, 200, 2, 8, 16, model_like=True))
+    _, one = ssd_chunk_segmented(*tin, chunk=16, segments=1)
+    for segments in (2, 5, 13, 40):
+        _, state = ssd_chunk_segmented(*tin, chunk=16, segments=segments)
+        close(state, one, f"state T={segments}", atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("bsz,h,s,want", [
+    (1, 64, 1, 1), (1, 64, 100, 1), (1, 64, 128, 1), (4, 3, 128, 1),
+    (1, 64, 129, 2), (1, 64, 4096, 2), (1, 64, 16_384, 2), (3, 64, 4096, 1),
+    (1, 132, 4096, 1), (1, 67, 4096, 1), (1, 33, 4096, 4), (1, 3, 300, 3),
+    (2, 4, 4096, 16)])
+def test_segment_count_rule(bsz, h, s, want):
+    """As many segments as one wave of blocks (one an SM) holds, at most one
+    a chunk: one where the sequence is one chunk or B * H alone fills the
+    card's SMs; two at mamba2-1.3b's 64 heads at S 4,096 and 16,384."""
+    got = pkernel.segment_count(bsz, h, s)
+    n_chunks = -(-s // pkernel.CHUNK)
+    assert got == want
+    assert 1 <= got <= n_chunks
+    assert got == 1 or bsz * h * got <= pkernel.SMS
+    assert got == n_chunks or bsz * h * (got + 1) > pkernel.SMS
 
 
 @pytest.mark.parametrize("scale", [1.0, 2.0 ** -80, 2.0 ** 80])
@@ -361,10 +409,11 @@ def worst_ratio(got, want, atol, rtol):
 
 
 def model_size_rehearsal() -> bool:
-    """`ssd_chunk_split` against the plain version at mamba2-1.3b's SSD
-    shape (B 1, S 4,096, H 64, P 64, N 128, bf16 x, b and c), on both input
-    families, at this file's tolerances: the check to run on the CPU before
-    a card run of a change to the tensor-core kernel's roundings.  It is
+    """`ssd_chunk_segmented` at the kernel's segment count against the plain
+    version at mamba2-1.3b's SSD shape (B 1, S 4,096, H 64, P 64, N 128,
+    bf16 x, b and c), on both input families, at this file's tolerances:
+    the check to run on the CPU before a card run of a change to the
+    tensor-core kernel's roundings.  It is
     kept out of the suite for its size (a few GB, about a minute):
     ``PYTHONPATH=src python tests/test_torch_ssd.py`` prints, per family,
     the worst ratio of each difference to what the tolerance allows."""
@@ -372,7 +421,8 @@ def model_size_rehearsal() -> bool:
     for model_like in (False, True):
         args = bf16_args(inputs(0, 1, 4096, 64, 64, 128,
                                 model_like=model_like))
-        y, state = ssd_chunk_split(*args)
+        y, state = ssd_chunk_segmented(
+            *args, segments=pkernel.segment_count(1, 64, 4096))
         ry = worst_ratio(y.float(), ssd_chunk_ref(*args).float(), ATOL,
                          RTOL + 2.0 ** -7)
         rs = worst_ratio(state, ssd_final_state(*args), ATOL, RTOL)
