@@ -12,10 +12,11 @@
 //   state  = state_in * exp(cs_last) + (x * dt . exp(cs_last - cs_j))^T B
 // in float32, with the (P, N) state carried from chunk to chunk in VMEM
 // over an ordered grid.  This kernel also writes the state after the last
-// step (the reference's _final_state).
+// step (the reference's _final_state) and, on request (the training
+// path), each chunk's incoming state, which ssd_chunk_bwd.cu reads.
 //
 // Design.  One launch (after a memset of the status words); the chunk
-// states never go to device memory.
+// states go to device memory only on request (the STATES instance).
 //   * Work unit: (batch row, head, segment of consecutive chunks), T
 //     segments a head (kernel.py::segment_count: as many as one wave of
 //     blocks holds, one block an SM; 2 at mamba2-1.3b's B 1, H 64).  A
@@ -146,6 +147,7 @@ struct Args {
   const float* dt;
   const float* a_log;
   float* state;
+  float* states;    // each chunk's incoming state (batch, h, nc, p, n)
   int* head;        // the unit counter, then a status word a unit
   float* ws_state;  // an inclusive (p, n) state a unit
   int s, h, p, n, nc, segments;
@@ -195,6 +197,9 @@ __device__ __forceinline__ void st_release(int* p, int v) {
   asm volatile("st.release.gpu.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
+// STATES: also write each chunk's incoming state (the training path); the
+// served path is the instance without, its code unchanged
+template <bool STATES>
 __global__ void __launch_bounds__(THREADS, 1)
 ssd_tc(const __grid_constant__ Args a) {
   extern __shared__ __align__(1024) unsigned char sm[];
@@ -602,6 +607,13 @@ ssd_tc(const __grid_constant__ Args a) {
     const float* f = scan_of(i);
     uint64_t kbase, mbase;
     bases(kbase, mbase);
+    if constexpr (STATES) {
+      float* out =
+          a.states + (static_cast<long long>(bh) * a.nc + chunk_of(i)) * pn;
+      each_elem([&](float& s0, float& s1, long long off) {
+        if (off >= 0) *reinterpret_cast<float2*>(out + off) = make_float2(s0, s1);
+      });
+    }
     wait_in(i);
 
     // y = M x over keys 0-63, then 64-127, each G = C B^T made first; each
@@ -680,6 +692,15 @@ extern "C" int ssd_chunk_tc_max_p() { return MAX_P; }
 extern "C" int ssd_chunk_tc_max_n() { return MAX_N; }
 extern "C" int ssd_chunk_tc_smem() { return BYTES; }
 
+template <bool STATES>
+int launch(const Args& a, long long units, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      ssd_tc<STATES>, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ssd_tc<STATES><<<static_cast<unsigned>(units), THREADS, BYTES, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // bytes of the workspace a call with `units` = batch * h * segments takes:
 // the unit counter and a status word a unit (zeroed by the launch, padded
 // to 16 bytes), then a (p, n) float32 state a unit
@@ -690,13 +711,15 @@ extern "C" long long ssd_chunk_tc_workspace(long long units, int p, int n) {
 // x, y: (batch, s, h, p); b, c: (batch, s, n), all bf16 and 16-byte
 // aligned; dt: (batch, s, h) and a_log: (h,) float32; final_state: (batch,
 // h, p, n) float32; ws: ssd_chunk_tc_workspace(batch * h * segments, p, n)
-// bytes, 16-byte aligned.  Everything contiguous; p and n multiples of 8,
-// p <= MAX_P, n <= MAX_N, 1 <= segments <= ceil(s / Q).
+// bytes, 16-byte aligned; states: null, or (batch, h, ceil(s / Q), p, n)
+// float32 for each chunk's incoming state.  Everything contiguous; p and n
+// multiples of 8, p <= MAX_P, n <= MAX_N, 1 <= segments <= ceil(s / Q).
 extern "C" int ssd_chunk_tc_launch(const void* x, const float* dt,
                                    const float* a_log, const void* b,
                                    const void* c, void* y, float* final_state,
-                                   void* ws, int batch, int s, int h, int p,
-                                   int n, int segments, cudaStream_t stream) {
+                                   void* ws, float* states, int batch, int s,
+                                   int h, int p, int n, int segments,
+                                   cudaStream_t stream) {
   const int nc = s > 0 ? (s + Q - 1) / Q : 0;
   const long long units = static_cast<long long>(batch) * h * segments;
   if (batch <= 0 || s <= 0 || h <= 0 || p <= 0 || n <= 0 || p > MAX_P ||
@@ -716,15 +739,13 @@ extern "C" int ssd_chunk_tc_launch(const void* x, const float* dt,
   a.dt = dt;
   a.a_log = a_log;
   a.state = final_state;
+  a.states = states;
   a.head = static_cast<int*>(ws);
   a.ws_state = reinterpret_cast<float*>(static_cast<int*>(ws) +
                                         header_ints(units));
   a.s = s, a.h = h, a.p = p, a.n = n, a.nc = nc, a.segments = segments;
-  cudaError_t e = cudaMemsetAsync(ws, 0, header_ints(units) * 4, stream);
+  const cudaError_t e = cudaMemsetAsync(ws, 0, header_ints(units) * 4, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(ssd_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           BYTES);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  ssd_tc<<<static_cast<unsigned>(units), THREADS, BYTES, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return states != nullptr ? launch<true>(a, units, stream)
+                           : launch<false>(a, units, stream);
 }

@@ -13,12 +13,16 @@ stream.  The wrapper picks one by dtype and shape:
   registers from chunk to chunk and handed from segment to segment through
   a small workspace in a fixed chain; every float32 operand split into
   three bf16 parts against exact bf16 ones; counted in
-  ``LAUNCHES["ssd_chunk_tc"]``;
+  ``LAUNCHES["ssd_chunk_tc"]``.  On request (``return_states``, the
+  training path) it also writes each chunk's incoming state, which the
+  backward kernel (`kernel_bwd.ssd_chunk_bwd_kernel`) reads;
 * float32 inputs, or bf16 of another shape: ``csrc/ssd_chunk.cu``, float32
   FMA on the CUDA cores, three phases (chunk states, a walk over the chunks,
   chunk outputs); counted in ``LAUNCHES["ssd_chunk"]``.
 
-Nothing falls back from one to the other.
+Nothing falls back from one to the other.  The gradient of the
+tensor-core kernel is a kernel of its own (`kernel_bwd.ssd_chunk_bwd_kernel`,
+``csrc/ssd_chunk_bwd.cu``); `ops.ssd_chunk` is the autograd op over both.
 
 What they compute: `ref.ssd_chunk_ref` (the SSD output y) and
 `ref.ssd_final_state` (the recurrent state after the last step) in one
@@ -84,7 +88,7 @@ def _lib():
 
 
 def _lib_tc():
-    lib = _load(_SOURCE_TC, "ssd_chunk_tc", 8, 6)
+    lib = _load(_SOURCE_TC, "ssd_chunk_tc", 9, 6)
     lib.ssd_chunk_tc_workspace.argtypes = [ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_int]
     lib.ssd_chunk_tc_workspace.restype = ctypes.c_longlong
@@ -113,7 +117,8 @@ def uses_tensor_cores(dtype, p: int, n: int) -> bool:
     return dtype == torch.bfloat16 and p % 8 == 0 and n % 8 == 0
 
 
-def ssd_chunk_kernel(x, dt, a_log, b, c, *, segments: int | None = None):
+def ssd_chunk_kernel(x, dt, a_log, b, c, *, segments: int | None = None,
+                     return_states: bool = False):
     """x (B, S, H, P), b and c (B, S, N), all float32 or all bf16; dt
     (B, S, H) and a_log (H,) float32; contiguous CUDA tensors on one
     device.  Returns (y (B, S, H, P) in x's dtype, final state (B, H, P, N)
@@ -122,7 +127,9 @@ def ssd_chunk_kernel(x, dt, a_log, b, c, *, segments: int | None = None):
     on the current stream; raises on any tensor it does not take or on a
     failed launch.  ``segments`` sets the tensor-core kernel's segments a
     head (at most one a chunk), for tests and timing; by default
-    `segment_count` of the shape."""
+    `segment_count` of the shape.  ``return_states`` (the tensor-core
+    kernel only) also returns each chunk's incoming state, (B, H, chunks, P,
+    N) float32, as a third value."""
     ok = (x.dim() == 4 and b.dim() == 3 and c.shape == b.shape
           and b.shape[:2] == x.shape[:2] and dt.shape == x.shape[:3]
           and a_log.shape == x.shape[2:3]
@@ -141,16 +148,24 @@ def ssd_chunk_kernel(x, dt, a_log, b, c, *, segments: int | None = None):
     if p > MAX_P or n > MAX_N:
         raise ValueError(f"ssd_chunk takes P <= {MAX_P} and N <= {MAX_N}, "
                          f"got P={p}, N={n}")
+    tc = uses_tensor_cores(x.dtype, p, n)
+    if return_states and not tc:
+        raise ValueError("only the tensor-core kernel writes the chunk "
+                         "states: bf16 x, b and c with P and N multiples of 8")
     y = torch.empty_like(x)
+    n_chunks = -(-s // CHUNK)
+    chunk_in = torch.empty((bsz, h, n_chunks, p, n), dtype=torch.float32,
+                           device=x.device) if return_states else None
     if x.numel() == 0 or n == 0:
-        return y, torch.zeros((bsz, h, p, n), dtype=torch.float32,
-                              device=x.device)
+        state = torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                            device=x.device)
+        if return_states:
+            return y, state, chunk_in.zero_()
+        return y, state
     # every element is written by the kernel
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     ptrs = (x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
             c.data_ptr(), y.data_ptr(), state.data_ptr())
-    tc = uses_tensor_cores(x.dtype, p, n)
-    n_chunks = -(-s // CHUNK)
     if tc:
         lib = _lib_tc()
         seg = segment_count(bsz, h, s) if segments is None else max(
@@ -166,8 +181,10 @@ def ssd_chunk_kernel(x, dt, a_log, b, c, *, segments: int | None = None):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if tc:
-            err = lib.ssd_chunk_tc_launch(*ptrs, ws.data_ptr(), bsz, s, h, p,
-                                          n, seg, stream)
+            err = lib.ssd_chunk_tc_launch(
+                *ptrs, ws.data_ptr(),
+                None if chunk_in is None else chunk_in.data_ptr(), bsz, s, h,
+                p, n, seg, stream)
         else:
             scratch = ((states.data_ptr(), decay.data_ptr())
                        if n_chunks > 1 else (None, None))
@@ -178,4 +195,6 @@ def ssd_chunk_kernel(x, dt, a_log, b, c, *, segments: int | None = None):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+    if return_states:
+        return y, state, chunk_in
     return y, state

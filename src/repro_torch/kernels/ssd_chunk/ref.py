@@ -1,5 +1,5 @@
-"""Plain PyTorch version of the SSD chunk scan kernels, and CPU emulations
-of the two kernels' algorithms.
+"""Plain PyTorch version of the SSD chunk scan kernels and of their
+gradient, and CPU emulations of the kernels' algorithms.
 
 `ssd_chunk_ref` is the counterpart of ``repro/models/ssd.py::ssd_chunked``
 (the oracle ``repro/kernels/ssd_chunk/ref.py`` names for the Pallas kernel),
@@ -14,7 +14,8 @@ state after the last step.  Shapes:
     x (B, S, H, P)   dt (B, S, H)   a_log (H,)   b, c (B, S, N)
 
 x, b and c may be float32 or bf16, dt and a_log are float32; everything is
-computed in float32, y comes back in x's dtype and the state in float32.
+computed in float32 (in float64 for float64 x, so that ``gradcheck``
+applies), y comes back in x's dtype and the state in float32.
 The CPU path and the tests use these; on the card they are the yardstick
 the kernel is held against.
 
@@ -39,6 +40,13 @@ cs_j)``.  Every float32 operand of a product that meets an exact bf16 one
 `kernels._split.split_bf16`), each part multiplied in float32; each product
 is made from zero and added to the other term after it, as the kernel adds
 its accumulators on the CUDA cores.
+
+The gradient: `ssd_chunk_bwd_plain` is the closed-form backward of
+(`ssd_chunk_ref`, `ssd_final_state`) in whole-tensor PyTorch, the CPU
+path's backward and the card's yardstick; `ssd_chunk_bwd_segmented` runs
+the backward kernel's decomposition (``csrc/ssd_chunk_bwd.cu``: segments
+walked from the last chunk, a reverse hand-off, three-part splits, fixed
+sum orders).
 """
 
 from __future__ import annotations
@@ -56,6 +64,12 @@ def _check(x, dt, a_log, b, c):
             f"ssd_chunk takes x (B, S, H, P), dt (B, S, H), a_log (H,), b and "
             f"c (B, S, N); got {tuple(x.shape)}, {tuple(dt.shape)}, "
             f"{tuple(a_log.shape)}, {tuple(b.shape)}, {tuple(c.shape)}")
+
+
+def _ct(x):
+    """The dtype the plain versions compute in: float64 for float64 ``x``,
+    else float32."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
 def _pad_seq(t, pad):
@@ -99,11 +113,12 @@ def _chunked(x, dt, a_log, b, chunk):
     q = min(chunk, s)
     nc = (s + q - 1) // q
     pad = nc * q - s
+    ct = _ct(x)
     x, dt, b = (_pad_seq(t, pad) for t in (x, dt, b))
-    dt_c = dt.reshape(bsz, nc, q, h).float()
-    b_c = b.reshape(bsz, nc, q, n).float()
-    xdt = x.reshape(bsz, nc, q, h, p).float() * dt_c[..., None]
-    loga = -torch.exp(a_log.float())[None, None, None, :] * dt_c
+    dt_c = dt.reshape(bsz, nc, q, h).to(ct)
+    b_c = b.reshape(bsz, nc, q, n).to(ct)
+    xdt = x.reshape(bsz, nc, q, h, p).to(ct) * dt_c[..., None]
+    loga = -torch.exp(a_log.to(ct))[None, None, None, :] * dt_c
     return xdt, b_c, loga.permute(0, 1, 3, 2), pad
 
 
@@ -122,7 +137,7 @@ def ssd_chunk_ref(x, dt, a_log, b, c, *, chunk: int = 128):
     n = b.shape[-1]
     xdt, b_c, loga_h, pad = _chunked(x, dt, a_log, b, chunk)
     nc, q = xdt.shape[1], xdt.shape[2]
-    c_c = _pad_seq(c, pad).reshape(bsz, nc, q, n).float()
+    c_c = _pad_seq(c, pad).reshape(bsz, nc, q, n).to(xdt.dtype)
 
     # intra-chunk (diagonal) term
     cs = cumsum(loga_h)                                       # (b,c,h,q)
@@ -192,10 +207,11 @@ def _chunks(x, dt, a_log, b, c, chunk):
 
 
 def ssd_chunk_segmented(x, dt, a_log, b, c, *, chunk: int = 128,
-                        segments: int = 1):
+                        segments: int = 1, return_states: bool = False):
     """The tensor-core kernel's segments, passes and roundings over chunks
     of ``chunk`` steps, at most one segment a chunk: (y in x's dtype, final
-    state float32)."""
+    state float32), and with ``return_states`` each chunk's incoming state
+    (B, H, chunks, P, N) float32 as the kernel writes it for the backward."""
     _check(x, dt, a_log, b, c)
     bsz, s, h, p = x.shape
     x_c, dt_c, b_c, c_c, cs = _chunks(x, dt, a_log, b, c, chunk)
@@ -234,9 +250,11 @@ def ssd_chunk_segmented(x, dt, a_log, b, c, *, chunk: int = 128,
     # pass 2: y = exp(cs_i) (C state^T) + M x, chunk by chunk from each
     # segment's incoming state
     y = x_c.new_zeros(x_c.shape)
+    chunk_in = x_c.new_empty((bsz, h, nc, p, b_c.shape[-1]))
     for k in range(n_seg):
         state = incoming[k]
         for ci in range(bounds[k], bounds[k + 1]):
+            chunk_in[:, :, ci] = state
             g = torch.einsum("bin,bjn->bij", c_c[:, ci], b_c[:, ci])
             seg = cs[:, ci, :, :, None] - cs[:, ci, :, None, :]  # (b,h,i,j)
             m = torch.where(causal, g[:, None] * torch.exp(seg)
@@ -246,6 +264,8 @@ def ssd_chunk_segmented(x, dt, a_log, b, c, *, chunk: int = 128,
                                                   x_c[:, ci])
             state = step(state, ci)
     y = y.reshape(bsz, nc * chunk, h, p)[:, :s]
+    if return_states:
+        return y.to(x.dtype), state, chunk_in
     return y.to(x.dtype), state
 
 
@@ -282,3 +302,246 @@ def ssd_chunk_blocked(x, dt, a_log, b, c, *, chunk: int = 128,
                                        xdt[:, :, :jmax])
     y = y.reshape(bsz, nc * chunk, h, p)[:, :s]
     return y.to(x.dtype), final
+
+
+# ---------------------------------------------------------------------------
+# the gradient
+# ---------------------------------------------------------------------------
+
+def _states_walk(contrib, decay, seed, reverse=False):
+    """(b,c,h,p,n) per-chunk terms and (b,c,h) decays -> the carry entering
+    each chunk of a walk from ``seed``: ``carry = carry * decay + term``,
+    chunk by chunk in order (the forward's states) or from the last chunk
+    (``reverse``: the adjoints after each chunk)."""
+    out = torch.empty_like(contrib)
+    carry = seed
+    order = range(contrib.shape[1])
+    for ci in (reversed(order) if reverse else order):
+        out[:, ci] = carry
+        carry = carry * decay[:, ci, :, None, None] + contrib[:, ci]
+    return out
+
+
+def ssd_chunk_bwd_plain(x, dt, a_log, b, c, dy, dstate=None, *,
+                        chunk: int = 128):
+    """The gradient of (`ssd_chunk_ref`, `ssd_final_state`) by its closed
+    form, in whole-tensor PyTorch (float64 for float64 x, else float32): dy
+    (B, S, H, P) the output's adjoint, ``dstate`` (B, H, P, N) the final
+    state's (None: zero) -> (dx, ddt, da_log, db, dc) in the inputs' dtypes.
+
+    Per batch row, head and chunk of ``q = min(chunk, S)`` steps, with ``a =
+    exp(a_log)``, ``l_j = -a dt_j``, ``cs`` the in-order cumsum of ``l``,
+    ``G_ij = C_i . B_j``, ``L_ij = exp(cs_i - cs_j)`` for ``i >= j`` (else
+    0), ``M_ij = G_ij L_ij dt_j``, ``w_j = dt_j exp(cs_Q - cs_j)``, ``S`` the
+    chunk's incoming state and ``R`` the adjoint of the state after it
+    (walked from the last chunk, seeded with ``dstate``: ``R_before =
+    exp(cs_Q) R + sum_i exp(cs_i) dY_i C_i^T``):
+
+        dx_j  = sum_i M_ij dY_i + w_j (R B_j)
+        dM_ij = dY_i . x_j,  dG_ij = dM_ij L_ij dt_j          (i >= j)
+        dB_j  = sum_h [sum_i dG_ij C_i + w_j R^T x_j]
+        dC_i  = sum_h [sum_j dG_ij B_j + exp(cs_i) S^T dY_i]
+        ddt_j = sum_i dM_ij G_ij L_ij + exp(cs_Q - cs_j) (x_j . R B_j)
+                - a dl_j
+        dcs   = rowsum(T) - colsum(T) + u - v,  T = dM M,
+                u_i = exp(cs_i) (dY_i . S C_i),  v_j = w_j (x_j . R B_j),
+                dcs_Q += sum_j v_j + exp(cs_Q) <R, S>
+        dl    = the reverse cumsum of dcs in the chunk (`cumsum` of the
+                flipped steps)
+        da_log = sum over rows, chunks and steps of dl l.
+    """
+    _check(x, dt, a_log, b, c)
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} is not x's {tuple(x.shape)}")
+    ct = _ct(x)
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    q = min(chunk, s)
+    nc = (s + q - 1) // q
+    pad = nc * q - s
+    xc, dyc = (_pad_seq(t, pad).reshape(bsz, nc, q, h, p).to(ct)
+               for t in (x, dy))
+    bc, cc = (_pad_seq(t, pad).reshape(bsz, nc, q, n).to(ct) for t in (b, c))
+    dtc = _pad_seq(dt, pad).reshape(bsz, nc, q, h).to(ct).permute(0, 1, 3, 2)
+    a = torch.exp(a_log.to(ct))
+    l = -a[:, None] * dtc                                      # (b,c,h,q)
+    cs = cumsum(l)
+    ecs = torch.exp(cs)
+    e = torch.exp(cs[..., -1:] - cs)
+    w = dtc * e
+    decay = torch.exp(cs[..., -1])                             # (b,c,h)
+    causal = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
+    seg = torch.where(causal, cs[..., :, None] - cs[..., None, :], 0.0)
+    big_l = torch.where(causal, torch.exp(seg), 0.0)           # (b,c,h,i,j)
+    gl = torch.einsum("bcin,bcjn->bcij", cc, bc)[:, :, None] * big_l
+    m = gl * dtc[..., None, :]
+
+    zero = xc.new_zeros((bsz, h, p, n))
+    big_s = _states_walk(torch.einsum("bchj,bcjhp,bcjn->bchpn", w, xc, bc),
+                         decay, zero)
+    seed = zero if dstate is None else dstate.to(ct)
+    big_r = _states_walk(torch.einsum("bchi,bcihp,bcin->bchpn", ecs, dyc, cc),
+                         decay, seed, reverse=True)
+
+    dm = torch.einsum("bcihp,bcjhp->bchij", dyc, xc) * causal
+    dg = dm * big_l * dtc[..., None, :]
+    rb = torch.einsum("bcjn,bchpn->bcjhp", bc, big_r)          # R B_j
+    qv = (xc * rb).sum(-1).permute(0, 1, 3, 2)                 # (b,c,h,j)
+    dx = torch.einsum("bchij,bcihp->bcjhp", m, dyc) \
+        + w.permute(0, 1, 3, 2)[..., None] * rb
+    xr = torch.einsum("bcjhp,bchpn->bchjn", xc, big_r)         # R^T x_j
+    db = torch.einsum("bchij,bcin->bcjn", dg, cc) \
+        + (w[..., None] * xr).sum(2)
+    ys = torch.einsum("bcin,bchpn->bcihp", cc, big_s)          # S C_i
+    u = ecs * (dyc * ys).sum(-1).permute(0, 1, 3, 2)
+    ds = torch.einsum("bcihp,bchpn->bchin", dyc, big_s)        # S^T dY_i
+    dc = torch.einsum("bchij,bcjn->bcin", dg, bc) \
+        + (ecs[..., None] * ds).sum(2)
+
+    t = dm * m
+    v = w * qv
+    dcs = t.sum(-1) - t.sum(-2) + u - v
+    dcs[..., -1] += v.sum(-1) + decay * (big_r * big_s).sum((-1, -2))
+    dl = cumsum(dcs.flip(-1)).flip(-1)
+    ddt = (dm * gl).sum(-2) + e * qv - a[:, None] * dl
+    da_log = (dl * l).sum((0, 1, 3))
+
+    dx = dx.reshape(bsz, nc * q, h, p)[:, :s]
+    ddt = ddt.permute(0, 1, 3, 2).reshape(bsz, nc * q, h)[:, :s]
+    db, dc = (g.reshape(bsz, nc * q, n)[:, :s] for g in (db, dc))
+    return (dx.to(x.dtype), ddt.to(dt.dtype), da_log.to(a_log.dtype),
+            db.to(b.dtype), dc.to(c.dtype))
+
+
+def _dcs(row_t, col_t, u, v):
+    """d cs of a chunk from its row and column sums of dM M and its u and v
+    terms, as the backward kernel adds them."""
+    return ((row_t - col_t) + u) - v
+
+
+def ssd_chunk_bwd_segmented(x, dt, a_log, b, c, dy, dstate=None, *,
+                            chunk: int = 128, segments: int = 1):
+    """The backward kernel's decomposition, roundings and sum orders
+    (``csrc/ssd_chunk_bwd.cu``) over chunks of ``chunk`` steps and
+    ``segments`` segments a head, on bf16 (or float32) x, b, c and dy: (dx in
+    x's dtype, ddt, da_log, db and dc float32).
+
+    The chunks' incoming states S come from `ssd_chunk_segmented` (the
+    forward kernel writes them on request).  Each segment but the first
+    walks its chunks from the last, from a zero adjoint (pass 1: its
+    aggregate and the product of its chunk decays); the hand-off runs in
+    reverse, the last segment seeded with ``dstate``: ``inclusive_k =
+    inclusive_{k+1} D_k + aggregate_k``.  Pass 2 walks each segment's chunks
+    from the last, from the adjoint that enters it, with the products of
+    the plain backward: each float32 operand against an exact bf16 one (R,
+    S, M, dG and dY exp(cs)) split into three bf16 parts, w_j and exp(cs_i)
+    applied to their products before the rest is added; d cs by `_dcs`,
+    its reverse cumsum one add a step from the chunk's last step, begun
+    from ``sum v + exp(cs_Q) <R, S>``; da_log summed a chunk, then a
+    segment, then over batch rows and segments in order; db and dc a
+    head's partial each, summed in head order."""
+    _check(x, dt, a_log, b, c)
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    _, _, states = ssd_chunk_segmented(x, dt, a_log, b, c, chunk=chunk,
+                                       segments=segments, return_states=True)
+    x_c, dt_c, b_c, c_c, cs = _chunks(x, dt, a_log, b, c, chunk)
+    nc = x_c.shape[1]
+    dy_c = _pad_seq(dy, nc * chunk - s).reshape(bsz, nc, chunk, h, p).float()
+    al = -torch.exp(a_log.float())                             # (h,)
+    l = al[:, None] * dt_c                                     # (b,c,h,q)
+    ecs = torch.exp(cs)
+    e = torch.exp(cs[..., -1:] - cs)
+    w = dt_c * e
+    decay = torch.exp(cs[..., -1])
+    n_seg = max(1, min(int(segments), nc))
+    bounds = [k * nc // n_seg for k in range(n_seg + 1)]
+    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                   device=x.device))
+
+    def parts(eq, weights, other):
+        return sum(torch.einsum(eq, part, other)
+                   for part in split_bf16(weights, 3))
+
+    def r_step(r, ci):
+        """The adjoint before chunk ci from the one after it."""
+        a_ = dy_c[:, ci] * ecs[:, ci].permute(0, 2, 1)[..., None]
+        return r * decay[:, ci, :, None, None] + parts(
+            "bihp,bin->bhpn", a_, c_c[:, ci])
+
+    # pass 1 and the reverse hand-off
+    zero = x_c.new_zeros((bsz, h, p, n))
+    incoming = [None] * n_seg
+    incoming[-1] = zero if dstate is None else dstate.float()
+    for k in range(n_seg - 1, 0, -1):
+        agg, prod = zero, torch.ones_like(decay[:, 0])
+        for ci in range(bounds[k + 1] - 1, bounds[k] - 1, -1):
+            agg = r_step(agg, ci)
+            prod = prod * decay[:, ci]
+        incoming[k - 1] = incoming[k] * prod[..., None, None] + agg
+
+    # pass 2
+    dx = x_c.new_zeros(x_c.shape)
+    ddt = dt_c.new_zeros(dt_c.shape)
+    db_h = b_c.new_zeros((bsz, h, nc, chunk, n))
+    dc_h = b_c.new_zeros((bsz, h, nc, chunk, n))
+    da_seg = x_c.new_zeros((bsz, h, n_seg))
+    for k in range(n_seg):
+        r = incoming[k]
+        for ci in range(bounds[k + 1] - 1, bounds[k] - 1, -1):
+            big_s = states[:, :, ci]
+            xq, dyq, bq, cq = x_c[:, ci], dy_c[:, ci], b_c[:, ci], c_c[:, ci]
+            csq, dtq, wq = cs[:, ci], dt_c[:, ci], w[:, ci]     # (b,h,q)
+            g = torch.einsum("bin,bjn->bij", cq, bq)
+            seg = torch.where(causal, csq[..., :, None] - csq[..., None, :],
+                              0.0)
+            big_l = torch.where(causal, torch.exp(seg), 0.0)
+            gl = g[:, None] * big_l
+            m = gl * dtq[..., None, :]
+            dm = torch.einsum("bihp,bjhp->bhij", dyq, xq) * causal
+            dg = dm * big_l * dtq[..., None, :]
+            # rows j: dx, and the sums over i
+            br = parts("bhpn,bjn->bjhp", r, bq)
+            qv = (xq * br).sum(-1).permute(0, 2, 1)             # (b,h,j)
+            dx[:, ci] = br * wq.permute(0, 2, 1)[..., None] + parts(
+                "bhij,bihp->bjhp", m, dyq)
+            ddt1 = (dm * gl).sum(-2)
+            col_t = (dm * m).sum(-2)
+            db_h[:, :, ci] = parts("bhpn,bjhp->bhjn", r, xq) \
+                * wq[..., None] + parts("bhij,bin->bhjn", dg, cq)
+            # rows i: dc and u
+            yo = parts("bhpn,bin->bihp", big_s, cq)
+            u = ecs[:, ci] * (dyq * yo).sum(-1).permute(0, 2, 1)
+            dc_h[:, :, ci] = parts("bhpn,bihp->bhin", big_s, dyq) \
+                * ecs[:, ci][..., None] + parts("bhij,bjn->bhin", dg, bq)
+            row_t = (dm * m).sum(-1)
+            # d cs, its reverse cumsum and da_log's share
+            v = wq * qv
+            dcs = _dcs(row_t, col_t, u, v)
+            vsum = v[..., 0]
+            for j in range(1, chunk):
+                vsum = vsum + v[..., j]
+            run = vsum + decay[:, ci] * (r * big_s).sum((-1, -2))
+            dl = torch.empty_like(dcs)
+            dac = torch.zeros_like(run)
+            for j in range(chunk - 1, -1, -1):
+                run = run + dcs[..., j]
+                dl[..., j] = run
+                dac = dac + run * l[:, ci, :, j]
+            da_seg[..., k] += dac
+            ddt[:, ci] = (ddt1 + e[:, ci] * qv) + al[:, None] * dl
+            r = r_step(r, ci)
+
+    db = torch.zeros_like(db_h[:, 0])
+    dc = torch.zeros_like(dc_h[:, 0])
+    for hh in range(h):
+        db = db + db_h[:, hh]
+        dc = dc + dc_h[:, hh]
+    da_log = torch.zeros_like(al)
+    for bi in range(bsz):
+        for k in range(n_seg):
+            da_log = da_log + da_seg[bi, :, k]
+    dx = dx.reshape(bsz, nc * chunk, h, p)[:, :s]
+    ddt = ddt.permute(0, 1, 3, 2).reshape(bsz, nc * chunk, h)[:, :s]
+    db, dc = (t.reshape(bsz, nc * chunk, n)[:, :s] for t in (db, dc))
+    return dx.to(x.dtype), ddt, da_log, db, dc

@@ -6,11 +6,12 @@ a gated RMSNorm and out_proj. Prefill runs the SSD over the prompt through
 `kernels.ssd_chunk.ops.ssd_chunk` (the CUDA kernel on the card, its plain
 version on the CPU), which also gives the recurrent state the cache needs;
 the reference takes its plain ``ssd_chunked`` and then ``_final_state``.
-Training (mode ``train``) differentiates the plain version on the CPU; the
-kernel has no backward yet, so a training step of an ``ssd`` layer on the
-card raises (`kernels.ssd_chunk.ops`). Decode is the O(1) recurrence ``h =
-a h + (dt x) (x) B; y = C . h`` in plain PyTorch, as in the reference (it
-has no kernel).
+Training (mode ``train``) goes through the same op, a
+`torch.autograd.Function`: on the card the forward kernel and the backward
+kernel (`kernels.ssd_chunk.kernel_bwd`), on the CPU the plain forward and
+the plain backward (`kernels.ssd_chunk.ops`). Decode is the O(1)
+recurrence ``h = a h + (dt x) (x) B; y = C . h`` in plain PyTorch, as in
+the reference (it has no kernel).
 
 ``dt`` goes through ``jax.nn.softplus`` as the reference computes it,
 ``max(x, 0) + log1p(exp(-|x|))`` (``F.softplus`` switches to the identity

@@ -68,3 +68,12 @@ def test_backward_source_hashes_the_hopper_header():
     assert {p.name for p in _build.included_files(FAB._SOURCE)} == {
         "flash_attention_bwd.cu", "_hopper.cuh", "_mma.cuh",
         "flash_scale.cuh"}
+
+
+def test_ssd_backward_source_hashes_the_mma_header():
+    """The SSD backward's library is named by its source and `_mma.cuh`
+    (the mma.sync, ldmatrix, cp.async and three-part split helpers)."""
+    from repro_torch.kernels.ssd_chunk import kernel_bwd as SKB
+
+    assert {p.name for p in _build.included_files(SKB._SOURCE)} == {
+        "ssd_chunk_bwd.cu", "_mma.cuh"}

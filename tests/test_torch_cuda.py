@@ -37,7 +37,10 @@ sees one key), the reverse scan bit-equal
 to its blocked emulation and within ``1e-5`` of the largest value of its
 plain walk, a smoke train step's loss and gradient leaves on the card
 against the CPU within ``5e-2`` (the loss absolute, each leaf in relative
-L2 norm).
+L2 norm); the SSD backward kernel against the plain backward in float64 on
+the same bf16 values within ``chip_smoke.SSD_BWD_TOL``, each gradient in
+relative L2 (dx in bf16; ddt and da_log carry float32 cancellation), the
+tolerance `tests/test_torch_ssd_bwd.py` states.
 """
 
 import numpy as np
@@ -65,8 +68,10 @@ from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
 from repro_torch.kernels.serve_round import kernel as K  # noqa: E402
 from repro_torch.kernels.serve_round import ops as SO  # noqa: E402
 from repro_torch.kernels.ssd_chunk import kernel as SK  # noqa: E402
+from repro_torch.kernels.ssd_chunk import kernel_bwd as SKB  # noqa: E402
+from repro_torch.kernels.ssd_chunk import ops as SOPS  # noqa: E402
 from repro_torch.kernels.ssd_chunk.ref import (  # noqa: E402
-    ssd_chunk_ref, ssd_final_state)
+    ssd_chunk_bwd_plain, ssd_chunk_ref, ssd_final_state)
 from repro_torch.kernels.serve_round.ref import (random_maps,  # noqa: E402
                                                  random_round,
                                                  serve_round_ref,
@@ -674,6 +679,73 @@ def test_cuda_ssd_tc_kernel_equals_plain(card):
                                   rtol=rtol), case
 
 
+def ssd_bwd_tol():
+    """chip_smoke.py's `SSD_BWD_TOL` (the SSD backward against the plain
+    backward in float64 on the same bf16 values, each gradient in relative
+    L2; tests/test_torch_ssd_bwd.py states the same numbers)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_tol", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.SSD_BWD_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_bwd_kernel_equals_plain(card):
+    """The SSD backward kernel (bf16, P and N multiples of 8) against the
+    plain backward: one step, a ragged single chunk, two chunks and a step,
+    a segment boundary before a ragged tail, mamba2-1.3b's head shape at S
+    4,096; 1, 2 and 3 segments; with and without dstate; both input
+    families.  Each call counts once and a second call gives the same bits;
+    the forward's chunk states leave y and the final state bit-equal to
+    the served call.  Under grad, float32 on the card is refused."""
+    gen = torch.Generator(device=card).manual_seed(6)
+    tolerance = ssd_bwd_tol()
+    for b, s, h, p, n in [(2, 1, 4, 16, 16), (2, 100, 3, 24, 40),
+                          (2, 257, 4, 16, 16), (1, 421, 4, 64, 128),
+                          (1, 4096, 8, 64, 128)]:
+        for model_like in (False, True):
+            x, dt, a_log, bm, cm = (
+                t.to(torch.bfloat16) if i in (0, 3, 4) else t
+                for i, t in enumerate(ssd_inputs(gen, card, b, s, h, p, n,
+                                                 model_like)))
+            dy = torch.randn(b, s, h, p, generator=gen,
+                             device=card).to(torch.bfloat16)
+            for seed in (torch.randn(b, h, p, n, generator=gen, device=card),
+                         None):
+                y, state, states = SK.ssd_chunk_kernel(
+                    x, dt, a_log, bm, cm, return_states=True)
+                y0, state0 = SK.ssd_chunk_kernel(x, dt, a_log, bm, cm)
+                assert torch.equal(y, y0) and torch.equal(state, state0)
+                want = ssd_chunk_bwd_plain(*(
+                    t.double() for t in (x, dt, a_log, bm, cm, dy)),
+                    None if seed is None else seed.double())
+                for seg in (1, 2, 3):
+                    before = SKB.BWD_LAUNCHES["ssd_chunk_bwd"]
+                    got = SKB.ssd_chunk_bwd_kernel(x, dt, a_log, bm, cm, dy,
+                                                   seed, states, segments=seg)
+                    again = SKB.ssd_chunk_bwd_kernel(
+                        x, dt, a_log, bm, cm, dy, seed, states, segments=seg)
+                    assert SKB.BWD_LAUNCHES["ssd_chunk_bwd"] == before + 2
+                    torch.cuda.synchronize()
+                    case = (b, s, h, p, n, model_like, seed is None, seg)
+                    assert all(torch.equal(u, v) for u, v in zip(got, again))
+                    for (name, tol), g, w in zip(tolerance.items(), got,
+                                                 want):
+                        diff = float((g.double() - w).norm())
+                        assert diff <= tol * max(float(w.norm()), 1e-30) \
+                            or diff == 0.0, (case, name)
+    x = torch.randn(1, 8, 2, 16, device=card, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="gradient on the card"):
+        SOPS.ssd_chunk(x, torch.rand(1, 8, 2, device=card),
+                       torch.zeros(2, device=card),
+                       torch.randn(1, 8, 16, device=card),
+                       torch.randn(1, 8, 16, device=card))
+
+
 @pytest.mark.cuda
 def test_cuda_mamba_model_equals_cpu(card):
     """mamba2-1.3b's smoke model: prefill (two chunks, a ragged tail) and
@@ -1222,9 +1294,11 @@ def test_cuda_rglru_reverse_equals_plain(card):
 @pytest.mark.cuda
 def test_cuda_train_step_equals_cpu(card):
     """recurrentgemma-2b's smoke config (D 16, so the tensor-core flash
-    kernel and its backward): `transformer.loss_fn` and every gradient leaf
-    on the card against the same model on the CPU, through the kernels in
-    both directions; and mamba2's train step refused on the card."""
+    kernel and its backward) and mamba2-1.3b's (P 16, N 16: the tensor-core
+    SSD kernel and its backward): `transformer.loss_fn` and every gradient
+    leaf on the card against the same model on the CPU, through the kernels
+    in both directions (each ssd layer twice forward, under the
+    checkpoint's recompute, and once backward)."""
     cfg = get_smoke_config("recurrentgemma-2b")
     cpu = TF.init_params(cfg, torch.Generator().manual_seed(0),
                          device="cpu")
@@ -1253,9 +1327,26 @@ def test_cuda_train_step_equals_cpu(card):
         assert float((gd - gc).norm()) <= 5e-2 * max(float(gc.norm()),
                                                      1e-12), name
     m2 = get_smoke_config("mamba2-1.3b")
-    model = TF.init_params(m2, torch.Generator(device=card).manual_seed(0),
-                           device=card)
-    model.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ssd_chunk backward"):
-        TF.loss_fn(model, {"tokens": toks.to(card), "labels": toks.to(card)})
+    cpu = TF.init_params(m2, torch.Generator().manual_seed(0), device="cpu")
+    cpu.requires_grad_(True)
+    dev = copy.deepcopy(cpu).to(card)
+    before = (SK.LAUNCHES["ssd_chunk_tc"], SK.LAUNCHES["ssd_chunk"],
+              SKB.BWD_LAUNCHES["ssd_chunk_bwd"])
+    got, _ = TF.loss_fn(dev, {"tokens": toks.to(card),
+                              "labels": toks.to(card)})
+    got.backward()
+    layers = [key.split("_", 1)[1] for key, _ in dev.keys].count("ssd")
+    assert (SK.LAUNCHES["ssd_chunk_tc"] - before[0],
+            SK.LAUNCHES["ssd_chunk"] - before[1],
+            SKB.BWD_LAUNCHES["ssd_chunk_bwd"] - before[2]) == (
+        2 * layers, 0, layers)
+    want, _ = TF.loss_fn(cpu, {"tokens": toks, "labels": toks})
+    want.backward()
+    assert abs(float(got.detach()) - float(want.detach())) <= 5e-2
+    for (name, pd), (_, pc) in zip(dev.named_parameters(),
+                                   cpu.named_parameters()):
+        gd, gc = pd.grad.float().cpu(), pc.grad.float()
+        assert bool(torch.isfinite(gd).all()) and bool(gd.ne(0).any()), name
+        assert float((gd - gc).norm()) <= 5e-2 * max(float(gc.norm()),
+                                                     1e-12), name
 

@@ -17,10 +17,11 @@ Tolerances:
   scores divided by the true D's square root), sliced back, against the
   unpadded call: ``1e-6`` (float32 sums over extra zero columns in another
   blocking);
-* mamba2-1.3b's smoke config, whose ``ssd`` layer trains through the
-  SSD's plain version on the CPU (the CUDA kernel has no backward yet):
-  `transformer.loss_fn` and every gradient leaf against the reference run
-  op by op, with the bounds of `tests/test_torch_train.py`;
+* mamba2-1.3b's smoke config, whose ``ssd`` layer trains on the CPU
+  through `ops.SSDChunk`: the plain forward and the plain backward
+  (`ref.ssd_chunk_bwd_plain`, the closed form the CUDA backward kernel
+  computes): `transformer.loss_fn` and every gradient leaf against the
+  reference run op by op, with the bounds of `tests/test_torch_train.py`;
 * the scan's adjoint against autograd of the plain forward, and the
   blocked emulation against the sequential walk: ``1e-5`` of the largest
   value (another order of the chunk carries); against ``jax.grad`` of the
@@ -272,4 +273,18 @@ def test_rglru_scan_gradient_equals_jax_grad_of_the_associative_scan():
 
 
 def test_ssd_model_loss_and_gradients_equal_reference(monkeypatch):
+    """Each ssd layer's gradient comes from the op's explicit plain
+    backward, once a layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.ssd_chunk import ops as SOPS
+
+    calls = []
+    plain = SOPS.ssd_chunk_bwd_plain
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(SOPS, "ssd_chunk_bwd_plain", counted)
     check_loss_and_grads("mamba2-1.3b", monkeypatch)
+    assert len(calls) == get_smoke_config("mamba2-1.3b").n_layers
