@@ -4373,6 +4373,25 @@ def ssd_bwd_bound_ms(b, s, h, p, n, chunk=128):
                                    else "operations"), nbytes, flops
 
 
+def ssd_bwd_launch_ms(torch, SKB, args, calls=5, **kw):
+    """Device ms per call of each of the SSD backward's three launches
+    (walk, grads, sum; the walk's status-word memset counts with the walk):
+    CUDA events the wrapper records before its first launch and after each,
+    over ``calls`` calls queued behind a device spin."""
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+             for _ in range(calls)]
+    for row in marks:
+        for e in row:
+            e.record()  # an event exists from its first record
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    for row in marks:
+        SKB.ssd_chunk_bwd_kernel(*args, marks=row, **kw)
+    torch.cuda.synchronize()
+    return {name: sum(row[i].elapsed_time(row[i + 1]) for row in marks)
+            / calls for i, name in enumerate(("walk", "grads", "sum"))}
+
+
 def ssd_bwd_inputs(torch, gen, b, s, h, p, n, model_like):
     """bf16 x, b, c and dy, float32 dt, a_log and dstate on the card
     (`ssd_inputs`' families)."""
@@ -4390,15 +4409,17 @@ def ssd_bwd_vs_plain(torch, SK, SKB, SR):
     same bf16 values, each gradient within SSD_BWD_TOL in relative L2: S in
     SSD_BWD_S at B 2 with the smoke config's (H, P, N) and full width's
     (SSD_BWD_DIMS), and mamba2-1.3b's layer at B 2 and S 4,096; both input
-    families; 1, 2 and 3 segments a head (at most one a chunk); a nonzero
-    dstate (and none at S 421); every call twice, bit-equal, one count a
-    call.  The forward with its chunk states (the training path) gives y
-    and the final state bit-equal to the served call.  Then the kernel's
-    time at mamba2-1.3b's 4,096-token layer (B 1, H 64) by segment count
-    and at 16,384 tokens, against its bound and the plain backward's time,
-    the forward's cost of writing the chunk states, and a profile of ten
-    calls.  Returns (the worst max abs error, the timing, the worst
-    shares)."""
+    families; 1, 2 and 3 segments a head for the adjoint walk (at most one
+    a chunk); the default group of heads for the gradient launch and, at S
+    129 and 421, groups of 3 (the last of 4 heads ragged); a nonzero dstate
+    (and none at S 421); every call twice, bit-equal, one count a call.
+    The forward with its chunk states (the training path) gives y and the
+    final state bit-equal to the served call.  Then the kernels' time at
+    mamba2-1.3b's 4,096-token layer (B 1, H 64) by launch (walk, grads,
+    sum), by the walk's segment count and by group size, and at 16,384
+    tokens, against the bound and the plain backward's time, the forward's
+    cost of writing the chunk states, and a profile of ten calls.  Returns
+    (the worst max abs error, the timing, the worst shares)."""
     gen = torch.Generator(device="cuda").manual_seed(53)
     names = tuple(SSD_BWD_TOL)
     cases = [(2, s, h, p, n) for h, p, n in SSD_BWD_DIMS for s in SSD_BWD_S]
@@ -4414,16 +4435,21 @@ def ssd_bwd_vs_plain(torch, SK, SKB, SR):
             fwd_same = bool(torch.equal(y, y0) and torch.equal(state, state0))
             seeds = [dstate, None] if (s, p) == (421, 16) else [dstate]
             n_chunks = -(-s // SK.CHUNK)
+            groups = [None, 3] if s in (129, 421) and h == 4 else [None]
             for seed in seeds:
                 want = SR.ssd_chunk_bwd_plain(*(
                     t.double() for t in (x, dt, a_log, bm, cm, dy)),
                     None if seed is None else seed.double())
-                for seg in sorted({min(k, n_chunks) for k in (1, 2, 3)}):
+                for seg, grp in ((k, g) for k in sorted(
+                        {min(k, n_chunks) for k in (1, 2, 3)})
+                        for g in groups):
                     before = SKB.BWD_LAUNCHES["ssd_chunk_bwd"]
                     got = SKB.ssd_chunk_bwd_kernel(x, dt, a_log, bm, cm, dy,
-                                                   seed, states, segments=seg)
+                                                   seed, states, segments=seg,
+                                                   group=grp)
                     again = SKB.ssd_chunk_bwd_kernel(
-                        x, dt, a_log, bm, cm, dy, seed, states, segments=seg)
+                        x, dt, a_log, bm, cm, dy, seed, states, segments=seg,
+                        group=grp)
                     counted = SKB.BWD_LAUNCHES["ssd_chunk_bwd"] - before == 2
                     torch.cuda.synchronize()
                     calls += 2
@@ -4444,7 +4470,7 @@ def ssd_bwd_vs_plain(torch, SK, SKB, SR):
                             and got[0].dtype == torch.bfloat16):
                         failed.append(dict(
                             shape=[b, s, h, p, n], model_like=model_like,
-                            segments=seg, dstate=seed is not None,
+                            segments=seg, group=grp, dstate=seed is not None,
                             shares=share, two_calls_bit_equal=same,
                             counted=counted, finite=finite,
                             forward_with_states_bit_equal=fwd_same))
@@ -4480,9 +4506,14 @@ def ssd_bwd_vs_plain(torch, SK, SKB, SR):
     timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                   library_ms=None)
     extra = dict(
-        segments=SK.segment_count(b, h, s),
+        segments=SKB.walk_segments(b, h, s), group=SKB.head_group(b, h, s),
+        launch_ms=ssd_bwd_launch_ms(
+            torch, SKB, (x, dt, a_log, bm, cm, dy, dstate, states)),
         ms_by_segments={seg: time_cuda(torch, lambda: call(seg), 20)[0]
                         for seg in (1, 2, 4)},
+        ms_by_group={grp: time_cuda(torch, lambda: SKB.ssd_chunk_bwd_kernel(
+            x, dt, a_log, bm, cm, dy, dstate, states, group=grp), 20)[0]
+                     for grp in (2, 4, 8)},
         forward_with_states_ms=time_cuda(torch, lambda: SK.ssd_chunk_kernel(
             x, dt, a_log, bm, cm, return_states=True), 20)[0],
         forward_ms=time_cuda(torch, lambda: SK.ssd_chunk_kernel(
@@ -4491,9 +4522,11 @@ def ssd_bwd_vs_plain(torch, SK, SKB, SR):
     del x, dy, states
     long = ssd_bwd_inputs(torch, gen, b, 16_384, h, p, n, True)
     _, _, states = SK.ssd_chunk_kernel(*long[:5], return_states=True)
-    extra["segments_s16384"] = SK.segment_count(b, h, 16_384)
+    extra["segments_s16384"] = SKB.walk_segments(b, h, 16_384)
     extra["ms_s16384"], _ = time_cuda(torch, lambda: SKB.ssd_chunk_bwd_kernel(
         *long, states), 10)
+    extra["launch_ms_s16384"] = ssd_bwd_launch_ms(torch, SKB,
+                                                  (*long, states))
     extra["bound_ms_s16384"] = ssd_bwd_bound_ms(b, 16_384, h, p, n)[0]
     del long, states
     emit(phase="kernel_timing", kernel="ssd_chunk_bwd", B=b, S=s, H=h, P=p,
@@ -4504,13 +4537,14 @@ def ssd_bwd_vs_plain(torch, SK, SKB, SR):
     emit(phase="device_profile", workload="ssd_chunk_bwd_x10", **prof)
     # the profiler has recorded no device activity at this point of the
     # script in some runs (as for the flash backward, PR 30); where it
-    # does, the call is its two kernels and memsets
+    # does, the call is its three kernels (walk, grads, sum) and a memset
     check(not prof["top_kernels"] or (
         sum(k["calls"] for k in prof["top_kernels"]
-            if "ssd_bwd" in k["name"]) == 20
+            if "ssd_bwd" in k["name"]) == 30
         and all("ssd_bwd" in k["name"] or k["name"].startswith("Memset")
                 for k in prof["top_kernels"])),
-          f"ssd_chunk_bwd is not two kernels a call: {prof['top_kernels']}")
+          f"ssd_chunk_bwd is not three kernels a call: "
+          f"{prof['top_kernels']}")
     return worst_abs, timing, worst
 
 
@@ -4751,7 +4785,9 @@ def main() -> int:
                           ).flash_attention_bwd_smem(d) for d in (64, 128,
                                                                   256)}),
                       (SK._SOURCE_TC, SK._lib_tc().ssd_chunk_tc_smem()),
-                      (SKB._SOURCE, SKB._lib_bwd().ssd_chunk_bwd_smem()),
+                      (SKB._SOURCE, {
+                          "walk": SKB._lib_bwd().ssd_chunk_bwd_walk_smem(),
+                          "grads": SKB._lib_bwd().ssd_chunk_bwd_smem()}),
                       (SFK._SOURCE, {"opt_in_limit": SFK._lib(
                           ).sf_scan_max_smem(0)})):
         log = _build.LOGS.get(src)

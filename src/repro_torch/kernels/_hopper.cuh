@@ -1,13 +1,14 @@
 // Hopper pieces shared by the port's warp-specialised kernels
 // (flash_attention/csrc/flash_attention_bwd.cu, flash_attention_tc.cu,
-// ssd_chunk/csrc/ssd_chunk_tc.cu), for NVIDIA H100 (sm_90a):
+// ssd_chunk/csrc/ssd_chunk_tc.cu, ssd_chunk_bwd.cu), for NVIDIA H100
+// (sm_90a):
 //
 //   * mbarriers: init, arrive, arrive with an expected byte count, and a
 //     parity wait that traps after about ten seconds, so that a protocol
 //     fault ends the launch with an error instead of hanging the card;
 //   * copies by the Tensor Memory Accelerator: a 4-d tiled load through a
 //     tensor map, and a plain bulk copy, both completing on an mbarrier;
-//     a 4-d tiled store, waited for by bulk group;
+//     a 4-d tiled store and a plain bulk store, waited for by bulk group;
 //     tensor maps are encoded on the host by the driver's
 //     cuTensorMapEncodeTiled, reached through the runtime
 //     (cudaGetDriverEntryPoint), so a library built with `nvcc -shared`
@@ -15,7 +16,8 @@
 //   * warpgroup matrix multiply (wgmma.mma_async, bf16 in, float32
 //     accumulators): shared-memory descriptors for tiles in the 128-byte
 //     swizzle that the tensor maps write, fence / commit / wait, the
-//     m64n64k16 product with both operands in shared memory, and the
+//     m64n64k16 product with both operands in shared memory (B K-major or
+//     MN-major) and its m64n32k16 form, and the
 //     m64nNk16 products (N 64, 128, 256) with A in registers and B read
 //     transposed;
 //   * named barriers between warpgroups.
@@ -161,6 +163,17 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) shared ->
+// global, in this thread's bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // named barriers (ids 1..15; 0 is __syncthreads)
 // ---------------------------------------------------------------------------
@@ -293,6 +306,55 @@ __device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32],
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{" HOP_R32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HOP_W32(d, 0)
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// d (64 x 32) (+)= a b, both K-major in shared memory; `_first` writes d
+// only (scale-d false)
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : HOP_F8(d, 0), HOP_F8(d, 8)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_n32_first(float (&d)[16],
+                                                   uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : HOP_W8(d, 0), HOP_W8(d, 8)
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// d (+)= a b: a 64 x 16 bf16 K-major and b 16 x 64 bf16 MN-major (read
+// transposed), both in shared memory; `_first` writes d only (scale-d
+// false), as above
+__device__ __forceinline__ void wgmma_ss_n64_tb(float (&d)[32], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" HOP_R32 "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : HOP_F32(d, 0)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64_tb_first(float (&d)[32],
+                                                      uint64_t da,
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" HOP_R32 "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
       : HOP_W32(d, 0)
       : "l"(da), "l"(db), "r"(0));
 }

@@ -68,9 +68,10 @@
 //     exact bf16.  Every float32 operand that meets an exact bf16 one (M,
 //     x w, the incoming state) goes in three bf16 parts, which carry it
 //     exactly; the parts accumulate hi, then mid, then lo.  Products run in
-//     groups of two k16 steps through two A buffers, one formed while the
-//     other's products run; every chain of products starts from zero, and
-//     its sum with other terms is made on the CUDA cores after the wait.
+//     groups of two k16 steps (one in the STATES instance) through two A
+//     buffers, one formed while the other's products run; every chain of
+//     products starts from zero, and its sum with other terms is made on
+//     the CUDA cores after the wait.
 // What ptxas taught (its notes in the build log; kernel_timing's times):
 //   * no product may sit on a branch, even one uniform over the block: a
 //     runtime test around each k16 step made every product a group of its
@@ -86,7 +87,12 @@
 //     left the exps' latencies unoverlapped.
 // Shared memory: two stages of 80 KB, the state's three parts (48 KB), the
 // scan's arrays: 217,176 bytes, one block an SM; 168 registers (the cap of
-// ten warps), no spills.
+// ten warps), no spills.  The STATES instance writes each chunk's incoming
+// state from its parts in shared memory (write_states) and forms its A
+// operands one k16 step at a time: the served instance sits at the cap, and
+// any store of the states on the consumers' path spilled there (72 bytes
+// from the registers at the top of each chunk; 24 from the parts with two
+// k16 steps); with one, 167 registers and no spills.
 //
 // Bound on the H100: memory.  One layer's prefill at S = 4096 (B 1, H 64,
 // P 64, N 128, x and y bf16) moves 72.4 MB (21.6 us at 3.35 TB/s) against
@@ -202,6 +208,10 @@ __device__ __forceinline__ void st_release(int* p, int v) {
 template <bool STATES>
 __global__ void __launch_bounds__(THREADS, 1)
 ssd_tc(const __grid_constant__ Args a) {
+  // k16 steps of a group of products, A in registers: the STATES instance
+  // takes one, which frees the registers its chunk states' write needs (with
+  // two it spilled); the served instance's code is unchanged
+  constexpr int KSTEPS = STATES ? 1 : STEPS;
   extern __shared__ __align__(1024) unsigned char sm[];
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + BARS);
   uint64_t* ready = full + STAGES;
@@ -326,14 +336,14 @@ ssd_tc(const __grid_constant__ Args a) {
 
   // the state (rows p, columns n of this warpgroup's half) and its update,
   // y (rows i, columns p), G or y_off (rows i, 64 columns), and two buffers
-  // of A operands (STEPS k16 steps in three parts), so that one is formed
+  // of A operands (KSTEPS k16 steps in three parts), so that one is formed
   // while the other's products run.  Every chain of products starts from
   // zero with a product that only writes its accumulators (the compiler
   // then keeps no earlier value of them alive: with all four arrays live
   // through the loop ptxas serialized every wgmma, note C7511); its sums
   // with other values are made after the wait, on the CUDA cores.
   float st[32], y[32], gacc[32], cacc[32];
-  uint32_t A[2][3][STEPS][4];
+  uint32_t A[2][3][KSTEPS][4];
 #pragma unroll
   for (int r = 0; r < 32; ++r) st[r] = 0.f;
 
@@ -363,14 +373,14 @@ ssd_tc(const __grid_constant__ Args a) {
 #pragma unroll
     for (int q = 0; q < 3; ++q) fence_regs(A[b][q]);
   };
-  // d (+)= A_b B over STEPS k16 steps from k16 step kk0 of the MN-major
+  // d (+)= A_b B over KSTEPS k16 steps from k16 step kk0 of the MN-major
   // operand `off` bytes into shared memory (d overwritten when `fresh`);
   // committed, not waited for
   auto issue_rs = [&](float(&d)[32], int b, uint64_t mbase, int off, int kk0,
                       bool fresh) {
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < STEPS; ++kk) {
+    for (int kk = 0; kk < KSTEPS; ++kk) {
       const uint64_t db = mnmajor(mbase, off, kk0 + kk);
       if (fresh && kk == 0)
         wgmma_rs_n64_first(d, A[b][0][kk], db);
@@ -405,13 +415,13 @@ ssd_tc(const __grid_constant__ Args a) {
     }
     wgmma_commit();
   };
-  // (x w)^T over the chunk steps of k16 steps kk0 .. kk0 + STEPS - 1 into A
+  // (x w)^T over the chunk steps of k16 steps kk0 .. kk0 + KSTEPS - 1 into A
   // buffer b: x read transposed by ldmatrix from the swizzled stage
   auto form_xw = [&](int b, const unsigned char* xs, const float* wv,
                      int kk0) {
     const int mat = lane >> 3;
 #pragma unroll
-    for (int kk = 0; kk < STEPS; ++kk) {
+    for (int kk = 0; kk < KSTEPS; ++kk) {
       const int j0 = 16 * (kk0 + kk);
       const int j = j0 + 8 * (mat >> 1) + (lane & 7);
       const int ch = 2 * w + (mat & 1);
@@ -431,7 +441,7 @@ ssd_tc(const __grid_constant__ Args a) {
     }
     fence_a(b);
   };
-  // M over the keys of k16 steps kk0 .. kk0 + STEPS - 1 of the 64 keys from
+  // M over the keys of k16 steps kk0 .. kk0 + KSTEPS - 1 of the 64 keys from
   // 64 cb, from G's accumulators, into A buffer b.  Straight-line code: a
   // select around each exp made the compiler branch around it, one value
   // at a time, and the exps' latencies no longer overlapped; so every exp
@@ -443,7 +453,7 @@ ssd_tc(const __grid_constant__ Args a) {
     const float c0 = cs[ir], c1 = cs[ir + 8];
     const bool seen = 64 * cb <= 64 * wg + 63;
 #pragma unroll
-    for (int kk = 0; kk < STEPS; ++kk) {
+    for (int kk = 0; kk < KSTEPS; ++kk) {
       float m[8] = {};
       if (seen) {
 #pragma unroll
@@ -477,10 +487,10 @@ ssd_tc(const __grid_constant__ Args a) {
   auto update = [&](int so, const float* f, uint64_t mbase) {
     const int boff = so + B_OFF + wg * BLK;
 #pragma unroll
-    for (int grp = 0; grp < Q / 16 / STEPS; ++grp) {
+    for (int grp = 0; grp < Q / 16 / KSTEPS; ++grp) {
       if (grp >= 2) wgmma_wait<1>();  // the buffer's last products are done
-      form_xw(grp & 1, sm + so, f + 3 * Q, grp * STEPS);
-      issue_rs(cacc, grp & 1, mbase, boff, grp * STEPS, grp == 0);
+      form_xw(grp & 1, sm + so, f + 3 * Q, grp * KSTEPS);
+      issue_rs(cacc, grp & 1, mbase, boff, grp * KSTEPS, grp == 0);
     }
     wgmma_wait<0>();
     fence_regs(cacc);
@@ -509,7 +519,41 @@ ssd_tc(const __grid_constant__ Args a) {
     const int p = pr + 8 * hf, nl = 8 * t + 2 * qd;
     return wg * HALF + p * 128 + (((nl >> 3) ^ (p & 7)) << 4) + (nl & 7) * 2;
   };
-  auto write_parts = [&]() {
+  // STATES: the parts are chunk `ci`'s incoming state, which goes to
+  // device memory from them (hi + mid + lo, exact), 16 bytes a thread and
+  // store, consecutive threads on consecutive addresses.  (Written from the
+  // registers at the top of each chunk, it kept them live through the
+  // chunk: 72 bytes of spill stores.)
+  auto write_states = [&](int ci) {
+    const unsigned char* src = parts;
+    asm volatile("" : "+l"(src));  // made here, not hoisted out of the loop
+    float* out = a.states + (static_cast<long long>(bh) * a.nc + ci) * pn;
+    const int quads = static_cast<int>(pn / 4), row = a.n / 4;
+    int e0 = tid;  // made here too: no offset of the loop kept in a register
+    asm volatile("" : "+r"(e0));
+    for (int e = e0; e < quads; e += CONSUMERS) {
+      const int p = e / row, n = 4 * (e - p * row);
+      const int off = (n >> 6) * HALF + p * 128 +
+                      ((((n & 63) >> 3) ^ (p & 7)) << 4) + (n & 7) * 2;
+      float v[3][4];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const uint2 raw = *reinterpret_cast<const uint2*>(src + q * PART + off);
+        const float2 e01 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+        const float2 e23 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+        v[q][0] = e01.x, v[q][1] = e01.y, v[q][2] = e23.x, v[q][3] = e23.y;
+      }
+      float4 o;
+      o.x = __fadd_rn(__fadd_rn(v[0][0], v[1][0]), v[2][0]);
+      o.y = __fadd_rn(__fadd_rn(v[0][1], v[1][1]), v[2][1]);
+      o.z = __fadd_rn(__fadd_rn(v[0][2], v[1][2]), v[2][2]);
+      o.w = __fadd_rn(__fadd_rn(v[0][3], v[1][3]), v[2][3]);
+      *reinterpret_cast<float4*>(out + 4LL * e) = o;
+    }
+  };
+  auto write_parts = [&](int ci) {
     named_sync(SYNC, CONSUMERS);
 #pragma unroll
     for (int t = 0; t < 8; ++t)
@@ -524,6 +568,7 @@ ssd_tc(const __grid_constant__ Args a) {
       }
     fence_proxy_async();
     named_sync(SYNC, CONSUMERS);
+    if constexpr (STATES) write_states(ci);
   };
   auto read_parts = [&]() {
 #pragma unroll
@@ -599,7 +644,7 @@ ssd_tc(const __grid_constant__ Args a) {
   // as its three bf16 parts, which y_off reads and which give it back
   // exactly (hi + mid + lo, each sum exact) to the accumulators for the
   // update: its registers are free while y is made.
-  write_parts();
+  write_parts(chunk_of(n1));
   for (int i = n1; i < items; ++i) {
     const int t0 = chunk_of(i) * Q;
     const int so = (i % STAGES) * STAGE;  // the stage's offset
@@ -607,13 +652,6 @@ ssd_tc(const __grid_constant__ Args a) {
     const float* f = scan_of(i);
     uint64_t kbase, mbase;
     bases(kbase, mbase);
-    if constexpr (STATES) {
-      float* out =
-          a.states + (static_cast<long long>(bh) * a.nc + chunk_of(i)) * pn;
-      each_elem([&](float& s0, float& s1, long long off) {
-        if (off >= 0) *reinterpret_cast<float2*>(out + off) = make_float2(s0, s1);
-      });
-    }
     wait_in(i);
 
     // y = M x over keys 0-63, then 64-127, each G = C B^T made first; each
@@ -624,9 +662,10 @@ ssd_tc(const __grid_constant__ Args a) {
       wgmma_wait<0>();
       fence_regs(gacc);
 #pragma unroll
-      for (int grp = 0; grp < 4 / STEPS; ++grp) {
-        form_m(grp & 1, f, cb, grp * STEPS);
-        issue_rs(y, grp & 1, mbase, so, 4 * cb + grp * STEPS,
+      for (int grp = 0; grp < 4 / KSTEPS; ++grp) {
+        if (grp >= 2) wgmma_wait<1>();  // the buffer's last products are done
+        form_m(grp & 1, f, cb, grp * KSTEPS);
+        issue_rs(y, grp & 1, mbase, so, 4 * cb + grp * KSTEPS,
                  cb == 0 && grp == 0);
       }
     }
@@ -670,7 +709,7 @@ ssd_tc(const __grid_constant__ Args a) {
     read_parts();
     update(so, f, mbase);
     // the new state's parts, once every consumer is done with the old
-    if (i + 1 < items) write_parts();
+    if (i + 1 < items) write_parts(chunk_of(i + 1));
     release(i);
   }
 

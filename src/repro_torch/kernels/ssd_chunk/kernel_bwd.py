@@ -1,22 +1,23 @@
 """The backward pass of the tensor-core SSD chunk scan — the wrapper of its
-Hopper CUDA kernel.
+Hopper CUDA kernels.
 
 Replaces nothing on the TPU: the JAX package defines no gradient for its
 Pallas kernel (``repro/kernels/ssd_chunk/kernel.py::ssd_chunk_pallas``) and
 trains an ``ssd`` layer by autodiff through its plain ``ssd_chunked``.  The
 port trains through its forward kernel (`kernel.ssd_chunk_kernel`, which
-writes each chunk's incoming state on request), and this kernel gives that
+writes each chunk's incoming state on request), and these kernels give that
 forward its gradient: ``csrc/ssd_chunk_bwd.cu``, CUDA C++ for ``sm_90a``
-(``mma.sync`` through ``kernels/_mma.cuh``), built with ``nvcc`` at first use
-(`kernels._build`) and called through ``ctypes`` on PyTorch's current
-stream.  Two launches a call (after a memset of its status words): a block
-per (batch row, head, segment of chunks), `kernel.segment_count` segments a
-head, walking its chunks from the last (pass 1, the segment's adjoint
-aggregate, on every segment but the first; a chained hand-off in reverse;
-pass 2, the gradients with the adjoint on chip), then the ordered sum of
-the per-head partials of dB, dC and da_log; counted once in
-``BWD_LAUNCHES["ssd_chunk_bwd"]``.  It takes bf16 x, b, c and dy with P and
-N multiples of 8, the types the models train in.  Its plain version is
+(``wgmma`` fed by TMA, through ``kernels/_hopper.cuh``), built with ``nvcc``
+at first use (`kernels._build`) and called through ``ctypes`` on PyTorch's
+current stream.  Three launches a call after a memset of the walk's status
+words: the adjoint walk (a block per (batch row, head, segment of chunks),
+`walk_segments` segments a head, from the last chunk: each chunk's
+adjoint R out in float32), the chunk gradients (a block per
+(batch row, chunk, group of `head_group` heads): dx, and dB and dC summed
+over the group's heads on chip), then the ordered sums (the groups'
+partials of dB and dC, d cs's reverse cumsum, ddt and da_log); counted once
+in ``BWD_LAUNCHES["ssd_chunk_bwd"]``.  It takes bf16 x, b, c and dy with P
+and N multiples of 8, the types the models train in.  Its plain version is
 `ref.ssd_chunk_bwd_plain`; `ref.ssd_chunk_bwd_segmented` runs its
 decomposition and roundings on the CPU.
 
@@ -35,28 +36,67 @@ from pathlib import Path
 
 import torch
 
-from .kernel import (CHUNK, MAX_N, MAX_P, _load, segment_count,
-                     uses_tensor_cores)
+from .kernel import CHUNK, MAX_N, MAX_P, SMS, _load, uses_tensor_cores
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_chunk_bwd.cu"
 
-# launches of the backward kernel (one a call of its two), counted by the
-# wrapper (a run resets it to 0 and reads it back)
+# heads a block of the gradient launch sums dB and dC over, at most
+# (``GMAX`` in the CUDA source)
+GROUP_MAX = 8
+
+# launches of the backward kernels (one a call of its three), counted by
+# the wrapper (a run resets it to 0 and reads it back)
 BWD_LAUNCHES = {"ssd_chunk_bwd": 0}
 
 
 def _lib_bwd():
-    lib = _load(_SOURCE, "ssd_chunk_bwd", 14, 6)
-    if lib.ssd_chunk_bwd_workspace.argtypes is None:
-        lib.ssd_chunk_bwd_workspace.argtypes = [ctypes.c_int] * 6
+    lib = _load(_SOURCE, "ssd_chunk_bwd", 14, 7)
+    launch = lib.ssd_chunk_bwd_launch
+    if len(launch.argtypes) == 14 + 7 + 1:
+        # and the events the call records between its launches, or null
+        launch.argtypes = launch.argtypes + [ctypes.c_void_p]
+        lib.ssd_chunk_bwd_workspace.argtypes = [ctypes.c_int] * 7
         lib.ssd_chunk_bwd_workspace.restype = ctypes.c_longlong
-        lib.ssd_chunk_bwd_smem.argtypes = []
-        lib.ssd_chunk_bwd_smem.restype = ctypes.c_int
+        for name in ("smem", "walk_smem", "max_group"):
+            fn = getattr(lib, f"ssd_chunk_bwd_{name}")
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+        if lib.ssd_chunk_bwd_max_group() != GROUP_MAX:
+            raise RuntimeError(f"{_SOURCE.name} takes groups of "
+                               f"{lib.ssd_chunk_bwd_max_group()} heads, the "
+                               f"wrapper {GROUP_MAX}")
     return lib
 
 
+def walk_segments(bsz: int, h: int, s: int) -> int:
+    """Segments a head for the adjoint walk at batch ``bsz``, ``h`` heads
+    and ``s`` steps: as many as half a wave of blocks holds (66 units on
+    the card's `SMS`), at most one a chunk, at least one.  The walk moves
+    dY, S and R once and runs near the memory's rate on half the card, so
+    a second segment (a pass 1 and a hand-off) buys nothing there: 1 at
+    mamba2-1.3b's B 1, H 64, where `chip_smoke.py`'s ``ms_by_segments``
+    times 1, 2 and 4."""
+    n_chunks = -(-s // CHUNK)
+    return max(1, min(n_chunks, (SMS // 2) // (bsz * h)))
+
+
+def head_group(bsz: int, h: int, s: int) -> int:
+    """Heads a block of the gradient launch takes at batch ``bsz``, ``h``
+    heads and ``s`` steps: `GROUP_MAX`, halved while the blocks (batch rows
+    x chunks x groups) would not fill the card's `SMS` once, at least one.
+    dB's and dC's partials shrink by the group size; 8 at mamba2-1.3b's
+    B 1, H 64 from 17 chunks (2,049 tokens; 256 blocks at 4,096), where
+    `chip_smoke.py`'s ``ms_by_group`` times 2, 4 and 8."""
+    n_chunks = -(-s // CHUNK)
+    g = min(GROUP_MAX, h)
+    while g > 1 and bsz * n_chunks * -(-h // g) < SMS:
+        g = (g + 1) // 2
+    return g
+
+
 def ssd_chunk_bwd_kernel(x, dt, a_log, b, c, dy, dstate, states, *,
-                         segments: int | None = None):
+                         segments: int | None = None,
+                         group: int | None = None, marks=None):
     """The gradient of `kernel.ssd_chunk_kernel` (bf16, P and N multiples of
     8): x and dy (B, S, H, P), b and c (B, S, N), contiguous bf16 CUDA
     tensors; dt (B, S, H) and a_log (H,) float32; ``dstate`` (B, H, P, N)
@@ -64,8 +104,12 @@ def ssd_chunk_bwd_kernel(x, dt, a_log, b, c, dy, dstate, states, *,
     chunks, P, N) float32, the forward's chunk states (``return_states``) ->
     (dx bf16, ddt, da_log, db, dc float32) in the inputs' layouts.  Launches
     on the current stream (one count); raises on any tensor it does not
-    take or on a failed launch.  ``segments``: segments a head (at most one
-    a chunk), for tests and timing; by default `kernel.segment_count`."""
+    take or on a failed launch.  ``segments``: the walk's segments a head
+    (at most one a chunk), by default `walk_segments`; ``group``:
+    heads a gradient block (1 to `GROUP_MAX`), by default `head_group`;
+    both for tests and timing.  ``marks``: four ``torch.cuda.Event`` s,
+    each recorded once already, that the call records before its first
+    launch and after each of the three, to time them."""
     ok = (x.dim() == 4 and dy.shape == x.shape and b.dim() == 3
           and c.shape == b.shape and b.shape[:2] == x.shape[:2]
           and dt.shape == x.shape[:3] and a_log.shape == x.shape[2:3]
@@ -98,18 +142,23 @@ def ssd_chunk_bwd_kernel(x, dt, a_log, b, c, dy, dstate, states, *,
     dc = torch.empty(b.shape, dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return dx, ddt.zero_(), da.zero_(), db.zero_(), dc.zero_()
-    seg = segment_count(bsz, h, s) if segments is None else max(
+    seg = walk_segments(bsz, h, s) if segments is None else max(
         1, min(int(segments), n_chunks))
+    grp = head_group(bsz, h, s) if group is None else max(
+        1, min(int(group), GROUP_MAX))
     with torch.cuda.device(x.device):
         lib = _lib_bwd()
-        ws = torch.empty(lib.ssd_chunk_bwd_workspace(bsz, s, h, p, n, seg),
+        ws = torch.empty(lib.ssd_chunk_bwd_workspace(bsz, s, h, p, n, seg,
+                                                     grp),
                          dtype=torch.uint8, device=x.device)
         stream = torch.cuda.current_stream().cuda_stream
+        events = None if marks is None else (ctypes.c_void_p * 4)(
+            *(e.cuda_event for e in marks))
         err = lib.ssd_chunk_bwd_launch(
             *(t.data_ptr() for t in (x, dt, a_log, b, c, dy, states)),
             None if dstate is None else dstate.data_ptr(),
             *(t.data_ptr() for t in (dx, ddt, da, db, dc, ws)),
-            bsz, s, h, p, n, seg, stream)
+            bsz, s, h, p, n, seg, grp, stream, events)
     if err != 0:
         raise RuntimeError(f"ssd_chunk_bwd kernel launch failed: CUDA error "
                            f"{err}")

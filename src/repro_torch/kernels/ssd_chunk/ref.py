@@ -44,9 +44,10 @@ its accumulators on the CUDA cores.
 The gradient: `ssd_chunk_bwd_plain` is the closed-form backward of
 (`ssd_chunk_ref`, `ssd_final_state`) in whole-tensor PyTorch, the CPU
 path's backward and the card's yardstick; `ssd_chunk_bwd_segmented` runs
-the backward kernel's decomposition (``csrc/ssd_chunk_bwd.cu``: segments
-walked from the last chunk, a reverse hand-off, three-part splits, fixed
-sum orders).
+the backward kernels' decomposition (``csrc/ssd_chunk_bwd.cu``: the adjoint
+walk over segments from the last chunk with a reverse hand-off, the
+chunk-parallel gradients with dG, dB and dC summed over groups of heads,
+the ordered sums; three-part splits, fixed sum orders).
 """
 
 from __future__ import annotations
@@ -323,7 +324,7 @@ def _states_walk(contrib, decay, seed, reverse=False):
 
 
 def ssd_chunk_bwd_plain(x, dt, a_log, b, c, dy, dstate=None, *,
-                        chunk: int = 128):
+                        chunk: int = 128, return_adjoints: bool = False):
     """The gradient of (`ssd_chunk_ref`, `ssd_final_state`) by its closed
     form, in whole-tensor PyTorch (float64 for float64 x, else float32): dy
     (B, S, H, P) the output's adjoint, ``dstate`` (B, H, P, N) the final
@@ -349,7 +350,9 @@ def ssd_chunk_bwd_plain(x, dt, a_log, b, c, dy, dstate=None, *,
         dl    = the reverse cumsum of dcs in the chunk (`cumsum` of the
                 flipped steps)
         da_log = sum over rows, chunks and steps of dl l.
-    """
+
+    With ``return_adjoints`` it also returns R after each chunk, (B, H,
+    chunks, P, N) in the compute dtype."""
     _check(x, dt, a_log, b, c)
     if dy.shape != x.shape:
         raise ValueError(f"dy {tuple(dy.shape)} is not x's {tuple(x.shape)}")
@@ -409,8 +412,9 @@ def ssd_chunk_bwd_plain(x, dt, a_log, b, c, dy, dstate=None, *,
     dx = dx.reshape(bsz, nc * q, h, p)[:, :s]
     ddt = ddt.permute(0, 1, 3, 2).reshape(bsz, nc * q, h)[:, :s]
     db, dc = (g.reshape(bsz, nc * q, n)[:, :s] for g in (db, dc))
-    return (dx.to(x.dtype), ddt.to(dt.dtype), da_log.to(a_log.dtype),
-            db.to(b.dtype), dc.to(c.dtype))
+    out = (dx.to(x.dtype), ddt.to(dt.dtype), da_log.to(a_log.dtype),
+           db.to(b.dtype), dc.to(c.dtype))
+    return out + (big_r.transpose(1, 2),) if return_adjoints else out
 
 
 def _dcs(row_t, col_t, u, v):
@@ -420,26 +424,33 @@ def _dcs(row_t, col_t, u, v):
 
 
 def ssd_chunk_bwd_segmented(x, dt, a_log, b, c, dy, dstate=None, *,
-                            chunk: int = 128, segments: int = 1):
-    """The backward kernel's decomposition, roundings and sum orders
-    (``csrc/ssd_chunk_bwd.cu``) over chunks of ``chunk`` steps and
-    ``segments`` segments a head, on bf16 (or float32) x, b, c and dy: (dx in
-    x's dtype, ddt, da_log, db and dc float32).
+                            chunk: int = 128, segments: int = 1,
+                            group: int = 8, return_adjoints: bool = False):
+    """The backward kernels' decomposition, roundings and sum orders
+    (``csrc/ssd_chunk_bwd.cu``) over chunks of ``chunk`` steps,
+    ``segments`` segments a head for the walk and ``group`` heads a block
+    of the gradients, on bf16 (or float32) x, b, c and dy: (dx in x's dtype,
+    ddt, da_log, db and dc float32), and with ``return_adjoints`` the walk's
+    R after each chunk, (B, H, chunks, P, N) float32.
 
     The chunks' incoming states S come from `ssd_chunk_segmented` (the
-    forward kernel writes them on request).  Each segment but the first
-    walks its chunks from the last, from a zero adjoint (pass 1: its
-    aggregate and the product of its chunk decays); the hand-off runs in
-    reverse, the last segment seeded with ``dstate``: ``inclusive_k =
-    inclusive_{k+1} D_k + aggregate_k``.  Pass 2 walks each segment's chunks
-    from the last, from the adjoint that enters it, with the products of
-    the plain backward: each float32 operand against an exact bf16 one (R,
-    S, M, dG and dY exp(cs)) split into three bf16 parts, w_j and exp(cs_i)
-    applied to their products before the rest is added; d cs by `_dcs`,
-    its reverse cumsum one add a step from the chunk's last step, begun
-    from ``sum v + exp(cs_Q) <R, S>``; da_log summed a chunk, then a
-    segment, then over batch rows and segments in order; db and dc a
-    head's partial each, summed in head order."""
+    forward kernel writes them on request).  1, the walk: each segment but
+    the first walks its chunks from the last, from a zero adjoint (pass 1:
+    its aggregate and the product of its chunk decays); the hand-off runs
+    in reverse, the last segment seeded with ``dstate``: ``inclusive_k =
+    inclusive_{k+1} D_k + aggregate_k``; pass 2 gives each chunk's R (the
+    adjoint after it, which the kernel writes in float32) and ``<R,
+    S>``.  2, the gradients, chunk by chunk and group by group of
+    heads (the last group ragged): per head the plain backward's products,
+    each float32 operand against an exact bf16 one (R, S, M, dG) split into
+    three bf16 parts, w_j and exp(cs_i) applied to their products before
+    the rest is added; dG summed over the group's heads in head order,
+    then dB = dG_grp^T C + w . (x R) and dC = dG_grp B + exp(cs) . (dY S),
+    each head's term added in head order; q_j = B_j . (x R)_j.  3, the
+    sums: dB and dC over the groups in order; d cs by `_dcs`, its reverse
+    cumsum one add a step from the chunk's last step, begun from ``sum v +
+    exp(cs_Q) <R, S>``; ddt; da_log's share a (batch row, chunk, head),
+    summed over batch rows, then chunks, in order."""
     _check(x, dt, a_log, b, c)
     bsz, s, h, p = x.shape
     n = b.shape[-1]
@@ -456,6 +467,7 @@ def ssd_chunk_bwd_segmented(x, dt, a_log, b, c, dy, dstate=None, *,
     decay = torch.exp(cs[..., -1])
     n_seg = max(1, min(int(segments), nc))
     bounds = [k * nc // n_seg for k in range(n_seg + 1)]
+    group = max(1, int(group))
     causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
                                    device=x.device))
 
@@ -469,7 +481,7 @@ def ssd_chunk_bwd_segmented(x, dt, a_log, b, c, dy, dstate=None, *,
         return r * decay[:, ci, :, None, None] + parts(
             "bihp,bin->bhpn", a_, c_c[:, ci])
 
-    # pass 1 and the reverse hand-off
+    # 1. the walk: pass 1, the reverse hand-off, pass 2
     zero = x_c.new_zeros((bsz, h, p, n))
     incoming = [None] * n_seg
     incoming[-1] = zero if dstate is None else dstate.float()
@@ -479,69 +491,81 @@ def ssd_chunk_bwd_segmented(x, dt, a_log, b, c, dy, dstate=None, *,
             agg = r_step(agg, ci)
             prod = prod * decay[:, ci]
         incoming[k - 1] = incoming[k] * prod[..., None, None] + agg
-
-    # pass 2
-    dx = x_c.new_zeros(x_c.shape)
-    ddt = dt_c.new_zeros(dt_c.shape)
-    db_h = b_c.new_zeros((bsz, h, nc, chunk, n))
-    dc_h = b_c.new_zeros((bsz, h, nc, chunk, n))
-    da_seg = x_c.new_zeros((bsz, h, n_seg))
+    adj = x_c.new_empty((bsz, h, nc, p, n))
     for k in range(n_seg):
         r = incoming[k]
         for ci in range(bounds[k + 1] - 1, bounds[k] - 1, -1):
-            big_s = states[:, :, ci]
-            xq, dyq, bq, cq = x_c[:, ci], dy_c[:, ci], b_c[:, ci], c_c[:, ci]
-            csq, dtq, wq = cs[:, ci], dt_c[:, ci], w[:, ci]     # (b,h,q)
-            g = torch.einsum("bin,bjn->bij", cq, bq)
-            seg = torch.where(causal, csq[..., :, None] - csq[..., None, :],
-                              0.0)
-            big_l = torch.where(causal, torch.exp(seg), 0.0)
-            gl = g[:, None] * big_l
-            m = gl * dtq[..., None, :]
-            dm = torch.einsum("bihp,bjhp->bhij", dyq, xq) * causal
-            dg = dm * big_l * dtq[..., None, :]
-            # rows j: dx, and the sums over i
-            br = parts("bhpn,bjn->bjhp", r, bq)
-            qv = (xq * br).sum(-1).permute(0, 2, 1)             # (b,h,j)
-            dx[:, ci] = br * wq.permute(0, 2, 1)[..., None] + parts(
-                "bhij,bihp->bjhp", m, dyq)
-            ddt1 = (dm * gl).sum(-2)
-            col_t = (dm * m).sum(-2)
-            db_h[:, :, ci] = parts("bhpn,bjhp->bhjn", r, xq) \
-                * wq[..., None] + parts("bhij,bin->bhjn", dg, cq)
-            # rows i: dc and u
-            yo = parts("bhpn,bin->bihp", big_s, cq)
-            u = ecs[:, ci] * (dyq * yo).sum(-1).permute(0, 2, 1)
-            dc_h[:, :, ci] = parts("bhpn,bihp->bhin", big_s, dyq) \
-                * ecs[:, ci][..., None] + parts("bhij,bjn->bhin", dg, bq)
-            row_t = (dm * m).sum(-1)
-            # d cs, its reverse cumsum and da_log's share
-            v = wq * qv
-            dcs = _dcs(row_t, col_t, u, v)
-            vsum = v[..., 0]
-            for j in range(1, chunk):
-                vsum = vsum + v[..., j]
-            run = vsum + decay[:, ci] * (r * big_s).sum((-1, -2))
-            dl = torch.empty_like(dcs)
-            dac = torch.zeros_like(run)
-            for j in range(chunk - 1, -1, -1):
-                run = run + dcs[..., j]
-                dl[..., j] = run
-                dac = dac + run * l[:, ci, :, j]
-            da_seg[..., k] += dac
-            ddt[:, ci] = (ddt1 + e[:, ci] * qv) + al[:, None] * dl
+            adj[:, :, ci] = r
             r = r_step(r, ci)
+    rs = (adj * states).sum((-1, -2)).permute(0, 2, 1)         # (b,c,h)
 
-    db = torch.zeros_like(db_h[:, 0])
-    dc = torch.zeros_like(dc_h[:, 0])
-    for hh in range(h):
-        db = db + db_h[:, hh]
-        dc = dc + dc_h[:, hh]
+    # 2. the gradients, a chunk and a group of heads at a time
+    groups = [range(g0, min(h, g0 + group)) for g0 in range(0, h, group)]
+    dx = x_c.new_zeros(x_c.shape)
+    row_t, col_t, u, v, ddtp = (dt_c.new_zeros(dt_c.shape) for _ in range(5))
+    dbp = b_c.new_zeros((bsz, len(groups), nc, chunk, n))
+    dcp = b_c.new_zeros((bsz, len(groups), nc, chunk, n))
+    for ci in range(nc):
+        xq, dyq, bq, cq = x_c[:, ci], dy_c[:, ci], b_c[:, ci], c_c[:, ci]
+        csq, dtq, wq = cs[:, ci], dt_c[:, ci], w[:, ci]        # (b,h,q)
+        big_r, big_s = adj[:, :, ci], states[:, :, ci]         # (b,h,p,n)
+        g = torch.einsum("bin,bjn->bij", cq, bq)
+        seg = torch.where(causal, csq[..., :, None] - csq[..., None, :], 0.0)
+        big_l = torch.where(causal, torch.exp(seg), 0.0)
+        gl = g[:, None] * big_l
+        m = gl * dtq[..., None, :]
+        dm = torch.einsum("bihp,bjhp->bhij", dyq, xq) * causal
+        dg = dm * big_l * dtq[..., None, :]
+        t = dm * m
+        row_t[:, ci], col_t[:, ci] = t.sum(-1), t.sum(-2)
+        # J: rows j
+        br = parts("bhpn,bjn->bjhp", big_r, bq)
+        dx[:, ci] = parts("bhij,bihp->bjhp", m, dyq) \
+            + br * wq.permute(0, 2, 1)[..., None]
+        # K: rows j; q_j = B_j . (x R)_j
+        xr = parts("bhpn,bjhp->bhjn", big_r, xq)
+        qv = (bq[:, None] * xr).sum(-1)                        # (b,h,j)
+        v[:, ci] = wq * qv
+        ddtp[:, ci] = (dm * gl).sum(-2) + e[:, ci] * qv
+        # I: rows i
+        ys = parts("bhpn,bin->bihp", big_s, cq)
+        u[:, ci] = ecs[:, ci] * (dyq * ys).sum(-1).permute(0, 2, 1)
+        ds = parts("bhpn,bihp->bhin", big_s, dyq)
+        for gi, heads in enumerate(groups):
+            dg_grp = torch.zeros_like(g)
+            for hh in heads:
+                dg_grp = dg_grp + dg[:, hh]
+            db_acc = parts("bij,bin->bjn", dg_grp, cq)
+            dc_acc = parts("bij,bjn->bin", dg_grp, bq)
+            for hh in heads:
+                db_acc = db_acc + wq[:, hh, :, None] * xr[:, hh]
+                dc_acc = dc_acc + ecs[:, ci, hh, :, None] * ds[:, hh]
+            dbp[:, gi, ci], dcp[:, gi, ci] = db_acc, dc_acc
+
+    # 3. the ordered sums
+    db = torch.zeros_like(dbp[:, 0])
+    dc = torch.zeros_like(dcp[:, 0])
+    for gi in range(len(groups)):
+        db = db + dbp[:, gi]
+        dc = dc + dcp[:, gi]
+    dcs = _dcs(row_t, col_t, u, v)
+    vsum = v[..., 0]
+    for j in range(1, chunk):
+        vsum = vsum + v[..., j]
+    run = vsum + decay * rs
+    dl = torch.empty_like(dcs)
+    share = torch.zeros_like(run)                              # (b,c,h)
+    for j in range(chunk - 1, -1, -1):
+        run = run + dcs[..., j]
+        dl[..., j] = run
+        share = share + run * l[..., j]
+    ddt = ddtp + al[:, None] * dl
     da_log = torch.zeros_like(al)
     for bi in range(bsz):
-        for k in range(n_seg):
-            da_log = da_log + da_seg[bi, :, k]
+        for ci in range(nc):
+            da_log = da_log + share[bi, ci]
     dx = dx.reshape(bsz, nc * chunk, h, p)[:, :s]
     ddt = ddt.permute(0, 1, 3, 2).reshape(bsz, nc * chunk, h)[:, :s]
     db, dc = (t.reshape(bsz, nc * chunk, n)[:, :s] for t in (db, dc))
-    return dx.to(x.dtype), ddt, da_log, db, dc
+    out = (dx.to(x.dtype), ddt, da_log, db, dc)
+    return out + (adj,) if return_adjoints else out

@@ -71,9 +71,10 @@ def test_backward_source_hashes_the_hopper_header():
 
 
 def test_ssd_backward_source_hashes_the_mma_header():
-    """The SSD backward's library is named by its source and `_mma.cuh`
-    (the mma.sync, ldmatrix, cp.async and three-part split helpers)."""
+    """The SSD backward's library is named by its source, `_hopper.cuh`
+    (wgmma, TMA, mbarriers) and `_mma.cuh` (ldmatrix and the three-part
+    split helpers)."""
     from repro_torch.kernels.ssd_chunk import kernel_bwd as SKB
 
     assert {p.name for p in _build.included_files(SKB._SOURCE)} == {
-        "ssd_chunk_bwd.cu", "_mma.cuh"}
+        "ssd_chunk_bwd.cu", "_hopper.cuh", "_mma.cuh"}

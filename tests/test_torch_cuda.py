@@ -698,8 +698,10 @@ def test_cuda_ssd_bwd_kernel_equals_plain(card):
     """The SSD backward kernel (bf16, P and N multiples of 8) against the
     plain backward: one step, a ragged single chunk, two chunks and a step,
     a segment boundary before a ragged tail, mamba2-1.3b's head shape at S
-    4,096; 1, 2 and 3 segments; with and without dstate; both input
-    families.  Each call counts once and a second call gives the same bits;
+    4,096; 1, 2 and 3 segments of the adjoint walk; the default group of
+    heads of the gradient launch and groups of 2 (the last of 3 heads
+    ragged); with and without dstate; both input families.  Each call
+    counts once and a second call gives the same bits;
     the forward's chunk states leave y and the final state bit-equal to
     the served call.  Under grad, float32 on the card is refused."""
     gen = torch.Generator(device=card).manual_seed(6)
@@ -723,15 +725,17 @@ def test_cuda_ssd_bwd_kernel_equals_plain(card):
                 want = ssd_chunk_bwd_plain(*(
                     t.double() for t in (x, dt, a_log, bm, cm, dy)),
                     None if seed is None else seed.double())
-                for seg in (1, 2, 3):
+                for seg, grp in [(1, None), (2, None), (3, None), (2, 2)]:
                     before = SKB.BWD_LAUNCHES["ssd_chunk_bwd"]
                     got = SKB.ssd_chunk_bwd_kernel(x, dt, a_log, bm, cm, dy,
-                                                   seed, states, segments=seg)
+                                                   seed, states, segments=seg,
+                                                   group=grp)
                     again = SKB.ssd_chunk_bwd_kernel(
-                        x, dt, a_log, bm, cm, dy, seed, states, segments=seg)
+                        x, dt, a_log, bm, cm, dy, seed, states, segments=seg,
+                        group=grp)
                     assert SKB.BWD_LAUNCHES["ssd_chunk_bwd"] == before + 2
                     torch.cuda.synchronize()
-                    case = (b, s, h, p, n, model_like, seed is None, seg)
+                    case = (b, s, h, p, n, model_like, seed is None, seg, grp)
                     assert all(torch.equal(u, v) for u, v in zip(got, again))
                     for (name, tol), g, w in zip(tolerance.items(), got,
                                                  want):

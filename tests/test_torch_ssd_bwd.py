@@ -2,9 +2,10 @@
 backward (`ref.ssd_chunk_bwd_plain`, the closed form the CUDA backward
 kernel computes) against ``jax.vjp`` of the reference's ``ssd_chunked`` and
 ``_final_state`` and against autograd of the port's plain forward; the CPU
-path of `ops.SSDChunk` under ``gradcheck``; and the backward kernel's CPU
-emulation (`ref.ssd_chunk_bwd_segmented`: its segments, reverse hand-off,
-three-part splits and sum orders) against the plain backward.
+path of `ops.SSDChunk` under ``gradcheck``; and the backward kernels' CPU
+emulation (`ref.ssd_chunk_bwd_segmented`: the adjoint walk's segments and
+reverse hand-off, the chunk gradients' groups of heads and their sum
+orders, three-part splits) against the plain backward.
 
 Tolerances:
 * against ``jax.vjp`` of the reference at x64 on float32 inputs (its
@@ -26,7 +27,13 @@ Tolerances:
   da_log carry float32 cancellation (at most 1.1e-5 and 1.6e-4 on the model
   family up to mamba2-1.3b's layer), db and dc about 1.2e-6;
 * one segment against several, float32 inputs: ``1e-5`` in relative L2
-  (the decays' product and the hand-off's sums round otherwise).
+  (the decays' product and the hand-off's sums round otherwise);
+* the walk's adjoint after each chunk against the plain backward's in
+  float64 on the same bf16 values: ``1e-6`` in relative L2 (float32
+  rounding over the walk: at most 7.8e-8 measured);
+* one group of heads against several, float32 inputs: db and dc within
+  ``1e-6`` in relative L2 (the groups' sums round otherwise: at most 1.5e-7
+  measured), the other gradients equal.
 """
 
 import importlib.util
@@ -208,14 +215,19 @@ def test_cpu_op_gradients_are_the_plain_backward():
 @pytest.mark.parametrize("s", [5, 45, 100])
 @pytest.mark.parametrize("segments", [1, 2, 3, 9])
 @pytest.mark.parametrize("model_like", [False, True])
-def test_segmented_backward_within_tolerance(s, segments, model_like):
-    """The kernel's decomposition on bf16 inputs at chunks of 16 (one chunk
+@pytest.mark.parametrize("h,group", [(3, 8), (6, 4), (4, 3)])
+def test_segmented_backward_within_tolerance(s, segments, model_like, h,
+                                             group):
+    """The kernels' decomposition on bf16 inputs at chunks of 16 (one chunk
     at S 5; three, the last ragged, at S 45; seven at S 100; more segments
-    than chunks at 9), against the plain backward in float64 on the same
-    values, within `SSD_BWD_TOL`."""
-    low, high = bf16_case(inputs(5 * s + segments, 2, s, 3, 8, 16,
+    than chunks at 9) and groups of heads (one group of 3; 6 heads in
+    groups of 4 and 4 heads in groups of 3, the last group ragged), against
+    the plain backward in float64 on the same values, within
+    `SSD_BWD_TOL`."""
+    low, high = bf16_case(inputs(5 * s + segments + h, 2, s, h, 8, 16,
                                  model_like=model_like))
-    got = SR.ssd_chunk_bwd_segmented(*low, chunk=16, segments=segments)
+    got = SR.ssd_chunk_bwd_segmented(*low, chunk=16, segments=segments,
+                                     group=group)
     want = SR.ssd_chunk_bwd_plain(*high, chunk=16)
     assert got[0].dtype == torch.bfloat16
     assert all(g.dtype == torch.float32 for g in got[1:])
@@ -244,6 +256,60 @@ def test_reverse_hand_off_is_the_walk():
         got = SR.ssd_chunk_bwd_segmented(*args, chunk=16, segments=segments)
         for name, g, w in zip(NAMES, got, one):
             assert rel(g, w) <= 1e-5, (segments, name, rel(g, w))
+
+
+@pytest.mark.parametrize("segments", [1, 2, 3, 9])
+@pytest.mark.parametrize("model_like", [False, True])
+def test_walk_adjoints_equal_plain(segments, model_like):
+    """The walk's R after each chunk (what the kernel writes for the
+    gradient launch) against the plain backward's adjoint in float64 on
+    the same bf16 values, within 1e-6 in relative L2."""
+    low, high = bf16_case(inputs(7 + segments, 2, 100, 3, 8, 16,
+                                 model_like=model_like))
+    got = SR.ssd_chunk_bwd_segmented(*low, chunk=16, segments=segments,
+                                     return_adjoints=True)[-1]
+    want = SR.ssd_chunk_bwd_plain(*high, chunk=16, return_adjoints=True)[-1]
+    assert got.dtype == torch.float32 and got.shape == want.shape == (
+        2, 3, 7, 8, 16)
+    assert rel(got, want) <= 1e-6, rel(got, want)
+
+
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 5])
+def test_head_groups_are_one_group(group):
+    """Any group size gives one group's gradients: dx, ddt and da_log
+    equal (no group touches them), db and dc within the float32 rounding of
+    the groups' sums; 6 heads, so every size but 1, 2 and 3 leaves a
+    ragged last group."""
+    args = [torch.from_numpy(np.asarray(a, np.float32))
+            for a in inputs(11, 2, 100, 6, 8, 16, model_like=True)]
+    one = SR.ssd_chunk_bwd_segmented(*args, chunk=16, group=6)
+    got = SR.ssd_chunk_bwd_segmented(*args, chunk=16, group=group)
+    for name, g, w in zip(NAMES, got, one):
+        if name in ("db", "dc"):
+            assert rel(g, w) <= 1e-6, (name, rel(g, w))
+        else:
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("bsz,s,h,want", [(1, 4096, 64, 8), (1, 16384, 64, 8),
+                                          (1, 1024, 64, 2), (2, 64, 4, 1)])
+def test_head_group_fills_the_card(bsz, s, h, want):
+    """`kernel_bwd.head_group`: eight heads a block at mamba2-1.3b's layer
+    (256 blocks at 4,096 tokens), fewer where the blocks would not fill the
+    card's 132 SMs once."""
+    from repro_torch.kernels.ssd_chunk import kernel_bwd
+
+    assert kernel_bwd.head_group(bsz, h, s) == want
+
+
+@pytest.mark.parametrize("bsz,s,h,want", [(1, 4096, 64, 1), (1, 4096, 8, 8),
+                                          (2, 64, 4, 1), (1, 300, 16, 3)])
+def test_walk_segments_fill_half_the_card(bsz, s, h, want):
+    """`kernel_bwd.walk_segments`: as many segments a head as half a wave
+    of walk blocks holds (66 on the card's 132 SMs), at most one a chunk."""
+    from repro_torch.kernels.ssd_chunk import kernel_bwd
+
+    assert kernel_bwd.walk_segments(bsz, h, s) == want
 
 
 def test_planted_faults_are_refused(monkeypatch):
@@ -284,7 +350,8 @@ def test_chip_smoke_holds_the_kernel_to_the_same_tolerance():
 
 
 def model_size_rehearsal() -> bool:
-    """`ssd_chunk_bwd_segmented` at the kernel's segment count against the
+    """`ssd_chunk_bwd_segmented` at the kernels' walk segments and group
+    size against the
     plain backward in float64 at mamba2-1.3b's SSD shape (B 1, S 4,096, H
     64, P 64, N 128; bf16 x, b, c and dy), on both input families: the
     check to run before a card run of a change to the backward kernel's
@@ -292,14 +359,16 @@ def model_size_rehearsal() -> bool:
     family on four threads): ``PYTHONPATH=src python
     tests/test_torch_ssd_bwd.py`` prints each gradient's share of
     `SSD_BWD_TOL`."""
-    from repro_torch.kernels.ssd_chunk.kernel import segment_count
+    from repro_torch.kernels.ssd_chunk.kernel_bwd import (head_group,
+                                                          walk_segments)
 
     ok = True
     for model_like in (False, True):
         low, high = bf16_case(inputs(0, 1, 4096, 64, 64, 128,
                                      model_like=model_like))
         got = SR.ssd_chunk_bwd_segmented(
-            *low, segments=segment_count(1, 64, 4096))
+            *low, segments=walk_segments(1, 64, 4096),
+            group=head_group(1, 64, 4096))
         share = shares(got, SR.ssd_chunk_bwd_plain(*high))
         print(f"{'model' if model_like else 'reference'} family: "
               + ", ".join(f"{k} {v:.3f}" for k, v in share.items()))
