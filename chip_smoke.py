@@ -106,6 +106,16 @@ paths through them:
     SSD backward kernel against its plain backward (and timed); mamba2-1.3b
     trained on the card: its smoke config, a full-width period against the
     host CPU and 10 full-width steps (finite, the loss rule recorded).
+  * the production-mesh layer (phase 5j, after phase 5i): the GPipe schedule
+    (`parallel.pipeline_par`) over recurrentgemma-2b's first 24 layers at
+    its published width in four stages, four microbatches of 2,048 tokens
+    (the flash-attention and RG-LRU scan kernels), bit for bit against each
+    microbatch through the stages in order and within MODEL_TOL of the whole
+    batch; the dry-run stand-in (`launch.dryrun`, its meta counts in a host
+    subprocess that runs beside phase 5i) over the three hillclimb
+    cells, the roofline CLI with its fabric cross-check through the fused
+    serve round, held against the same on the CPU, and `launch.hillclimb
+    --cell mamba2`.
 
 Every study's rows are held against the JAX package's, recorded on the CPU
 as constants below (`STUDY_REF`, `TRACES_REF`, `TELEMETRY_REF`,
@@ -212,6 +222,20 @@ FAMILY_NEW = 32
 VLM_REL_RMS_LIMIT = 0.07
 # what may be allocated on the card when phase 5h starts
 FAMILY_START_BYTES = 4 << 30
+# phase 5j, the production-mesh layer: `parallel.pipeline_par` over
+# recurrentgemma-2b's first PIPE_STAGES * PIPE_PERIODS periods at its
+# published width (the embedding, the two tail layers and the final norm
+# stay outside), PIPE_MICROBATCHES rows of PIPE_TOKENS tokens, one a
+# microbatch; then the dry-run stand-in over the hillclimb cells (its meta
+# counts in a host subprocess started before phase 5i, CUDA hidden from it,
+# joined here within DRYRUN_WAIT_S), the roofline with its fabric
+# cross-check on the card, and `launch.hillclimb --cell HILLCLIMB_CELL`
+PIPE_STAGES = 4
+PIPE_PERIODS = 2
+PIPE_MICROBATCHES = 4
+PIPE_TOKENS = 2048
+HILLCLIMB_CELL = "mamba2"
+DRYRUN_WAIT_S = 600
 # phase 5i, training: recurrentgemma-2b at full width, one period on
 # PERIOD_TOKENS tokens on the card against the host CPU, then TRAIN_STEPS
 # steps of one row of TRAIN_TOKENS tokens (train_4k's length; its global
@@ -2637,7 +2661,8 @@ def path_flash_cases():
     recurrentgemma-2b period on PERIOD_TOKENS (its 4,096-token steps are
     among the prefills), the 100m preset's batch, and the smoke llama of
     `studies.quickstart` and `studies.train_small_lm` (D 8, padded to 16
-    under autograd: ``pad``) (phase 5i).
+    under autograd: ``pad``) (phase 5i); the pipeline's microbatches and
+    its whole-batch yardstick (phase 5j).
     serve_decode's calls are listed in `phase_flash_vs_plain`;
     `flash_shapes` holds every launch to the set checked."""
     from repro_torch.configs import get_config, get_smoke_config
@@ -2653,7 +2678,9 @@ def path_flash_cases():
         return (*prompts, *(n + FAMILY_NEW for n in prompts))
 
     return [*calls(MODEL_ARCH, 1, (*SERVE_PROMPTS, SERVE_FORWARD_TOKENS,
-                                   PERIOD_TOKENS),
+                                   PERIOD_TOKENS, PIPE_TOKENS),
+                   window=get_config(MODEL_ARCH).window),
+            *calls(MODEL_ARCH, PIPE_MICROBATCHES, (PIPE_TOKENS,),
                    window=get_config(MODEL_ARCH).window),
             dict(b=TRAIN_100M_BATCH, kvh=4, g=3, d=64, s=TRAIN_100M_SEQ,
                  t=TRAIN_100M_SEQ, window=0, causal=True),
@@ -4692,6 +4719,244 @@ def phase_training(torch, FA, FAR, RK, RR, SK, SKB, SR):
             ssd_err, ssd_timing, ssd_shares)
 
 
+# ---------------------------------------------------------------------------
+# phase 5j: the production-mesh layer
+# ---------------------------------------------------------------------------
+
+DRYRUN_HOST_SCRIPT = r"""
+import json, sys, time
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch import dryrun, hillclimb
+
+dry, log, cell = sys.argv[1:4]
+for arch, shape, _ in hillclimb.CELLS.values():
+    t0 = time.perf_counter()
+    dryrun.main(["--arch", arch, "--shape", shape, "--out", dry])
+    print("HOST_S", json.dumps({"step": f"dryrun {arch} {shape}",
+                                "host_s": time.perf_counter() - t0}),
+          flush=True)
+t0 = time.perf_counter()
+hillclimb.main(["--cell", cell, "--out", log])
+print("HOST_S", json.dumps({"step": f"hillclimb --cell {cell}",
+                            "host_s": time.perf_counter() - t0}), flush=True)
+"""
+
+
+def start_dryrun_host_work(tmp):
+    """Start the dry-run stand-in's host work for phase 5j in a subprocess:
+    the hillclimb cells' records (`launch.dryrun`, single pod) and
+    `launch.hillclimb --cell HILLCLIMB_CELL`, into ``tmp``.  Its meta
+    counts are CPU work only, so CUDA is hidden from it and it runs while
+    phase 5i trains on the card; the process is killed when the script
+    exits.
+    Returns (the process, the records' path, the log's path)."""
+    import atexit
+
+    dry, log = os.path.join(tmp, "torch_dryrun.json"), \
+        os.path.join(tmp, "torch_perf_log.json")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_HOST_SCRIPT, dry, log, HILLCLIMB_CELL],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=tmp)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, dry, log
+
+
+def pipeline_on_card(np, torch, FA, RK):
+    """Phase 5j (a): `parallel.pipeline_par.pipeline_forward` over
+    recurrentgemma-2b at its published width (weights from the seeded
+    generator, as phase 8 draws them): PIPE_STAGES stages of PIPE_PERIODS
+    periods each, PIPE_MICROBATCHES microbatches of 1 x PIPE_TOKENS
+    embedded tokens, in the forward's mode.  The launch counts are set to 0
+    just before the pipeline and read just after; then the output is held
+    bit for bit against each microbatch passed through the stages in order,
+    and within MODEL_TOL of the layers applied to the whole batch.  Returns
+    the pipeline's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as TF
+    from repro_torch.parallel.pipeline_par import pipeline_forward
+
+    cfg = get_config(MODEL_ARCH)
+    per = PIPE_PERIODS * len(cfg.pattern)
+    model = TF.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    layers = list(model.layers)[:PIPE_STAGES * per]
+    check(all(period is not None
+              for _, period in model.keys[:PIPE_STAGES * per]),
+          "the pipeline's layers are not all period layers")
+    stages = [layers[i * per:(i + 1) * per] for i in range(PIPE_STAGES)]
+    kinds = [key.split("_", 1)[1] for key, _ in model.keys[:len(layers)]]
+    tokens = torch.as_tensor(np.random.default_rng(35).integers(
+        0, cfg.vocab, (PIPE_MICROBATCHES, PIPE_TOKENS)), device="cuda")
+
+    def stage_fn(blocks, h):
+        pos = torch.arange(h.shape[1], device=h.device)[None].expand(
+            h.shape[:2])
+        for blk in blocks:
+            h, _ = TF._apply_block(blk, h, pos, cfg, mode="forward")
+        return h
+
+    mesh = make_mesh((PIPE_STAGES,), ("stage",))
+    with torch.no_grad():
+        x = TF.embed(model.embed.tok, tokens)
+        for counter in (FA.LAUNCHES, RK.LAUNCHES):
+            for name in counter:
+                counter[name] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipeline_forward(stage_fn, stages, x, mesh=mesh,
+                               n_microbatches=PIPE_MICROBATCHES)
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+        launches = {"flash_attention_tc": FA.LAUNCHES["flash_attention_tc"],
+                    "flash_attention": FA.LAUNCHES["flash_attention"],
+                    "rglru_scan": RK.LAUNCHES["rglru_scan"]}
+        want = {"flash_attention_tc": kinds.count("attn_local")
+                * PIPE_MICROBATCHES, "flash_attention": 0,
+                "rglru_scan": kinds.count("rglru") * PIPE_MICROBATCHES}
+        check(launches == want, f"the pipeline's launches {launches}, "
+                                f"expected {want}")
+        seq = []
+        for i in range(PIPE_MICROBATCHES):
+            h = x[i:i + 1]
+            for blocks in stages:
+                h = stage_fn(blocks, h)
+            seq.append(h)
+        seq = torch.cat(seq)
+        check(torch.equal(out, seq), "the pipeline differs from each "
+                                     "microbatch through the stages in order")
+        whole = x
+        for blocks in stages:
+            whole = stage_fn(blocks, whole)
+        err = float((out.float() - whole.float()).abs().max())
+        check(tuple(out.shape) == tuple(x.shape)
+              and bool(torch.isfinite(out.float()).all())
+              and torch.allclose(out.float(), whole.float(), atol=MODEL_TOL,
+                                 rtol=MODEL_TOL),
+              f"the pipeline against the whole batch: max abs err {err}")
+    emit(phase="pipeline", arch=cfg.name, stages=PIPE_STAGES,
+         layers_per_stage=per, microbatches=PIPE_MICROBATCHES,
+         tokens=PIPE_TOKENS, shape=list(out.shape), host_s=pipe_s,
+         bit_equal_per_microbatch=True, max_abs_err_vs_whole_batch=err,
+         max_abs_value=float(whole.float().abs().max()),
+         **{f"{n}_launches": c for n, c in launches.items()})
+    del model, layers, stages, x, out, seq, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dryrun_on_card(torch, K, host):
+    """Phase 5j (b): join the dry-run's host subprocess
+    (`start_dryrun_host_work`), print its steps' host seconds, then run the
+    roofline CLI over its records with the fabric cross-check on the card
+    (the serve_round count set to 0 just before and read just after), and
+    hold the cross-check and the roofline rows against the same calls on
+    the port's CPU path; check the hillclimb log.  Returns the cross-check's
+    serve_round launches."""
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    from repro_torch.launch import hillclimb, roofline
+
+    proc, dry, log = host
+    t0 = time.perf_counter()
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    wait_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the dry-run subprocess failed "
+                                f"({proc.returncode}): {err[-2000:]}")
+    for line in out.splitlines():
+        if line.startswith("HOST_S "):
+            emit(phase="dryrun_host", **json.loads(line.split(" ", 1)[1]))
+    with open(dry) as f:
+        recs = json.load(f)
+    cells = [(arch, shape) for arch, shape, _ in hillclimb.CELLS.values()]
+    for arch, shape in cells:
+        rec = recs[f"{arch}|{shape}|single"]
+        check(rec["status"] == "ok" and rec["flops_once"] > 0
+              and rec["bytes_once"] > 0
+              and rec["memory"]["peak_per_device_gib"] > 0,
+              f"dry-run {arch} {shape}: {rec}")
+        emit(phase="dryrun_cell", arch=arch, shape=shape, mesh=rec["mesh"],
+             host_s=rec["lower_s"], memory=rec["memory"],
+             flops_once=rec["flops_once"], bytes_once=rec["bytes_once"],
+             collectives_once=rec["collectives_once"])
+
+    roof = os.path.join(os.path.dirname(dry), "torch_roofline.json")
+    K.LAUNCHES["serve_round"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        roofline.main(["--dryrun", dry, "--out", roof])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = K.LAUNCHES["serve_round"]
+    check(launches > 0, "the fabric cross-check never launched serve_round")
+    with open(roof) as f:
+        card = json.load(f)
+    t0 = time.perf_counter()
+    rows = [roofline.analyze_cell(f"{a}|{s}|single", recs[f"{a}|{s}|single"])
+            for a in ARCH_IDS for s in SHAPES if f"{a}|{s}|single" in recs]
+    rows = [r for r in rows if r]
+    cpu = json.loads(json.dumps({
+        "cells": rows,
+        "fabric_crosscheck": roofline.fabric_crosscheck(rows, device="cpu")}))
+    cpu_s = time.perf_counter() - t0
+    check(card["cells"] == cpu["cells"], "roofline rows differ from the CPU "
+                                         "run's")
+    check(card["fabric_crosscheck"] == cpu["fabric_crosscheck"],
+          f"the fabric cross-check on the card {card['fabric_crosscheck']} "
+          f"differs from the CPU's {cpu['fabric_crosscheck']}")
+    for row in card["cells"]:
+        emit(phase="roofline_row", **{k: row[k] for k in (
+            "arch", "shape", "compute_ms", "memory_ms", "collective_ms",
+            "dominant", "useful_flops_ratio", "roofline_fraction",
+            "memory_gib")})
+    emit(phase="fabric_crosscheck", equal_to_cpu=True, host_s_card=card_s,
+         host_s_cpu=cpu_s, serve_round_launches=launches,
+         rows=card["fabric_crosscheck"])
+
+    with open(log) as f:
+        entry = json.load(f)[HILLCLIMB_CELL]
+    its = entry["iterations"]
+    check(len(its) == 3 and all(
+        math.isfinite(v[k]) for v in (entry["baseline"], *its)
+        for k in ("compute_ms", "memory_ms", "collective_ms")),
+        f"the hillclimb log: {entry}")
+    emit(phase="hillclimb", cell=HILLCLIMB_CELL, arch=entry["arch"],
+         shape=entry["shape"], baseline=entry["baseline"],
+         iterations=[{k: v[k] for k in (
+             "tag", "compute_ms", "memory_ms", "collective_ms", "dominant",
+             "dominant_term_delta")} for v in its],
+         subprocess_wait_s=wait_s)
+    return launches
+
+
+def phase_mesh_layer(np, torch, FA, RK, K, host):
+    """Phase 5j: the pipeline on the card, then the dry-run stand-in, the
+    roofline and its fabric cross-check, and the hillclimb log.  Returns
+    (the pipeline's launches, the cross-check's serve_round launches)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    check(start < FAMILY_START_BYTES,
+          f"{start} bytes still allocated when phase 5j starts")
+    t0 = time.perf_counter()
+    pipe = pipeline_on_card(np, torch, FA, RK)
+    pipe_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xcheck = dryrun_on_card(torch, K, host)
+    emit(phase="mesh_layer", pipeline_host_s=pipe_s,
+         dryrun_host_s=time.perf_counter() - t0)
+    return pipe, xcheck
+
+
 def main() -> int:
     import torch
 
@@ -5192,6 +5457,12 @@ def main() -> int:
           and family_launches["flash_attention"] == 0,
           f"the model families' flash launches: {family_launches}")
 
+    # phase 5j's dry-run host work (meta counts, no card; about 75 s on the
+    # card's host) runs from here on beside phase 5i, whose steps keep the
+    # card busy
+    dryrun_dir = tempfile.TemporaryDirectory()
+    dryrun_host = start_dryrun_host_work(dryrun_dir.name)
+
     # phase 5i: training on the card (the flash backward kernel, the RG-LRU
     # scan's reverse mode, the SSD backward kernel), after phase 5h's models
     # are freed; the counts set to 0 around each training run
@@ -5205,6 +5476,17 @@ def main() -> int:
           and train_launches["flash_attention"] == 0
           and train_launches["ssd_chunk"] == 0,
           f"the training phase's launches: {train_launches}")
+
+    # phase 5j: the production-mesh layer (the pipeline schedule over
+    # recurrentgemma-2b, the dry-run stand-in, the roofline's fabric
+    # cross-check through the fused serve round, the hillclimb log)
+    pipe_launches, xcheck_launches = phase_mesh_layer(
+        np, torch, FA, RK, K, dryrun_host)
+    check(pipe_launches["flash_attention_tc"] > 0
+          and pipe_launches["rglru_scan"] > 0 and xcheck_launches > 0,
+          f"phase 5j's launches: {pipe_launches}, serve_round "
+          f"{xcheck_launches}")
+    dryrun_dir.cleanup()
     paths.close()
     # every flash shape the paths launched, forward and backward, was held
     # to the plain version
@@ -5255,7 +5537,8 @@ def main() -> int:
                       f"{name}.cu",
                replaces="src/repro/kernels/flash_attention/kernel.py:93",
                launches=rg_launches[name] + decode_launches[name]
-               + family_launches[name] + train_launches[name],
+               + family_launches[name] + train_launches[name]
+               + pipe_launches[name],
                max_abs_err=worst_flash[name],
                **flash_timings[name],
                shape=f"B1 S4096 H10 KV1 D256 window 2048 {dtype}")
@@ -5276,7 +5559,8 @@ def main() -> int:
              source="src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
              replaces="src/repro/kernels/rglru_scan/kernel.py:62",
              launches=rg_launches["rglru_scan"]
-             + decode_launches["rglru_scan"] + train_launches["rglru_scan"],
+             + decode_launches["rglru_scan"] + train_launches["rglru_scan"]
+             + pipe_launches["rglru_scan"],
              max_abs_err=worst_rglru, **rglru_timing,
              shape="(1, 4096, 2560) float32"),
         dict(name="rglru_scan_reverse", route="cuda",

@@ -10,9 +10,10 @@ The counterpart of ``repro/launch/train.py``, with its flags plus
 
 Presets: smoke (per-arch reduced config), 100m (a ~100M-param llama-style
 config for the end-to-end example), full (the assigned config).  It trains
-on one device: ``--model-par`` above 1 is refused (the reference's host
-mesh has no counterpart on one card), and the line the reference prints
-with its mesh names the device instead.
+on one device: ``--model-par`` above 1 is refused (`launch.mesh.
+make_host_mesh` builds the reference's host mesh, but one card still
+shards nothing), and the line the reference prints with its mesh names the
+device instead.
 """
 
 from __future__ import annotations

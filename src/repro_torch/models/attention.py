@@ -60,6 +60,11 @@ class Attention(nn.Module):
                                 (n_heads * head_dim) ** -0.5, device=device))
 
 
+def attn_axes():
+    return {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+            "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+
+
 def _project(p: Attention, x, n_heads, n_kv, head_dim, positions,
              rope_theta):
     b, s, _ = x.shape
@@ -221,12 +226,18 @@ def cross_attention_block(p: Attention, x, enc_kv, cfg):
     """x: decoder states (B, S, D); enc_kv: dict(k, v), each (B, T, KV, hd),
     from `encode_cross_kv`.  Non-causal over the encoder positions, no RoPE
     on the queries, through `flash_attention`, which takes S <= T: a
-    decoder prompt longer than the encoder's T (1,500 frames for whisper)
-    is refused.  Returns the block's output (B, S, D)."""
+    decoder longer than the encoder's T (1,500 frames for whisper; its
+    4,096-token training rows) attends in blocks of T queries, which are
+    independent without a causal mask.  Returns the block's output (B, S,
+    D)."""
     n_heads, hd = cfg.n_heads, cfg.head_dim
     b, s, _ = x.shape
+    t = enc_kv["k"].shape[1]
     q = (x @ p.wq).reshape(b, s, n_heads, hd)
-    out = flash_attention(q, enc_kv["k"], enc_kv["v"], causal=False)
+    out = torch.cat([flash_attention(q[:, i:i + t], enc_kv["k"], enc_kv["v"],
+                                     causal=False)
+                     for i in range(0, s, t)], dim=1) if s > t else \
+        flash_attention(q, enc_kv["k"], enc_kv["v"], causal=False)
     return out.reshape(b, s, n_heads * hd) @ p.wo
 
 

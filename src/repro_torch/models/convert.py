@@ -33,7 +33,7 @@ import torch
 
 from ..core.engine import resolve_device
 from .layers import DTYPE
-from .transformer import Transformer, layer_keys
+from .transformer import Transformer, _leaves, layer_keys
 
 # the dtype of each cache leaf (as `transformer.init_cache` makes them)
 CACHE_DTYPES = {"k": DTYPE, "v": DTYPE, "len": torch.int32, "conv": DTYPE,
@@ -46,15 +46,6 @@ def _tensor(x, device) -> torch.Tensor:
         return torch.from_numpy(arr.astype(np.float32)).to(
             device=device, dtype=torch.bfloat16)
     return torch.from_numpy(np.array(arr)).to(device)
-
-
-def _leaves(tree, prefix=""):
-    for name, sub in tree.items():
-        path = f"{prefix}{name}"
-        if isinstance(sub, dict):
-            yield from _leaves(sub, path + ".")
-        else:
-            yield path, sub
 
 
 def _pick(sub, i):

@@ -11,9 +11,13 @@ The counterpart of ``repro/models/layers.py``.  Conventions:
   * initial weights are drawn from an explicit ``torch.Generator`` (in float32,
     then cast).  The reference's draws come from ``jax.random`` and differ;
     the tests carry the reference's weights across instead.
-  * the reference annotates activations with logical sharding axes
-    (``repro.parallel.sharding.shard``); on one card there is nothing to
-    shard, so those calls have no counterpart here.
+  * every parameter module has a ``*_axes`` function giving the logical
+    sharding axes of each of its parameters, keyed by parameter name
+    (consumed by `parallel.sharding.param_specs` and the dry-run stand-in,
+    `launch.dryrun`); the reference also annotates activations with
+    ``sharding.shard``, which `parallel.sharding.shard` answers with its
+    input, since one card still shards nothing, so the port's layers make
+    no such calls.
 """
 
 from __future__ import annotations
@@ -52,6 +56,10 @@ class RMSNorm(nn.Module):
         return rmsnorm(self.scale, x)
 
 
+def rmsnorm_axes():
+    return {"scale": ("embed_act",)}
+
+
 def rmsnorm(scale, x, eps: float = 1e-6):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -67,6 +75,10 @@ class Embed(nn.Module):
     def __init__(self, vocab: int, d: int, gen, *, device):
         super().__init__()
         self.tok = param(_normal(gen, (vocab, d), d ** -0.5, device=device))
+
+
+def embed_axes():
+    return {"tok": ("vocab", "embed")}
 
 
 def embed(tok, tokens):
@@ -105,6 +117,11 @@ class MLP(nn.Module):
         self.wi_gate = param(_normal(gen, (d, f), d ** -0.5, device=device))
         self.wi_up = param(_normal(gen, (d, f), d ** -0.5, device=device))
         self.wo = param(_normal(gen, (f, d), f ** -0.5, device=device))
+
+
+def mlp_axes():
+    return {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"),
+            "wo": ("mlp", "embed")}
 
 
 def silu(x):

@@ -54,6 +54,17 @@ class MoE(nn.Module):
                                 device=device))
 
 
+def moe_axes(expert_sharding: str):
+    """expert_sharding: 'expert' (E over model) or 'ffn' (d_ff over model)."""
+    if expert_sharding == "expert":
+        e, f = "experts", "expert_mlp"
+    else:
+        e, f = None, "mlp"
+    return {"router": ("embed", None),
+            "wi_gate": (e, "embed", f), "wi_up": (e, "embed", f),
+            "wo": (e, f, "embed")}
+
+
 @dataclass(frozen=True)
 class Routing:
     """Where a group's (token, choice) pairs go.  probs (G, tg, E) float32;

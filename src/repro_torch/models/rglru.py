@@ -48,6 +48,13 @@ class RGLRU(nn.Module):
         self.w_o = param(_normal(gen, (d, d), d ** -0.5, device=device))
 
 
+def rglru_axes():
+    return {"w_x": ("embed", "mlp"), "w_gate": ("embed", "mlp"),
+            "conv": (None, "mlp"), "w_r": ("embed", "mlp"),
+            "w_i": ("embed", "mlp"), "lam": ("mlp",),
+            "w_o": ("mlp", "embed")}
+
+
 def _causal_conv(x, w, state=None):
     """x: (B, S, D); w: (W, D) depthwise causal conv; state: (B, W-1, D).
     The explicit shifted sum of the reference, term by term in x's dtype."""

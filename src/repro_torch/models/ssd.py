@@ -50,6 +50,12 @@ class SSD(nn.Module):
                                       device=device))
 
 
+def ssd_axes():
+    return {"in_proj": ("embed", "mlp"), "conv": (None, None),
+            "A_log": (None,), "dt_bias": (None,),
+            "norm": {"scale": (None,)}, "out_proj": ("mlp", "embed")}
+
+
 def softplus(x):
     """``jax.nn.softplus``: ``logaddexp(x, 0)``."""
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))

@@ -41,6 +41,8 @@ Entry points:
   prefill(model, tokens, max_len)         last-token logits + cache
   init_cache(cfg, batch, max_len)         an empty cache
   decode_step(model, cache, tok, pos)     one-token serve step
+  param_axes(cfg) / cache_axes(cfg)       logical sharding axes of every
+                                          parameter / cache leaf
 
 ``forward`` and ``prefill`` take ``frontend_embeds=`` as the reference's
 do.
@@ -57,8 +59,8 @@ from . import attention as A
 from . import moe as MOE
 from . import rglru as RG
 from . import ssd as SSD
-from .layers import (DTYPE, Embed, MLP, RMSNorm, embed, mlp, softmax_xent,
-                     unembed)
+from .layers import (DTYPE, Embed, MLP, RMSNorm, embed, embed_axes, mlp,
+                     mlp_axes, rmsnorm_axes, softmax_xent, unembed)
 
 ATTN_KINDS = ("attn", "attn_local", "attn_moe", "cross")
 
@@ -137,6 +139,57 @@ class Transformer(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.final_norm.scale.device
+
+
+def _block_axes(kind: str, cfg):
+    """Logical axes of one block's parameters, nested as its modules."""
+    ax = {"norm1": rmsnorm_axes()}
+    if kind in ATTN_KINDS:
+        ax["attn"] = A.attn_axes()
+        ax["norm2"] = rmsnorm_axes()
+        if kind == "attn_moe":
+            es = "expert" if cfg.moe.n_experts % 16 == 0 else "ffn"
+            ax["moe"] = MOE.moe_axes(es)
+        else:
+            ax["mlp"] = mlp_axes()
+        if kind == "cross":
+            ax["xattn"] = A.attn_axes()
+            ax["norm3"] = rmsnorm_axes()
+    elif kind == "rglru":
+        ax["rglru"] = RG.rglru_axes()
+        ax["norm2"] = rmsnorm_axes()
+        ax["mlp"] = mlp_axes()
+    elif kind == "ssd":
+        ax["ssd"] = SSD.ssd_axes()
+    return ax
+
+
+def _leaves(tree, prefix=""):
+    """(dotted name under ``prefix``, leaf) of every leaf of a nested
+    dict."""
+    for name, sub in tree.items():
+        path = f"{prefix}{name}"
+        if isinstance(sub, dict):
+            yield from _leaves(sub, path + ".")
+        else:
+            yield path, sub
+
+
+def param_axes(cfg) -> dict:
+    """The logical axes of every parameter, keyed as
+    ``Transformer.named_parameters()``.  A layer's leaves carry its own
+    axes; the reference's stage-stacked leaves add a leading ``"stage"``
+    (`models.convert.named_to_tree` lines the two up)."""
+    axes = {**dict(_leaves(embed_axes(), "embed.")),
+            **dict(_leaves(rmsnorm_axes(), "final_norm."))}
+    for i, (key, _) in enumerate(layer_keys(cfg)):
+        axes.update(_leaves(_block_axes(key.split("_", 1)[1], cfg),
+                            f"layers.{i}."))
+    for i in range(cfg.enc_layers):
+        axes.update(_leaves(_block_axes("attn", cfg), f"encoder.{i}."))
+    if cfg.enc_layers:
+        axes.update(_leaves(rmsnorm_axes(), "enc_norm."))
+    return axes
 
 
 def init_params(cfg, generator: torch.Generator, *, device="cuda"):
@@ -366,6 +419,34 @@ def init_cache(cfg, batch: int, max_len: int, *, device="cuda"):
             caches.append({"rglru": RG.init_rglru_cache(batch, cfg.d_model,
                                                         device=dev)})
     return caches
+
+
+def cache_axes(cfg) -> list:
+    """Logical sharding axes of every cache leaf, laid out as `init_cache`
+    (one dict per layer).
+
+    KV heads shard over the model axis when divisible (pruned otherwise —
+    MQA caches fall back to batch sharding); SSD/RG-LRU states shard their
+    head/feature dims.
+    """
+    def axes_for(kind):
+        if kind in ATTN_KINDS:
+            c = {"attn": {"k": ("kv_batch", "kv_seq", "kv_heads", None),
+                          "v": ("kv_batch", "kv_seq", "kv_heads", None),
+                          "len": ("kv_batch",)}}
+            if kind == "cross":
+                c["xattn"] = {"k": ("kv_batch", None, "kv_heads", None),
+                              "v": ("kv_batch", None, "kv_heads", None)}
+            return c
+        if kind == "rglru":
+            return {"rglru": {"conv": ("kv_batch", None, "mlp"),
+                              "h": ("kv_batch", "mlp")}}
+        if kind == "ssd":
+            return {"ssd": {"conv": ("kv_batch", None, None),
+                            "h": ("kv_batch", "heads", None, None)}}
+        raise ValueError(kind)
+
+    return [axes_for(key.split("_", 1)[1]) for key, _ in layer_keys(cfg)]
 
 
 @torch.no_grad()

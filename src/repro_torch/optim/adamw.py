@@ -10,8 +10,10 @@ Where the reference maps pure functions over pytrees, the port keys every
 leaf by parameter name (``model.named_parameters()``) and updates the
 state and the parameters in place, one leaf at a time: the float32
 temporaries of one leaf are all the update adds to the state, which matters
-at recurrentgemma-2b's 3.1 B parameters (37 GB of state).  The reference's
-``state_axes`` (ZeRO sharding specs) has no counterpart on one card.
+at recurrentgemma-2b's 3.1 B parameters (37 GB of state).  `state_axes`
+gives every state leaf's sharding spec (ZeRO: the parameters' layout), as
+the reference's does, for the dry-run stand-in (`launch.dryrun`); one card
+still shards nothing, so the state lives whole on the parameters' device.
 """
 
 from __future__ import annotations
@@ -39,6 +41,16 @@ def init(params: dict) -> AdamWState:
         v={n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
            for n, p in params.items()},
         master={n: p.detach().float().clone() for n, p in params.items()})
+
+
+def state_axes(param_axes_tree) -> AdamWState:
+    """Sharding specs for every state leaf (ZeRO: same layout as params).
+    Expects the parameters' PartitionSpecs keyed by name (from
+    `parallel.sharding.param_specs`)."""
+    from ..parallel.sharding import P
+
+    return AdamWState(step=P(), m=param_axes_tree, v=param_axes_tree,
+                      master=param_axes_tree)
 
 
 def global_norm(grads: dict) -> torch.Tensor:

@@ -7,7 +7,9 @@ outliers flag a straggling worker/link.  Mitigation escalates:
   1. "rebalance"  — shrink the straggler's data shard (gradient weighting
                     keeps the estimator unbiased);
   2. "checkpoint_evict" — checkpoint, drop the slow host, elastic-resume on
-                    the survivors (runtime.elastic picks the new mesh).
+                    the survivors (the port's `runtime.elastic` picks the
+                    new mesh; one card still shards nothing, so the port
+                    plans such a resize and runs none).
 
 The *decision threshold* is not a magic constant: the ESF fabric model
 quantifies what a degraded link does to a step (`estimate_step_impact`), and

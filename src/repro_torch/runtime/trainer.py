@@ -13,9 +13,11 @@ is exact).  Around the step: checkpoint save and auto-resume (atomic,
 async), straggler detection (`runtime.straggler`).
 
 Differences from the reference, each for one card:
-  * the mesh, ``ShardingRules``, ``set_mesh``, ``tree_as_shardings`` and
-    ``param_specs`` have no stand-in: the model and the optimizer state
-    live whole on ``device``, and nothing is sharded or donated;
+  * the mesh (`launch.mesh`), ``ShardingRules``, ``set_mesh`` and
+    ``param_specs`` (`parallel.sharding`) have their counterparts, but one
+    card still shards nothing: the trainer takes no mesh, the model and the
+    optimizer state live whole on ``device``, and nothing is sharded or
+    donated (``tree_as_shardings`` has none);
   * ``jax.jit`` has none either: the step runs eagerly, its kernels
     launched one by one;
   * the parameters are the model's own tensors, updated in place, so

@@ -160,8 +160,9 @@ def test_whisper_refusals_pinned_on_both_packages(whisper):
     """Neither package's slot server serves whisper (the reference's
     prefills with no frame embeddings and dies in `_run_encoder`), and an
     encoder-decoder prefill without frame embeddings is refused on both;
-    the port also refuses a decoder prompt longer than the encoder's
-    frames (cross attention takes S <= T)."""
+    a decoder prompt longer than the encoder's frames, which the port once
+    refused, runs its cross attention in blocks of T queries and equals the
+    reference's prefill and decode."""
     jcfg, params, cfg, model = whisper
     prompt = np.arange(1, 6, dtype=np.int32)
     with pytest.raises(AttributeError):
@@ -173,11 +174,11 @@ def test_whisper_refusals_pinned_on_both_packages(whisper):
         JTF.prefill(params, jcfg, jnp.asarray(prompt[None]), MAX_LEN)
     with pytest.raises(ValueError, match="frontend_embeds"):
         TF.prefill(model, torch.from_numpy(prompt[None]), MAX_LEN)
-    _, fe = frames(cfg, cfg.enc_frames)
-    with pytest.raises(ValueError, match="S <= T"):
-        TF.prefill(model, torch.zeros((B, cfg.enc_frames + 1),
-                                      dtype=torch.int64), MAX_LEN,
-                   frontend_embeds=fe)
+    fe_np, fe = frames(cfg, cfg.enc_frames)
+    n = 2 * cfg.enc_frames + 3
+    toks = np.random.default_rng(5).integers(
+        0, cfg.vocab, (B, n + 3)).astype(np.int32)
+    teacher_forced(jcfg, params, cfg, model, toks, n, fe_np, fe)
 
 
 def test_phi3v_prefill_and_decode_equal_reference(phi3v):

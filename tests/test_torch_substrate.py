@@ -21,7 +21,8 @@ Tolerances:
   within ``1e-2`` relative (bf16 training; the measured gaps are 2e-3 and
   2e-3), the learning rates exactly;
 * a checkpoint round trip and a resumed run (2 steps, a checkpoint, 2 more
-  in a fresh trainer) against 4 uninterrupted steps: bit for bit.
+  in a fresh trainer) against 4 uninterrupted steps: bit for bit;
+* the elastic mesh plans (`runtime.elastic`): field for field.
 """
 
 import contextlib
@@ -45,6 +46,7 @@ from repro.models import transformer as JTF  # noqa: E402
 from repro.optim import adamw as JA  # noqa: E402
 from repro.optim import grad_compress as JGC  # noqa: E402
 from repro.optim import schedules as JS  # noqa: E402
+from repro.runtime import elastic as JE  # noqa: E402
 from repro.runtime import trainer as JT  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
@@ -54,6 +56,7 @@ from repro_torch.models import convert as CV  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.optim import grad_compress as GC  # noqa: E402
 from repro_torch.optim import schedules  # noqa: E402
+from repro_torch.runtime import elastic  # noqa: E402
 from repro_torch.runtime.trainer import TrainConfig, Trainer  # noqa: E402
 from repro_torch.studies import quickstart, train_small_lm  # noqa: E402
 
@@ -498,3 +501,32 @@ def test_quickstart_prints_the_reference_example_on_the_cpu(monkeypatch):
     steps = got[len(fabric) + 1:-len(tune) - 1]
     assert [s.split()[:2] for s in steps] == [["step", "0"], ["step", "10"],
                                               ["step", "20"]]
+
+
+# ---------------------------------------------------------------------------
+# elastic mesh plans
+# ---------------------------------------------------------------------------
+
+def plan_fields(plan):
+    return (plan.shape, plan.axes, plan.usable_devices, plan.dropped_devices)
+
+
+@pytest.mark.parametrize("prefer_pods", (1, 2, 4))
+@pytest.mark.parametrize("model_cap", (8, 16))
+def test_choose_mesh_equals_reference(prefer_pods, model_cap):
+    for n in range(1, 1101):
+        kw = dict(model_cap=model_cap, prefer_pods=prefer_pods)
+        assert plan_fields(elastic.choose_mesh(n, **kw)) == \
+            plan_fields(JE.choose_mesh(n, **kw)), n
+
+
+@pytest.mark.parametrize("old_n, now_n, kw", [
+    (256, 256, {}), (512, 300, {"prefer_pods": 2}), (256, 129, {}),
+    (64, 1000, {"model_cap": 8, "prefer_pods": 4}), (1, 1, {})])
+def test_resize_plan_equals_reference(old_n, now_n, kw):
+    got = elastic.resize_plan(elastic.choose_mesh(old_n, **kw), now_n, **kw)
+    want = JE.resize_plan(JE.choose_mesh(old_n, **kw), now_n, **kw)
+    assert set(got) == set(want)
+    for f in ("old", "new"):
+        assert plan_fields(got[f]) == plan_fields(want[f]), f
+    assert got["action"] == want["action"] and got["steps"] == want["steps"]
