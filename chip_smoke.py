@@ -316,6 +316,20 @@ SSD_BWD_TOL = {"dx": 4e-3, "ddt": 1e-4, "da_log": 1e-3, "db": 1e-5,
 SSD_BWD_S = (1, 100, 128, 129, 421, 4096)
 SSD_BWD_DIMS = ((4, 16, 16), (4, 64, 128))
 # mamba2-1.3b's smoke config trained on the card: steps of one batch
+# the SSD kernels' chunk lengths beside the served 128: mamba2-1.3b's
+# `ssd_chunk` values in the reference's hillclimb
+# (src/repro/launch/hillclimb.py), each served, trained and held to its
+# plain version (phase 5k)
+SSD_CHUNKS_OTHER = (32, 64, 256)
+SSD_CHUNK_TRAIN_STEPS = 3
+# mamba2-1.3b's prefill at the other chunk lengths against the 128-step run
+# on the same weights: tokens, decode ticks after it, the depth of the stack
+# the logits are compared at, and the rule there (the worst position's
+# relative L2), fixed from a probe on the card (PERF.md §6)
+MAMBA_CHUNK_TOKENS = 4096
+MAMBA_CHUNK_TICKS = 4
+MAMBA_CHUNK_DEPTH = 1
+MAMBA_CHUNK_REL = 5e-2
 SSD_SMOKE_STEPS = 10
 SSD_SMOKE_BATCH = (2, 64)
 
@@ -1015,9 +1029,16 @@ COUPLED_N = 600
 # a step of each kind takes
 SF_BYTES_PER_STEP = 9 + 25
 SPIN_CYCLES = 200_000_000  # ~0.1 s of device spin at the H100's clocks
+PROFILE_MARKERS = 3  # spin kernels opening each profiler session
+
+
+# the script's start: each phase line carries its seconds since (``t_s``)
+_T0 = time.perf_counter()
 
 
 def emit(**obj):
+    if "phase" in obj:
+        obj["t_s"] = time.perf_counter() - _T0
     print(json.dumps(obj), flush=True)
 
 
@@ -1158,6 +1179,12 @@ def ptxas_summary(log):
             m = re.search(r"(\d+) bytes smem", line)
             if m:
                 cur["static_smem_bytes"] = int(m[1])
+    # ptxas's notes (C75xx, "wgmma.mma_async instructions are serialized"
+    # among them) name the function they are about
+    for k in out:
+        k["notes"] = sorted({m for line in log.splitlines()
+                             if k["kernel"] in line
+                             for m in re.findall(r"\((C75\d\d)\)", line)})
     return out
 
 
@@ -1165,12 +1192,19 @@ def profile_device(torch, fn, ops=()):
     """Device busy share of one call of ``fn``: kernel time summed by
     `torch.profiler` over the wall time of the same call, plus the kernels
     that took the most device time, and the calls and device time of each
-    PyTorch operator named in ``ops``."""
+    PyTorch operator named in ``ops``.  Refuses a profile with no device
+    activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the profiler loses the first device events of a session now and
+        # then (the first memset and walk kernel of ten SSD backward calls
+        # in about half the sessions of a probe on the card): three spin
+        # kernels take that loss and are left out of what is reported
+        for _ in range(PROFILE_MARKERS):
+            torch.cuda._sleep(100)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -1183,7 +1217,13 @@ def profile_device(torch, fn, ops=()):
 
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
+    markers = sum(e.count for e in kernels if "spin_kernel" in e.key)
+    kernels = [e for e in kernels if "spin_kernel" not in e.key]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    # a profile that saw no device work is a failed measurement, not an
+    # idle card: every profiled call here launches kernels
+    check(kernels and busy_ms > 0,
+          f"the profiler recorded no device activity in {wall_ms:.3f} ms")
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
 
     def total_dev_us(e):
@@ -1197,6 +1237,7 @@ def profile_device(torch, fn, ops=()):
             named[e.key]["device_ms"] += total_dev_us(e) / 1e3
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
+                markers_recorded=markers,
                 top_kernels=[dict(name=e.key[:100], ms=dev_us(e) / 1e3,
                                   calls=e.count) for e in top],
                 **({"operators": named} if ops else {}))
@@ -3246,7 +3287,7 @@ def manual_greedy_batch(torch, TF, model, prompts, n_new, max_len):
 
 def serve_model(np, torch, arch, prompts_len, max_len, kernels,
                 manual_prompts, forward_tokens, seed, *, batch_manual=False,
-                around_run=contextlib.nullcontext):
+                around_run=contextlib.nullcontext, after=None):
     """One model of the repo at its published width on the card, weights
     from a seeded generator, behind the slot server: one greedy request per
     prompt length, SERVE_NEW new tokens each, SERVE_SLOTS slots.
@@ -3257,8 +3298,9 @@ def serve_model(np, torch, arch, prompts_len, max_len, kernels,
     around the run alone.  Then the server against a manual prefill +
     decode loop (with ``batch_manual``, the first SERVE_SLOTS requests
     against `manual_greedy_batch` instead), prefill against forward, and a
-    device profile of the longest prefill and of one tick.  Returns the
-    launch counts."""
+    device profile of the longest prefill and of one tick; then
+    ``after(model)``, where given, on the same weights.  Returns the launch
+    counts."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as TF
     from repro_torch.runtime.server import Request, Server
@@ -3412,6 +3454,9 @@ def serve_model(np, torch, arch, prompts_len, max_len, kernels,
          workload="decode_tick_4_slots",
          **profile_device(torch, lambda: TF.decode_step(model, cache, tok,
                                                         tok)))
+    del cache
+    if after is not None:
+        after(model)
     return launches
 
 
@@ -3428,17 +3473,189 @@ def phase_model_serve(np, torch, FA, RK):
         seed=13)
 
 
-def phase_model_serve_mamba2(np, torch, SK):
+def phase_model_serve_mamba2(np, torch, SK, chunk_launches):
     """mamba2-1.3b at its published width: 8 requests of 1 to 16,384 prompt
     tokens (one chunk, a ragged tail, many chunks, the long prompt that
     ``sub_quadratic`` is for), every prefill through the tensor-core SSD
-    kernel (bf16; the CUDA-core one never)."""
+    kernel (bf16; the CUDA-core one never); then, on the same weights, its
+    prefill and ticks at the other chunk lengths (`mamba2_chunks_served`,
+    whose launches go into ``chunk_launches``)."""
     return serve_model(
         np, torch, MAMBA_ARCH, MAMBA_PROMPTS, MAMBA_MAX_LEN,
         {"ssd_chunk_tc": (SK.LAUNCHES, "ssd"),
          "ssd_chunk": (SK.LAUNCHES, None)},
         manual_prompts=(129, 4096), forward_tokens=SERVE_FORWARD_TOKENS,
-        seed=17)
+        seed=17, after=lambda model: chunk_launches.update(
+            mamba2_chunks_served(np, torch, SK, model)))
+
+
+@contextlib.contextmanager
+def dropped_hand_off(SO):
+    """While open, the SSD forward on the card runs every chunk of a
+    sequence of whole chunks from a zero state (the chunks as rows of one
+    call): every hand-off is lost, a planted fault that
+    `mamba2_chunks_served`'s rule must refuse.  (`ops.ssd_chunk` looks the
+    kernel up in its module at each call.)"""
+    kernel = SO.ssd_chunk_kernel
+
+    def faulty(x, dt, a_log, b, c, *, chunk=128, **kw):
+        bsz, s, h, p = x.shape
+        if s % chunk or s == chunk:
+            return kernel(x, dt, a_log, b, c, chunk=chunk, **kw)
+        rows = bsz * (s // chunk)
+        y, state = kernel(x.reshape(rows, chunk, h, p),
+                          dt.reshape(rows, chunk, h), a_log,
+                          b.reshape(rows, chunk, -1),
+                          c.reshape(rows, chunk, -1), chunk=chunk)
+        return y.reshape(x.shape), state.reshape(
+            bsz, -1, *state.shape[1:])[:, -1].contiguous()
+
+    SO.ssd_chunk_kernel = faulty
+    try:
+        yield
+    finally:
+        SO.ssd_chunk_kernel = kernel
+
+
+def worst_row_rel(torch, got, want):
+    """The largest relative L2 distance of one position's logits (the last
+    axis) between two runs."""
+    got, want = got.double(), want.double()
+    return float(((got - want).norm(dim=-1)
+                  / want.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def mamba2_chunks_served(np, torch, SK, model):
+    """mamba2-1.3b on the served model's weights at each `ssd_chunk` of
+    SSD_CHUNKS_OTHER (the chunk length changes no parameter).  (a) A
+    MAMBA_CHUNK_TOKENS-token prefill through all 48 layers, its SSD
+    launches counted (one ``ssd_chunk_tc`` a layer) with the counts set to
+    0 just before it, then MAMBA_CHUNK_TICKS decode ticks from its cache;
+    logits finite, their distance from the 128-step run recorded: from
+    seeded random weights the stack amplifies any rounding (relative L2 of
+    the last logits near 1 at full depth whatever the chunk length, PERF.md
+    §6), so no rule holds there.  (b) The stack cut to its first
+    MAMBA_CHUNK_DEPTH layers at full width: the forward's logits at every
+    position, and the ticks (fed the 128-step run's greedy tokens) after
+    its prefill, against the 128-step run's, each position within
+    MAMBA_CHUNK_REL in relative L2; a rule that must refuse the same run
+    with every chunk started from a zero state (`dropped_hand_off`).
+    Returns the launches of (a)."""
+    import dataclasses
+
+    from repro_torch.kernels.ssd_chunk import ops as SO
+    from repro_torch.models import transformer as TF
+
+    base, layers = model.cfg, model.layers
+    n_ssd = sum(key.split("_", 1)[1] == "ssd" for key, _ in model.keys)
+    rng = np.random.default_rng(71)
+    toks = torch.as_tensor(rng.integers(0, base.vocab,
+                                        (1, MAMBA_CHUNK_TOKENS)),
+                           device="cuda")
+    max_len = MAMBA_CHUNK_TOKENS + MAMBA_CHUNK_TICKS + 1
+    feed = []
+
+    def served(q, depth=None):
+        """(last logits, tick logits, launches, prefill ms) at chunk q."""
+        model.cfg = dataclasses.replace(base, ssd_chunk=q)
+        model.layers = layers if depth is None else layers[:depth]
+        SK.LAUNCHES["ssd_chunk_tc"] = SK.LAUNCHES["ssd_chunk"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = TF.prefill(model, toks, max_len)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(SK.LAUNCHES)
+        ticks, tok = [], logits.argmax(-1).to(torch.int32)
+        for i in range(MAMBA_CHUNK_TICKS):
+            if len(feed) < MAMBA_CHUNK_TICKS:
+                feed.append(tok)
+            pos = torch.full((1, 1), MAMBA_CHUNK_TOKENS + i,
+                             dtype=torch.int32, device="cuda")
+            lg, cache = TF.decode_step(model, cache, feed[i], pos)
+            ticks.append(lg)
+            tok = lg.argmax(-1).to(torch.int32)
+        return logits, ticks, launches, ms
+
+    def cut(q):
+        """Every position's logits and the ticks' of the cut stack."""
+        model.cfg = dataclasses.replace(base, ssd_chunk=q)
+        model.layers = layers[:MAMBA_CHUNK_DEPTH]
+        full = TF.forward(model, toks)
+        return full, served(q, MAMBA_CHUNK_DEPTH)[1]
+
+    try:
+        want, want_ticks, _, base_ms = served(128)
+        want_cut, want_cut_ticks = cut(128)
+        launches = {"ssd_chunk_tc": 0, "ssd_chunk": 0}
+        for q in SSD_CHUNKS_OTHER:
+            got, ticks, counts, ms = served(q)
+            for k, v in counts.items():
+                launches[k] += v
+            finite = all(bool(torch.isfinite(t).all()) for t in [got, *ticks])
+            got_cut, cut_ticks = cut(q)
+            rel = max(worst_row_rel(torch, got_cut, want_cut), *(
+                worst_row_rel(torch, a, b)
+                for a, b in zip(cut_ticks, want_cut_ticks)))
+            with dropped_hand_off(SO):
+                planted_cut, _ = cut(q)
+            planted = worst_row_rel(torch, planted_cut, want_cut)
+            emit(phase="mamba2_chunk_served", arch=base.name, chunk=q,
+                 tokens=MAMBA_CHUNK_TOKENS, layers=len(layers),
+                 prefill_ms=ms, prefill_ms_chunk_128=base_ms,
+                 ssd_chunk_tc_launches=counts["ssd_chunk_tc"],
+                 ssd_chunk_launches=counts["ssd_chunk"], finite=finite,
+                 full_depth_logits_rel_l2_vs_chunk_128=rel_l2(torch, got,
+                                                              want),
+                 full_depth_tick_logits_rel_l2=[
+                     rel_l2(torch, a, b) for a, b in zip(ticks, want_ticks)],
+                 cut_depth=MAMBA_CHUNK_DEPTH,
+                 cut_worst_position_rel_l2_vs_chunk_128=rel,
+                 rule=f"every position and tick of the cut stack within "
+                      f"{MAMBA_CHUNK_REL} relative L2",
+                 planted_every_chunk_from_zero_rel_l2=planted,
+                 planted_refused=planted > MAMBA_CHUNK_REL)
+            check(counts == {"ssd_chunk_tc": n_ssd, "ssd_chunk": 0},
+                  f"chunk {q}: a prefill launched {counts}, expected "
+                  f"{n_ssd} ssd_chunk_tc")
+            check(finite, f"chunk {q}: logits not finite")
+            check(rel <= MAMBA_CHUNK_REL,
+                  f"chunk {q}: the cut stack's logits {rel} from the "
+                  f"128-step run's (relative L2; rule {MAMBA_CHUNK_REL})")
+            check(planted > MAMBA_CHUNK_REL,
+                  f"chunk {q}: the rule passed a run with every chunk from "
+                  f"a zero state ({planted})")
+    finally:
+        model.cfg, model.layers = base, layers
+    return launches
+
+
+def ssd_chunks_training(torch, FA, RK):
+    """mamba2-1.3b trains on the card at each `ssd_chunk` of
+    SSD_CHUNKS_OTHER: one full-width period on PERIOD_TOKENS tokens against
+    the host CPU (each leaf within PERIOD_GRAD_REL), then
+    SSD_CHUNK_TRAIN_STEPS full-width steps of TRAIN_TOKENS tokens (every ssd
+    layer through the tensor-core forward twice a step and the backward
+    once, counted with the counts set to 0 before each run; losses and
+    gradient norms finite; host ms a step; peak memory).  Returns the
+    launches."""
+    total = {}
+    for q in SSD_CHUNKS_OTHER:
+        period = period_card_vs_cpu(torch, FA, RK, arch=MAMBA_ARCH, chunk=q)
+        run = train_full_width(torch, FA, RK, TRAIN_LR, profile=False,
+                               arch=MAMBA_ARCH, steps=SSD_CHUNK_TRAIN_STEPS,
+                               chunk=q)
+        for launches in (period, run.pop("launches")):
+            for name, n in launches.items():
+                total[name] = total.get(name, 0) + n
+        finite = all(math.isfinite(x)
+                     for x in run["losses"] + run["grad_norms"])
+        emit(phase="train_full_width", arch=MAMBA_ARCH, chunk=q,
+             tokens=TRAIN_TOKENS, steps=SSD_CHUNK_TRAIN_STEPS, finite=finite,
+             **run)
+        check(finite, f"mamba2 at chunk {q}: a loss or gradient norm is not "
+                      f"finite: {run['losses']} {run['grad_norms']}")
+    return total
 
 
 @contextlib.contextmanager
@@ -4144,7 +4361,7 @@ def expected_train_counts(cfg, steps):
             "ssd_chunk": 0, "ssd_chunk_bwd": ssd}
 
 
-def period_card_vs_cpu(torch, FA, RK, arch=MODEL_ARCH):
+def period_card_vs_cpu(torch, FA, RK, arch=MODEL_ARCH, chunk=None):
     """One period of ``arch`` at full width (recurrentgemma-2b: rglru,
     rglru, attn_local at d 2560, the embedding and tied head at vocab
     256,000; mamba2-1.3b: one ssd layer at d 2048, 64 heads x 64, state 128,
@@ -4154,7 +4371,8 @@ def period_card_vs_cpu(torch, FA, RK, arch=MODEL_ARCH):
     PERIOD_GRAD_REL in relative L2 norm, and every card gradient finite and
     not all zero (a kernel autograd did not see would leave its inputs'
     gradients zero or missing).  Then the card's step once more under the
-    profiler, its peak memory read around the first."""
+    profiler, its peak memory read around the first.  ``chunk``: the
+    config's `ssd_chunk`, where given."""
     import copy
     import dataclasses
 
@@ -4164,6 +4382,8 @@ def period_card_vs_cpu(torch, FA, RK, arch=MODEL_ARCH):
 
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=len(full.pattern))
+    if chunk is not None:
+        cfg = dataclasses.replace(cfg, ssd_chunk=chunk)
     cpu = TF.init_params(cfg, torch.Generator().manual_seed(41),
                          device="cpu")
     cpu.requires_grad_(True)
@@ -4209,7 +4429,8 @@ def period_card_vs_cpu(torch, FA, RK, arch=MODEL_ARCH):
     prof = profile_device(torch, lambda: run(card, "cuda"))
     launches = {n: c + train_counts(FA, RK)[n] - before[n]
                 for n, c in launches.items()}
-    emit(phase="train_period_card_vs_cpu", arch=arch, tokens=PERIOD_TOKENS,
+    emit(phase="train_period_card_vs_cpu", arch=arch,
+         ssd_chunk=getattr(cfg, "ssd_chunk", None), tokens=PERIOD_TOKENS,
          layers=[k for k, _ in card.keys], card_loss=card_loss,
          cpu_loss=cpu_loss, leaves=leaves, worst_leaf_rel_l2=worst,
          card_host_s=card_s, cpu_host_s=cpu_s, peak_bytes=peak,
@@ -4228,14 +4449,17 @@ def loss_rule(losses):
 
 def train_full_width(torch, FA, RK, lr, profile=True, arch=MODEL_ARCH,
                      smoke=False, batch=(1, TRAIN_TOKENS),
-                     steps=TRAIN_STEPS):
+                     steps=TRAIN_STEPS, chunk=None):
     """``arch`` at full width (recurrentgemma-2b: 26 layers, vocab 256,000;
     mamba2-1.3b: 48 ssd layers, vocab 50,280), or its smoke config,
     `Trainer.fit` for ``steps`` steps of ``batch`` = (rows, tokens) from
     `SyntheticLM`, at peak lr ``lr``: per-step loss, grad_norm and host ms,
     memory after the state is made and at the peak, each kernel
     direction's launches against the layers times the steps (with the
-    recompute), and the device profile of the step after the first."""
+    recompute), and the device profile of the step after the first.
+    ``chunk``: the config's `ssd_chunk`, where given."""
+    import dataclasses
+
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.runtime.trainer import TrainConfig, Trainer
@@ -4244,6 +4468,8 @@ def train_full_width(torch, FA, RK, lr, profile=True, arch=MODEL_ARCH,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg = (get_smoke_config if smoke else get_config)(arch)
+    if chunk is not None:
+        cfg = dataclasses.replace(cfg, ssd_chunk=chunk)
     trainer = Trainer(cfg, TrainConfig(
         steps=steps, peak_lr=lr, warmup_steps=TRAIN_WARMUP,
         log_every=steps, async_ckpt=False), device="cuda")
@@ -4274,7 +4500,8 @@ def train_full_width(torch, FA, RK, lr, profile=True, arch=MODEL_ARCH,
           f"{cfg.name}: {steps} train steps launched {launches}, expected "
           f"{want}")
     log = trainer.metrics_log
-    out = dict(config=cfg.name, batch_rows_tokens=list(batch), lr=lr,
+    out = dict(config=cfg.name, ssd_chunk=cfg.ssd_chunk,
+               batch_rows_tokens=list(batch), lr=lr,
                losses=[m["loss"] for m in log],
                grad_norms=[m["grad_norm"] for m in log],
                step_host_ms=[m["step_time_s"] * 1e3 for m in log],
@@ -4445,7 +4672,8 @@ def ssd_bwd_vs_plain(torch, SK, SKB, SR):
     mamba2-1.3b's 4,096-token layer (B 1, H 64) by launch (walk, grads,
     sum), by the walk's segment count and by group size, and at 16,384
     tokens, against the bound and the plain backward's time, the forward's
-    cost of writing the chunk states, and a profile of ten calls.  Returns
+    cost of writing the chunk states, and a profile of ten calls at each
+    chunk length (`ssd_bwd_profiles`).  Returns
     (the worst max abs error, the timing, the worst shares)."""
     gen = torch.Generator(device="cuda").manual_seed(53)
     names = tuple(SSD_BWD_TOL)
@@ -4461,7 +4689,7 @@ def ssd_bwd_vs_plain(torch, SK, SKB, SR):
             y0, state0 = SK.ssd_chunk_kernel(x, dt, a_log, bm, cm)
             fwd_same = bool(torch.equal(y, y0) and torch.equal(state, state0))
             seeds = [dstate, None] if (s, p) == (421, 16) else [dstate]
-            n_chunks = -(-s // SK.CHUNK)
+            n_chunks = -(-s // 128)
             groups = [None, 3] if s in (129, 421) and h == 4 else [None]
             for seed in seeds:
                 want = SR.ssd_chunk_bwd_plain(*(
@@ -4545,7 +4773,6 @@ def ssd_bwd_vs_plain(torch, SK, SKB, SR):
             x, dt, a_log, bm, cm, return_states=True), 20)[0],
         forward_ms=time_cuda(torch, lambda: SK.ssd_chunk_kernel(
             x, dt, a_log, bm, cm), 20)[0])
-    prof = profile_device(torch, lambda: [call() for _ in range(10)])
     del x, dy, states
     long = ssd_bwd_inputs(torch, gen, b, 16_384, h, p, n, True)
     _, _, states = SK.ssd_chunk_kernel(*long[:5], return_states=True)
@@ -4561,18 +4788,318 @@ def ssd_bwd_vs_plain(torch, SK, SKB, SR):
          "da_log, db, dc", host_ms_per_call=host_ms, bytes=nbytes,
          flops=flops, library="none: no PyTorch call computes an SSD chunk "
          "scan's gradient", **timing, **extra)
-    emit(phase="device_profile", workload="ssd_chunk_bwd_x10", **prof)
-    # the profiler has recorded no device activity at this point of the
-    # script in some runs (as for the flash backward, PR 30); where it
-    # does, the call is its three kernels (walk, grads, sum) and a memset
-    check(not prof["top_kernels"] or (
-        sum(k["calls"] for k in prof["top_kernels"]
-            if "ssd_bwd" in k["name"]) == 30
-        and all("ssd_bwd" in k["name"] or k["name"].startswith("Memset")
-                for k in prof["top_kernels"])),
-          f"ssd_chunk_bwd is not three kernels a call: "
-          f"{prof['top_kernels']}")
+    # ten calls at each chunk length under the profiler, in a process of
+    # its own: each call is its three kernels (walk, grads, sum) and a
+    # memset
+    ssd_bwd_profiles()
     return worst_abs, timing, worst
+
+
+# ---------------------------------------------------------------------------
+# phase 5k: the SSD kernels at every chunk length
+# ---------------------------------------------------------------------------
+
+# the SSD backward's device profile, ten calls at each chunk length at
+# mamba2-1.3b's layer, taken in a process of its own: in the whole script's
+# process the profiler recorded no device activity at this point in
+# earlier runs (as for the flash backward, which is timed with CUDA
+# events), though it did before and after
+SSD_BWD_PROFILE_SCRIPT = r"""
+import json, sys
+import torch
+import chip_smoke as CS
+from repro_torch.kernels.ssd_chunk import kernel as SK, kernel_bwd as SKB
+
+gen = torch.Generator(device="cuda").manual_seed(59)
+b, s, h, p, n = CS.SSD_SHAPE
+out = {}
+for q in SK.CHUNKS:
+    args = CS.ssd_bwd_inputs(torch, gen, b, s, h, p, n, True)
+    _, _, states = SK.ssd_chunk_kernel(*args[:5], chunk=q,
+                                       return_states=True)
+
+    def call():
+        return SKB.ssd_chunk_bwd_kernel(*args, states, chunk=q)
+
+    call()
+    torch.cuda.synchronize()
+    out[q] = CS.profile_device(torch, lambda: [call() for _ in range(10)])
+    del args, states
+print("PROFILES", json.dumps(out), flush=True)
+"""
+
+
+def ssd_bwd_profiles():
+    """{chunk: `profile_device` of ten SSD backward calls at mamba2-1.3b's
+    layer} from a subprocess (SSD_BWD_PROFILE_SCRIPT), each required to be
+    the three kernels a call (30 ``ssd_bwd_*`` calls) and memsets alone."""
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(ROOT), str(ROOT / "src")]))
+    done = subprocess.run([sys.executable, "-c", SSD_BWD_PROFILE_SCRIPT],
+                          capture_output=True, text=True, env=env,
+                          timeout=600, cwd=str(ROOT))
+    lines = [x for x in done.stdout.splitlines() if x.startswith("PROFILES ")]
+    check(done.returncode == 0 and lines,
+          f"the SSD backward's profile subprocess failed: "
+          f"{done.stderr[-2000:]}")
+    profs = {int(q): v for q, v in json.loads(lines[-1][9:]).items()}
+    for q, prof in sorted(profs.items()):
+        emit(phase="device_profile", workload="ssd_chunk_bwd_x10", chunk=q,
+             process="its own", **prof)
+        check(sum(k["calls"] for k in prof["top_kernels"]
+                  if "ssd_bwd" in k["name"]) == 30
+              and all("ssd_bwd" in k["name"] or k["name"].startswith("Memset")
+                      for k in prof["top_kernels"]),
+              f"ssd_chunk_bwd at chunk {q} is not three kernels a call: "
+              f"{prof['top_kernels']}")
+    return profs
+
+
+def ssd_chunk_lengths(q):
+    """S at chunk length ``q``: a sequence shorter than a chunk, one chunk,
+    the ragged tails 129 and 421, two chunks and a ragged tail."""
+    return sorted({max(1, q - 3), q, 129, 421, 2 * q + 5})
+
+
+def ssd_fwd_case(torch, SK, SR, args, dtype, q, segments=None):
+    """One forward call at chunk ``q`` against the plain version: (the
+    worst ratio to SSD_TOL, max abs errors of y and the state, whether
+    every check held).  A tensor-core call is made twice, bit-equal, and
+    with its chunk states, whose y and state must equal the served call's
+    bit for bit; each call is counted on its kernel."""
+    x, dt, a_log, bm, cm = (t.to(dtype) if i in (0, 3, 4) else t
+                            for i, t in enumerate(args))
+    p, n = x.shape[-1], bm.shape[-1]
+    name = ("ssd_chunk_tc" if SK.uses_tensor_cores(dtype, p, n)
+            else "ssd_chunk")
+    before = dict(SK.LAUNCHES)
+    y, state = SK.ssd_chunk_kernel(x, dt, a_log, bm, cm, chunk=q,
+                                   segments=segments)
+    counted = ({k: SK.LAUNCHES[k] - before[k] for k in before}
+               == {k: int(k == name) for k in before})
+    want = SR.ssd_chunk_ref(x, dt, a_log, bm, cm, chunk=q).float()
+    want_state = SR.ssd_final_state(x, dt, a_log, bm, chunk=q)
+    same = True
+    if name == "ssd_chunk_tc":
+        y2, state2 = SK.ssd_chunk_kernel(x, dt, a_log, bm, cm, chunk=q,
+                                         segments=segments)
+        y3, state3, _ = SK.ssd_chunk_kernel(x, dt, a_log, bm, cm, chunk=q,
+                                            segments=segments,
+                                            return_states=True)
+        same = all(torch.equal(u, v) for u, v in ((y, y2), (state, state2),
+                                                  (y, y3), (state, state3)))
+    torch.cuda.synchronize()
+    atol, rtol = SSD_TOL
+    extra = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    gy = y.float()
+    ratio = max(float(((gy - want).abs() / (
+        atol + (rtol + extra) * want.abs())).max()),
+        float(((state - want_state).abs() / (
+            atol + rtol * want_state.abs())).max()))
+    ok = (counted and same and ratio <= 1 and y.dtype == dtype
+          and bool(torch.isfinite(gy).all()))
+    return name, ratio, float((gy - want).abs().max()), \
+        float((state - want_state).abs().max()), ok
+
+
+def ssd_chunks_vs_plain(torch, SK, SKB, SR):
+    """Every SSD kernel at each chunk length of SSD_CHUNKS_OTHER against its
+    plain version at that chunk length.  The forward: S from
+    `ssd_chunk_lengths` at B 1 and 2 at mamba2-1.3b's width (H 64, P 64, N
+    128), the smoke config's (4, 16, 16) and ragged (3, 24, 40), both input
+    families, float32 (the CUDA-core kernel) and bf16 (the tensor-core
+    one), the tensor-core one at its default segments and at 1, 2 and 4
+    (at most one a chunk), within SSD_TOL, two calls bit-equal and the
+    chunk states' instance equal to the served one.  The backward: the same
+    S at B 2 for the smoke and full widths and mamba2-1.3b's layer at S
+    4,096, both families, 1, 2 and 3 walk segments, groups of 3 heads at S
+    129 and 421, with and without dstate, within SSD_BWD_TOL of the float64
+    plain backward at that chunk length, two calls bit-equal.  Returns
+    {kernel: {chunk: worst max abs error}} and the worst shares of the
+    backward's tolerance by chunk."""
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    worst = {k: {} for k in ("ssd_chunk_tc", "ssd_chunk", "ssd_chunk_bwd")}
+    ratios, shares, failed, cases = {}, {}, [], 0
+    names = tuple(SSD_BWD_TOL)
+    for q in SSD_CHUNKS_OTHER:
+        lens = ssd_chunk_lengths(q)
+        shapes = [(b, s, 64, 64, 128) for s in lens for b in (1, 2)]
+        shapes += [(2, s, 4, 16, 16) for s in lens]
+        shapes += [(2, s, 3, 24, 40) for s in lens[1::2]]
+        for b, s, h, p, n in shapes:
+            for model_like in (False, True):
+                args = ssd_inputs(torch, gen, b, s, h, p, n, model_like)
+                runs = [(torch.float32, None), (torch.bfloat16, None)]
+                if (b, h) == (1, 64):
+                    runs += [(torch.bfloat16, k) for k in (1, 2, 4)
+                             if k <= -(-s // q)]
+                for dtype, seg in runs:
+                    name, r, ey, es, ok = ssd_fwd_case(torch, SK, SR, args,
+                                                       dtype, q, seg)
+                    cases += 1
+                    w = worst[name].setdefault(q, 0.0)
+                    worst[name][q] = max(w, ey, es)
+                    ratios[(name, q)] = max(ratios.get((name, q), 0.0), r)
+                    if not ok:
+                        failed.append(dict(kernel=name, chunk=q,
+                                           shape=[b, s, h, p, n],
+                                           model_like=model_like,
+                                           segments=seg, ratio=r))
+        bwd_cases = [(2, s, h, p, n) for h, p, n in SSD_BWD_DIMS
+                     for s in lens] + [(2, 4096, 64, 64, 128)]
+        for b, s, h, p, n in bwd_cases:
+            for model_like in (False, True):
+                x, dt, a_log, bm, cm, dy, dstate = ssd_bwd_inputs(
+                    torch, gen, b, s, h, p, n, model_like)
+                _, _, states = SK.ssd_chunk_kernel(x, dt, a_log, bm, cm,
+                                                   chunk=q,
+                                                   return_states=True)
+                n_chunks = -(-s // q)
+                seeds = [dstate, None] if s == 421 else [dstate]
+                groups = [None, 3] if s in (129, 421) and h == 4 else [None]
+                for seed in seeds:
+                    want = SR.ssd_chunk_bwd_plain(*(
+                        t.double() for t in (x, dt, a_log, bm, cm, dy)),
+                        None if seed is None else seed.double(), chunk=q)
+                    for seg in sorted({min(k, n_chunks) for k in (1, 2, 3)}):
+                        for grp in groups:
+                            before = SKB.BWD_LAUNCHES["ssd_chunk_bwd"]
+                            got = SKB.ssd_chunk_bwd_kernel(
+                                x, dt, a_log, bm, cm, dy, seed, states,
+                                chunk=q, segments=seg, group=grp)
+                            again = SKB.ssd_chunk_bwd_kernel(
+                                x, dt, a_log, bm, cm, dy, seed, states,
+                                chunk=q, segments=seg, group=grp)
+                            counted = (SKB.BWD_LAUNCHES["ssd_chunk_bwd"]
+                                       - before == 2)
+                            torch.cuda.synchronize()
+                            cases += 1
+                            same = all(torch.equal(u, v)
+                                       for u, v in zip(got, again))
+                            finite = all(bool(torch.isfinite(g).all())
+                                         for g in got)
+                            share = {k: rel_l2(torch, g, w) / SSD_BWD_TOL[k]
+                                     for k, g, w in zip(names, got, want)}
+                            err = max(float((g.double() - w).abs().max())
+                                      for g, w in zip(got, want))
+                            worst["ssd_chunk_bwd"][q] = max(
+                                worst["ssd_chunk_bwd"].get(q, 0.0), err)
+                            fam = shares.setdefault(q, dict.fromkeys(names,
+                                                                     0.0))
+                            for k in names:
+                                fam[k] = max(fam[k], share[k])
+                            if not (max(share.values()) <= 1 and same
+                                    and counted and finite):
+                                failed.append(dict(
+                                    kernel="ssd_chunk_bwd", chunk=q,
+                                    shape=[b, s, h, p, n],
+                                    model_like=model_like, segments=seg,
+                                    group=grp, dstate=seed is not None,
+                                    shares=share, two_calls_bit_equal=same,
+                                    counted=counted, finite=finite))
+                del x, dy, states, want
+    for (name, q), r in sorted(ratios.items()):
+        emit(phase="kernel_vs_plain", kernel=name, chunk=q,
+             max_abs_err=worst[name][q], worst_ratio_to_tolerance=r,
+             tolerance=f"SSD_TOL {SSD_TOL} (atol, rtol)")
+    for q, share in sorted(shares.items()):
+        emit(phase="kernel_vs_plain", kernel="ssd_chunk_bwd", chunk=q,
+             max_abs_err=worst["ssd_chunk_bwd"][q], share_of_tolerance=share,
+             tolerance={k: f"{v} relative L2"
+                        for k, v in SSD_BWD_TOL.items()})
+    for f in failed:
+        emit(phase="kernel_vs_plain_failed", **f)
+    check(not failed, f"the SSD kernels != plain at other chunk lengths in "
+                      f"{len(failed)} of {cases} cases")
+    emit(phase="kernel_vs_plain", kernel="ssd_chunk (all)",
+         chunks=list(SSD_CHUNKS_OTHER), cases=cases,
+         two_calls_bit_equal=True, states_instance_equal_to_served=True)
+    return worst, shares
+
+
+def ssd_instances(SK, SKB, _build):
+    """{chunk: [ptxas's registers, spills and notes of each kernel
+    instance]} for the three SSD sources, parsed from this run's build log
+    (the template's first argument is the chunk length)."""
+    out = {}
+    for src in (SK._SOURCE, SK._SOURCE_TC, SKB._SOURCE):
+        log = _build.LOGS.get(src)
+        if not log:
+            continue
+        for k in ptxas_summary(log):
+            m = re.search(r"ILi(\d+)E", k["kernel"])
+            if m:
+                out.setdefault(int(m[1]), []).append(k)
+    return out
+
+
+def ssd_chunks_timing(torch, SK, SKB, SR, _build):
+    """Each chunk length's kernels at mamba2-1.3b's layer (x (1, 4096, 64,
+    64), b and c (1, 4096, 128) bf16, dt float32) and at 16,384 tokens: the
+    forward, the forward writing its chunk states, the backward and its
+    three launches, each against its bound at that chunk length and the
+    plain version's time (4,096 tokens); the float32 kernel at 4,096; and
+    ptxas's registers, spills and notes for every instance, none of which
+    may spill or serialize its wgmma (C7511, C7512, C7515, C7520)."""
+    gen = torch.Generator(device="cuda").manual_seed(67)
+    b, s, h, p, n = SSD_SHAPE
+    instances = ssd_instances(SK, SKB, _build)
+    out = {}
+    for q in SK.CHUNKS:
+        row = {}
+        for tokens in (s, 16_384):
+            x, dt, a_log, bm, cm, dy, dstate = ssd_bwd_inputs(
+                torch, gen, b, tokens, h, p, n, True)
+            args5 = (x, dt, a_log, bm, cm)
+            _, _, states = SK.ssd_chunk_kernel(*args5, chunk=q,
+                                               return_states=True)
+            sfx = "" if tokens == s else f"_s{tokens}"
+            row["forward_ms" + sfx] = time_cuda(
+                torch, lambda: SK.ssd_chunk_kernel(*args5, chunk=q), 20)[0]
+            row["forward_with_states_ms" + sfx] = time_cuda(
+                torch, lambda: SK.ssd_chunk_kernel(
+                    *args5, chunk=q, return_states=True), 20)[0]
+            row["backward_ms" + sfx] = time_cuda(
+                torch, lambda: SKB.ssd_chunk_bwd_kernel(
+                    *args5, dy, dstate, states, chunk=q), 10)[0]
+            row["backward_launch_ms" + sfx] = ssd_bwd_launch_ms(
+                torch, SKB, (*args5, dy, dstate, states), chunk=q)
+            row["forward_bound_ms" + sfx] = ssd_bound_ms(
+                b, tokens, h, p, n, 2, chunk=q)[0]
+            row["backward_bound" + sfx] = ssd_bwd_bound_ms(
+                b, tokens, h, p, n, chunk=q)[:2]
+            if tokens == s:
+                row["forward_bytes"], row["forward_flops"] = ssd_bound_ms(
+                    b, s, h, p, n, 2, chunk=q)[2:]
+                row["forward_plain_ms"] = time_cuda(torch, lambda: (
+                    SR.ssd_chunk_ref(*args5, chunk=q),
+                    SR.ssd_final_state(*args5[:4], chunk=q)), 3)[0]
+                row["backward_plain_ms"] = time_cuda(
+                    torch, lambda: SR.ssd_chunk_bwd_plain(
+                        *args5, dy, dstate, chunk=q), 3)[0]
+                row["segments"] = SK.segment_count(b, h, s, q)
+                row["walk_segments"] = SKB.walk_segments(b, h, s, q)
+                row["group"] = SKB.head_group(b, h, s, q)
+                f32 = [t.float() if i in (0, 3, 4) else t
+                       for i, t in enumerate(args5)]
+                row["float32_kernel_ms"] = time_cuda(
+                    torch, lambda: SK.ssd_chunk_kernel(*f32, chunk=q), 5)[0]
+                row["float32_bound_ms"] = ssd_bound_ms(b, s, h, p, n, 4,
+                                                       chunk=q)[0]
+                del f32
+            del x, dy, states, args5
+        row["ptxas"] = instances.get(q, "built before this run")
+        emit(phase="kernel_timing", kernel="ssd_chunk (by chunk)", chunk=q,
+             B=b, S=s, H=h, P=p, N=n,
+             dtype="bf16 x, b, c, dy; float32 dt, state", **row)
+        if isinstance(row["ptxas"], list):
+            bad = [k["kernel"] for k in row["ptxas"]
+                   if k.get("spill_store_bytes") or k.get("spill_load_bytes")
+                   or set(k["notes"]) & {"C7511", "C7512", "C7515",
+                                         "C7520"}]
+            check(not bad, f"ptxas spilled or serialized wgmma in {bad}")
+        out[q] = row
+    return out
 
 
 def ssd_training_on_card(torch, FA, RK):
@@ -4712,6 +5239,7 @@ def phase_training(torch, FA, FAR, RK, RR, SK, SKB, SR):
     add(train_counts(FA, RK))
     add(small_training_on_card(torch, FA, RK))
     add(ssd_training_on_card(torch, FA, RK))
+    add(ssd_chunks_training(torch, FA, RK))
     emit(phase="training", host_s=time.perf_counter() - t0,
          kernel_checks_s=kernels_s, **{f"{n}_launches": c
                                        for n, c in total.items()})
@@ -5049,10 +5577,12 @@ def main() -> int:
                       (FAB._SOURCE, {f"D{d}": FAB._lib_bwd(
                           ).flash_attention_bwd_smem(d) for d in (64, 128,
                                                                   256)}),
-                      (SK._SOURCE_TC, SK._lib_tc().ssd_chunk_tc_smem()),
-                      (SKB._SOURCE, {
-                          "walk": SKB._lib_bwd().ssd_chunk_bwd_walk_smem(),
-                          "grads": SKB._lib_bwd().ssd_chunk_bwd_smem()}),
+                      (SK._SOURCE_TC, {f"Q{q}": SK._lib_tc(
+                          ).ssd_chunk_tc_smem(q) for q in SK.CHUNKS}),
+                      (SKB._SOURCE, {f"Q{q}": {
+                          "walk": SKB._lib_bwd().ssd_chunk_bwd_walk_smem(q),
+                          "grads": SKB._lib_bwd().ssd_chunk_bwd_smem(q)}
+                          for q in SK.CHUNKS}),
                       (SFK._SOURCE, {"opt_in_limit": SFK._lib(
                           ).sf_scan_max_smem(0)})):
         log = _build.LOGS.get(src)
@@ -5074,6 +5604,13 @@ def main() -> int:
         torch, FA, FAR)
     worst_rglru, rglru_timing = phase_rglru_vs_plain(torch, RK, RR)
     worst_ssd, ssd_timings = phase_ssd_vs_plain(torch, SK, SR)
+    # phase 5k: the SSD kernels at the other chunk lengths against their
+    # plain versions, and every chunk length's times and ptxas output
+    t0 = time.perf_counter()
+    worst_chunks, chunk_bwd_shares = ssd_chunks_vs_plain(torch, SK, SKB, SR)
+    chunk_timings = ssd_chunks_timing(torch, SK, SKB, SR, _build)
+    emit(phase="ssd_chunks_kernels", chunks=list(SK.CHUNKS),
+         host_s=time.perf_counter() - t0)
     worst_sf = phase_sf_vs_plain(np, torch, PS, SFK, SFR)
     err, sf_time = sf_timing(np, torch, PS, SFK, SFR)
     worst_sf = max(worst_sf, err)
@@ -5444,8 +5981,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phase 9: mamba2-1.3b at full width (the SSD chunk kernel's path)
-    ssd_launches = phase_model_serve_mamba2(np, torch, SK)
+    # phase 9: mamba2-1.3b at full width (the SSD chunk kernel's path), and
+    # on its weights at the other chunk lengths (phase 5k)
+    chunk_launches = {}
+    ssd_launches = phase_model_serve_mamba2(np, torch, SK, chunk_launches)
     check(ssd_launches["ssd_chunk_tc"] > 0,
           "the served model never launched ssd_chunk_tc")
 
@@ -5580,11 +6119,23 @@ def main() -> int:
         *[dict(name=name, route="cuda",
                source=f"src/repro_torch/kernels/ssd_chunk/csrc/{name}.cu",
                replaces="src/repro/kernels/ssd_chunk/kernel.py:82",
-               launches=ssd_launches[name] + train_launches[name],
-               max_abs_err=worst_ssd[name],
-               **ssd_timings[name],
+               launches=ssd_launches[name] + train_launches[name]
+               + chunk_launches[name],
+               max_abs_err=max(worst_ssd[name],
+                               *worst_chunks[name].values()),
+               **ssd_timings[name], chunks=list(SK.CHUNKS),
+               max_abs_err_by_chunk={128: worst_ssd[name],
+                                     **worst_chunks[name]},
+               by_chunk={q: {k: t[k] for k in (
+                   ("forward_ms", "forward_with_states_ms",
+                    "forward_bound_ms", "forward_plain_ms",
+                    "forward_ms_s16384", "forward_bound_ms_s16384")
+                   if name == "ssd_chunk_tc"
+                   else ("float32_kernel_ms", "float32_bound_ms"))}
+                   for q, t in chunk_timings.items()},
                shape=f"x (1, 4096, 64, 64) {dtype}, b and c (1, 4096, 128) "
-                     f"{dtype}, dt (1, 4096, 64) float32")
+                     f"{dtype}, dt (1, 4096, 64) float32; chunk 128 unless "
+                     f"by_chunk")
           for name, dtype in (("ssd_chunk_tc", "bf16"),
                               ("ssd_chunk", "float32"))],
         dict(name="ssd_chunk_bwd", route="cuda",
@@ -5593,8 +6144,16 @@ def main() -> int:
              replaces="src/repro/kernels/ssd_chunk/kernel.py:82",
              role="the gradient of that kernel (the TPU kernel has none)",
              launches=train_launches["ssd_chunk_bwd"],
-             max_abs_err=worst_ssd_bwd, share_of_tolerance=ssd_bwd_shares,
-             **ssd_bwd_timing,
+             max_abs_err=max(worst_ssd_bwd,
+                             *worst_chunks["ssd_chunk_bwd"].values()),
+             share_of_tolerance=ssd_bwd_shares,
+             **ssd_bwd_timing, chunks=list(SK.CHUNKS),
+             share_of_tolerance_by_chunk=chunk_bwd_shares,
+             by_chunk={q: {k: t[k] for k in (
+                 "backward_ms", "backward_launch_ms", "backward_bound",
+                 "backward_plain_ms", "backward_ms_s16384",
+                 "backward_bound_s16384")}
+                 for q, t in chunk_timings.items()},
              shape="x and dy (1, 4096, 64, 64) bf16, b and c (1, 4096, 128) "
                    "bf16, dt (1, 4096, 64) float32")])
 

@@ -23,8 +23,11 @@
 // When S fits one chunk, one launch does all of it (phase 3 with no
 // incoming state, then the chunk's state as the final state).
 //
-// The chunk is Q = 128 steps; the tail chunk is masked (its missing steps
-// are zeros, which neither decay nor contribute), so any S >= 1 is taken.
+// One instance per chunk length Q of CHUNKS (32, 64, 128, 256), Q a
+// template argument; the tail chunk is masked (its missing steps are zeros,
+// which neither decay nor contribute), so any S >= 1 is taken.  At Q = 256
+// the score tiles are 16 query rows and, in float32, C is read from the L2
+// rather than staged (x and B alone take 193 KB of shared memory there).
 // Products run in float32 FMA on the CUDA cores from shared memory: a block
 // is 16 x 16 threads and each thread owns a strided register tile of its
 // output (rows ty + 16 a, columns tx + 16 b), so a warp's loads are one
@@ -54,17 +57,25 @@
 
 namespace {
 
-constexpr int Q = 128;        // chunk length
 constexpr int TX = 16;        // threads per block: TX x TX
 constexpr int THREADS = TX * TX;
-constexpr int RT = 32;        // query rows per score tile
 constexpr int MAX_P = 64;
 constexpr int MAX_N = 128;
 constexpr int PA = MAX_P / TX;  // P columns (or rows) per thread
 constexpr int NB = MAX_N / TX;  // N columns per thread
-constexpr int QA = Q / TX;      // query rows per thread
-constexpr int JC = Q / TX;      // key columns per thread in a score tile
-constexpr int RA = RT / TX;     // query rows per thread in a score tile
+
+// the instance for chunks of Q steps: query rows per score tile (16 at Q =
+// 256, whose x, B and score tile would not fit with 32), and whether C is
+// staged in shared memory (not for float32 at Q = 256: x and B alone take
+// 193 KB there; its rows are read from the L2)
+template <int Q, typename T>
+struct Shape {
+  static constexpr int RT = Q > 128 ? 16 : 32;
+  static constexpr bool STAGE_C = !(Q > 128 && sizeof(T) == 4);
+  static constexpr int QA = Q / TX;       // query rows per thread
+  static constexpr int JC = Q / TX;       // key columns per thread in a tile
+  static constexpr int RA = RT / TX;      // query rows per thread in a tile
+};
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -87,10 +98,11 @@ __host__ __device__ inline size_t align16(size_t v) {
 }
 
 // shared-memory layout (byte offsets), the same on host and device
-template <typename T>
+template <int Q, typename T>
 struct Layout {
   size_t dts, cs, ecs, wrest, xs, r, cs_tile, ss, total;
   __host__ __device__ Layout(bool with_y, int p, int n) {
+    constexpr int RT = Shape<Q, T>::RT;
     const size_t bc = static_cast<size_t>(Q) * row_stride<T>(n) * sizeof(T);
     const size_t st = static_cast<size_t>(n) * (p + 1) * sizeof(float);
     dts = 0;
@@ -102,7 +114,7 @@ struct Layout {
     // r holds B (T, padded rows), or the transposed state (float) first
     const size_t r_bytes = bc > st ? bc : st;
     cs_tile = align16(r + r_bytes);
-    ss = with_y ? align16(cs_tile + bc) : cs_tile;
+    ss = with_y && Shape<Q, T>::STAGE_C ? align16(cs_tile + bc) : cs_tile;
     total = with_y ? ss + static_cast<size_t>(RT) * (Q + 1) * sizeof(float)
                    : cs_tile;
   }
@@ -110,7 +122,7 @@ struct Layout {
 
 // rows [0, Q) x cols [0, cols) of a row-major global matrix into shared
 // memory with row stride ld; rows >= valid are zero
-template <typename T>
+template <int Q, typename T>
 __device__ void load_rows(T* dst, int ld, const T* src, long long stride,
                           int valid, int cols) {
   for (int e = threadIdx.x; e < Q * cols; e += THREADS) {
@@ -123,7 +135,7 @@ __device__ void load_rows(T* dst, int ld, const T* src, long long stride,
 // contribution (to `states`, with its decay, or to `final_state` when the
 // sequence is one chunk).  Y: the chunk's output, with the incoming state
 // read from `states` for every chunk but the first.
-template <typename T, bool Y, bool STATE>
+template <int Q, typename T, bool Y, bool STATE>
 __global__ void __launch_bounds__(THREADS)
 ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ a_log, const T* __restrict__ bm,
@@ -131,8 +143,11 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                  float* __restrict__ states, float* __restrict__ decay,
                  float* __restrict__ final_state, int s, int h, int p,
                  int n) {
+  constexpr int RT = Shape<Q, T>::RT, QA = Shape<Q, T>::QA;
+  constexpr int JC = Shape<Q, T>::JC, RA = Shape<Q, T>::RA;
+  constexpr bool STAGE_C = Shape<Q, T>::STAGE_C;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout<T> lay(Y, p, n);
+  const Layout<Q, T> lay(Y, p, n);
   float* dts = reinterpret_cast<float*>(smem + lay.dts);
   float* cs = reinterpret_cast<float*>(smem + lay.cs);
   float* ecs = reinterpret_cast<float*>(smem + lay.ecs);
@@ -152,7 +167,8 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const long long bh = bi * h + hh;
 
   // dt of the chunk's steps (0 past the end)
-  if (tid < Q) dts[tid] = tid < len ? dt[(bi * s + t0 + tid) * h + hh] : 0.f;
+  for (int j = tid; j < Q; j += THREADS)
+    dts[j] = j < len ? dt[(bi * s + t0 + j) * h + hh] : 0.f;
   __syncthreads();
 
   // cs: one thread walks the chunk in order, one float32 add a step, as
@@ -176,10 +192,13 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                     : 0.f;
   }
   const T* bsrc = bm + (bi * s + t0) * static_cast<long long>(n);
-  if (Y) {
-    load_rows(cs_t, ldb, cm + (bi * s + t0) * static_cast<long long>(n), n,
-              len, n);
-  }
+  const T* csrc = cm + (bi * s + t0) * static_cast<long long>(n);
+  // C's element (row i, column k) from shared memory, or from the L2
+  auto c_at = [&](int i, int k) {
+    if constexpr (STAGE_C) return to_f(cs_t[i * ldb + k]);
+    else return i < len ? to_f(csrc[static_cast<long long>(i) * n + k]) : 0.f;
+  };
+  if (Y && STAGE_C) load_rows<Q>(cs_t, ldb, csrc, n, len, n);
   if (state_in) {
     // the incoming state (P, N), transposed to (N, P + 1)
     const float* sp = states + (bh * nc + c) * static_cast<long long>(p) * n;
@@ -188,12 +207,12 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       st[nn * (p + 1) + pp] = sp[e];
     }
   } else {
-    load_rows(bs, ldb, bsrc, n, len, n);
+    load_rows<Q>(bs, ldb, bsrc, n, len, n);
   }
   __syncthreads();
-  if (tid < Q) {
-    ecs[tid] = expf(cs[tid]);
-    wrest[tid] = expf(cs[Q - 1] - cs[tid]);
+  for (int j = tid; j < Q; j += THREADS) {
+    ecs[j] = expf(cs[j]);
+    wrest[j] = expf(cs[Q - 1] - cs[j]);
   }
   __syncthreads();
 
@@ -213,8 +232,7 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       for (int k = 0; k < n; ++k) {
         float cv[QA], sv[PA];
 #pragma unroll
-        for (int a = 0; a < QA; ++a)
-          cv[a] = to_f(cs_t[(ty + TX * a) * ldb + k]);
+        for (int a = 0; a < QA; ++a) cv[a] = c_at(ty + TX * a, k);
 #pragma unroll
         for (int b = 0; b < PA; ++b) sv[b] = st[k * (p + 1) + pcol[b]];
 #pragma unroll
@@ -228,7 +246,7 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
         for (int b = 0; b < PA; ++b) acc[a][b] *= ecs[ty + TX * a];
       __syncthreads();
-      load_rows(bs, ldb, bsrc, n, len, n);
+      load_rows<Q>(bs, ldb, bsrc, n, len, n);
       __syncthreads();
     }
 
@@ -248,8 +266,7 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         for (int k = 0; k < n; ++k) {
           float cv[RA];
 #pragma unroll
-          for (int a = 0; a < RA; ++a)
-            cv[a] = to_f(cs_t[(i0 + ty + TX * a) * ldb + k]);
+          for (int a = 0; a < RA; ++a) cv[a] = c_at(i0 + ty + TX * a, k);
 #pragma unroll
           for (int j = 0; j < JC; ++j) {
             if (j < jc_n) {
@@ -344,25 +361,25 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename T, bool Y, bool STATE>
+template <int Q, typename T, bool Y, bool STATE>
 cudaError_t launch_chunks(dim3 grid, const void* x, const float* dt,
                           const float* a_log, const void* b, const void* c,
                           void* y, float* states, float* decay,
                           float* final_state, int s, int h, int p, int n,
                           cudaStream_t stream) {
-  const size_t bytes = Layout<T>(Y, p, n).total;
+  const size_t bytes = Layout<Q, T>(Y, p, n).total;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_kernel<T, Y, STATE>,
+      ssd_chunk_kernel<Q, T, Y, STATE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  ssd_chunk_kernel<T, Y, STATE><<<grid, THREADS, bytes, stream>>>(
+  ssd_chunk_kernel<Q, T, Y, STATE><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(x), dt, a_log, static_cast<const T*>(b),
       static_cast<const T*>(c), static_cast<T*>(y), states, decay,
       final_state, s, h, p, n);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <int Q, typename T>
 cudaError_t run(const void* x, const float* dt, const float* a_log,
                 const void* b, const void* c, void* y, float* final_state,
                 float* states, float* decay, int batch, int s, int h, int p,
@@ -370,46 +387,74 @@ cudaError_t run(const void* x, const float* dt, const float* a_log,
   const int nc = (s + Q - 1) / Q;
   const dim3 grid(nc, h, batch);
   if (nc == 1)
-    return launch_chunks<T, true, true>(grid, x, dt, a_log, b, c, y, nullptr,
-                                        nullptr, final_state, s, h, p, n,
-                                        stream);
-  cudaError_t err = launch_chunks<T, false, true>(
+    return launch_chunks<Q, T, true, true>(grid, x, dt, a_log, b, c, y,
+                                           nullptr, nullptr, final_state, s,
+                                           h, p, n, stream);
+  cudaError_t err = launch_chunks<Q, T, false, true>(
       grid, x, dt, a_log, b, c, y, states, decay, final_state, s, h, p, n,
       stream);
   if (err != cudaSuccess) return err;
   err = launch_chunk_walk(states, decay, final_state, nc, p * n, batch * h,
                           stream);
   if (err != cudaSuccess) return err;
-  return launch_chunks<T, true, false>(grid, x, dt, a_log, b, c, y, states,
-                                       decay, final_state, s, h, p, n,
-                                       stream);
+  return launch_chunks<Q, T, true, false>(grid, x, dt, a_log, b, c, y,
+                                          states, decay, final_state, s, h, p,
+                                          n, stream);
 }
+
+template <int Q>
+cudaError_t run_q(const void* x, const float* dt, const float* a_log,
+                  const void* b, const void* c, void* y, float* final_state,
+                  float* states, float* decay, int bf16, int batch, int s,
+                  int h, int p, int n, cudaStream_t stream) {
+  return bf16 ? run<Q, __nv_bfloat16>(x, dt, a_log, b, c, y, final_state,
+                                      states, decay, batch, s, h, p, n, stream)
+              : run<Q, float>(x, dt, a_log, b, c, y, final_state, states,
+                              decay, batch, s, h, p, n, stream);
+}
+
+// the chunk lengths of the instances
+constexpr int CHUNKS[] = {32, 64, 128, 256};
 
 }  // namespace
 
-extern "C" int ssd_chunk_len() { return Q; }
+// the chunk lengths of the instances: their count, each written to out[i]
+// for i below `cap`
+extern "C" int ssd_chunk_chunks(int* out, int cap) {
+  const int count = static_cast<int>(sizeof(CHUNKS) / sizeof(CHUNKS[0]));
+  for (int i = 0; i < count && i < cap; ++i) out[i] = CHUNKS[i];
+  return count;
+}
 extern "C" int ssd_chunk_max_p() { return MAX_P; }
 extern "C" int ssd_chunk_max_n() { return MAX_N; }
 
 // x, y: (batch, s, h, p); b, c: (batch, s, n), all bf16 when `bf16` is
 // nonzero, else float32; dt: (batch, s, h) and a_log: (h,) float32;
-// final_state: (batch, h, p, n) float32.  states: (batch, h, ceil(s / Q),
-// p, n) and decay: (batch, h, ceil(s / Q)) float32 scratch, unused (and may
-// be null) when s <= Q.  Everything contiguous.
+// final_state: (batch, h, p, n) float32.  states: (batch, h, ceil(s /
+// chunk), p, n) and decay: (batch, h, ceil(s / chunk)) float32 scratch,
+// unused (and may be null) when s <= chunk.  Everything contiguous; chunk
+// one of CHUNKS.
 extern "C" int ssd_chunk_launch(const void* x, const float* dt,
                                 const float* a_log, const void* b,
                                 const void* c, void* y, float* final_state,
                                 float* states, float* decay, int bf16,
                                 int batch, int s, int h, int p, int n,
-                                cudaStream_t stream) {
+                                int chunk, cudaStream_t stream) {
   if (batch <= 0 || s <= 0 || h <= 0 || p <= 0 || n <= 0 || p > MAX_P ||
       n > MAX_N || h > 65535 || batch > 65535 ||
       static_cast<long long>(batch) * h > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err =
-      bf16 ? run<__nv_bfloat16>(x, dt, a_log, b, c, y, final_state, states,
-                                decay, batch, s, h, p, n, stream)
-           : run<float>(x, dt, a_log, b, c, y, final_state, states, decay,
-                        batch, s, h, p, n, stream);
+  cudaError_t err;
+  switch (chunk) {
+    case 32: err = run_q<32>(x, dt, a_log, b, c, y, final_state, states,
+                             decay, bf16, batch, s, h, p, n, stream); break;
+    case 64: err = run_q<64>(x, dt, a_log, b, c, y, final_state, states,
+                             decay, bf16, batch, s, h, p, n, stream); break;
+    case 128: err = run_q<128>(x, dt, a_log, b, c, y, final_state, states,
+                               decay, bf16, batch, s, h, p, n, stream); break;
+    case 256: err = run_q<256>(x, dt, a_log, b, c, y, final_state, states,
+                               decay, bf16, batch, s, h, p, n, stream); break;
+    default: err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

@@ -83,6 +83,28 @@
 //   decay nor contribute.  No product sits on a runtime branch and every
 //   chain of products starts with one that only writes its accumulators
 //   (PR 32's lessons, ssd_chunk_tc.cu); causal zeros are multiplied.
+// Chunk lengths.  One instance per Q of CHUNKS (32, 64, 128, 256), the
+// chunk length a template argument; Q = 128 is the design above.
+//   * Q = 32, 64: a chunk lands in the first Q rows of 128-row tiles (TMA
+//     boxes of Q rows, the other rows zero and their dt 0), in the walk and
+//     in the gradients, so each chunk runs as one of 128 steps (a chunk's
+//     worth of work for Q steps); rows past Q write nothing.  Before slot B
+//     (dY over the dG region) is filled, the rows past Q of its dY block
+//     are zeroed.
+//   * Q = 256: the walk takes a whole chunk a stage (blocks of 256 rows, one
+//     stage: 164 KB), its update's groups two at a time in a rolled loop,
+//     one k16 step each.  The gradients take a chunk as two tiles of 128
+//     rows: a block per (row tile j, key tile i) pair (0, 0), (0, 1) and
+//     (1, 1), each the Q = 128 block's work over its pair with the causal
+//     mask taken over the chunk (every key after every row off the
+//     diagonal) and the chunk's 256-step cumsums; the R and S terms (dx's
+//     w B R^T, dB's w x R, v, u, dC's exp(cs) dY S) on the diagonal pairs
+//     only (their weights zero off it).  dx (float32), dB, ddt's partial
+//     and the column sums of a row of the first tile, and dC and the row
+//     sums of a row of the second, come from two pairs: each pair writes
+//     its own slot and the sum launch adds slot 0, then slot 1.  Four heads
+//     a group at most (each head's 256 cumsums and dts fill what eight took
+//     at 128).
 // What ptxas taught (its notes in the build log): addresses that do not
 // change from head to head (the dG, B and dY tile offsets of a thread) were
 // hoisted out of the head loops and held in registers: ptxas serialized
@@ -90,12 +112,13 @@
 // an empty asm makes opaque (as bases() does for the descriptors), the
 // warpgroup index too, and J's key quarters run in a rolled loop (fully
 // unrolled, the scheduler hoisted all four quarters' work and spilled).
-// Shared memory: the walk 199,768 bytes (two stages of 80 KB: dY, C, S;
-// R's image staged, 32 KB; the scan's arrays); the gradients 230,528 (B and
-// C 64 KB, the x / dY slot 32 KB, the R / S slot 48 KB, dG over the group
-// 64 KB float32, eight heads' cs and dt 8 KB, the row-sum partials 8 KB,
-// two column-sum rows): one block an SM each; ten warps cap a thread at 168
-// registers (the walk takes 156, the gradients 168), no spills.
+// Shared memory at Q <= 128: the walk 199,768 bytes (two stages of 80 KB:
+// dY, C, S; R's image staged, 32 KB; the scan's arrays); the gradients
+// 230,528 (B and C 64 KB, the x / dY slot 32 KB, the R / S slot 48 KB, dG
+// over the group 64 KB float32, eight heads' cs and dt 8 KB, the row-sum
+// partials 8 KB, two column-sum rows): one block an SM each; ten warps cap
+// a thread at 168 registers (the walk takes 156, the gradients 168), no
+// spills.  At Q = 256 the walk takes 167 registers.
 //
 // Bound on the H100: memory, narrowly.  At mamba2-1.3b's layer (B 1,
 // S 4,096, H 64, P 64, N 128) the gradient moves 111.1 MB (x, dY, dx, B and
@@ -127,7 +150,6 @@ using bf16 = __nv_bfloat16;
 using namespace hopper;
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int Q = 128;  // chunk length
 constexpr int MAX_P = 64;
 constexpr int MAX_N = 128;
 constexpr int CONSUMERS = 256;           // two warpgroups
@@ -135,10 +157,12 @@ constexpr int THREADS = CONSUMERS + 64;  // and the producer and scan warps
 constexpr int SYNC = 1;                  // the consumers' named barrier
 constexpr int STEPS = 2;  // k16 steps of a group of products, A in registers
 constexpr int GSTEPS = 1;  // the same in the gradients (registers)
-constexpr int GMAX = 8;   // heads a group, at most
+// rows of the gradients' tile: a chunk of up to 128 steps (a shorter one in
+// its first rows, the rest zero), or a 128-row half of a 256-step chunk
+constexpr int TQ = 128;
 // a 128-row block of 64 bf16 columns in the 128-byte swizzle, and 64 rows
 // of it
-constexpr int BLK = Q * 128;
+constexpr int BLK = TQ * 128;
 constexpr int HALF = 64 * 128;
 // one bf16 part of a (p, n) state, K-major along n: two blocks of 64 rows;
 // the three parts (hi, mid, lo)
@@ -148,44 +172,65 @@ constexpr int PARTS_BYTES = 3 * PART;
 // floats, 16-byte granules swizzled by the row (img_at)
 constexpr int IMG_BYTES = MAX_P * MAX_N * 4;
 
-// the walk: a stage holds dY (one block), C (two blocks) and, in pass 2, S
-// (float32, P x N)
-namespace walk {
-constexpr int STAGES = 2;
-constexpr int C_OFF = BLK;
-constexpr int S_OFF = 3 * BLK;
-constexpr int STAGE = 5 * BLK;
-constexpr int IMG = STAGES * STAGE;  // R's image, staged for the store
-// the scan's arrays a stage: dt, cs, exp(cs), then the chunk decay
-constexpr int SCAN = IMG + IMG_BYTES;
-constexpr int SCAN_FLOATS = 3 * Q + 4;
-constexpr int BARS = SCAN + STAGES * SCAN_FLOATS * 4;
-constexpr int BYTES = BARS + 3 * STAGES * 8 + 8;
-}  // namespace walk
+// the walk at chunks of Q steps: a stage holds one chunk, dY (one block), C
+// (two blocks) and, in pass 2, S (float32, P x N), a block being TR rows;
+// as in ssd_chunk_tc.cu, a chunk shorter than 128 steps fills the first Q
+// rows and Q = 256 holds one stage
+template <int Q>
+struct Walk {
+  static constexpr int TR = Q > 128 ? Q : 128;
+  static constexpr int STAGES = Q > 128 ? 1 : 2;
+  static constexpr int BLK = TR * 128;
+  static constexpr int BOX = Q * 128;  // what TMA writes of a block
+  static constexpr int C_OFF = BLK;
+  static constexpr int S_OFF = 3 * BLK;
+  static constexpr int STAGE = 3 * BLK + IMG_BYTES;
+  static constexpr int IMG = STAGES * STAGE;  // R's image, staged for the store
+  // the scan's arrays a stage: dt, cs, exp(cs), then the chunk decay
+  static constexpr int SCAN = IMG + IMG_BYTES;
+  static constexpr int SCAN_FLOATS = 3 * TR + 4;
+  static constexpr int BARS = SCAN + STAGES * SCAN_FLOATS * 4;
+  static constexpr int BYTES = BARS + 3 * STAGES * 8 + 8;
+  static_assert(BYTES <= 232448, "the walk's shared memory");
+};
 
-// the gradients
-namespace grads {
-constexpr int BT = 0;           // B (two blocks)
-constexpr int CT = 2 * BLK;     // C (two blocks)
-constexpr int XS = 4 * BLK;     // x (the x / dY slot)
-constexpr int DYS = 5 * BLK;    // dY
-constexpr int RP = 6 * BLK;  // R's or S's three parts (the R / S slot;
-                             // the float32 lands there first)
-constexpr int DG = RP + PARTS_BYTES;  // dG^T over the group, float32 (j, i)
-constexpr int SCS = DG + Q * Q * 4;   // each head's cs, GMAX x Q
-constexpr int SDT = SCS + GMAX * Q * 4;  // and dt
-constexpr int RED = SDT + GMAX * Q * 4;  // row-sum partials, 2 x 8 warps x Q
-constexpr int SCOL = RED + 2 * 8 * Q * 4;  // column sums, 2 x Q
-constexpr int BARS = SCOL + 2 * Q * 4;
-// full_bc, full_xy, empty_xy, full_r, empty_r, full_b, empty_b, dg_free,
-// ready[GMAX]
-constexpr int BYTES = BARS + (8 + GMAX) * 8;
-}  // namespace grads
-
-static_assert(grads::BYTES <= 232448, "the gradients' shared memory");
+// the gradients at chunks of Q steps: a block per (batch row, chunk, tile
+// pair, group of heads).  A chunk up to 128 steps is one tile (PAIRS 1); a
+// 256-step chunk is two tiles of 128 rows, and its (key tile, row tile)
+// pairs (0, 0), (0, 1) and (1, 1) are blocks of their own (PAIRS 3), each
+// the Q = 128 block's work over its pair with the causal mask taken over
+// the chunk, the R and S terms on the diagonal pairs only; a row of the
+// first tile then gets dx, dB, d cs's column sums and ddt's partial from
+// two blocks, a row of the second dC and the row sums, in SLOTS partials
+// that the sum launch adds in order
+template <int Q>
+struct Grads {
+  static constexpr int QC = Q > 128 ? Q : 128;  // a head's scan
+  static constexpr int PAIRS = Q > 128 ? 3 : 1;
+  static constexpr int SLOTS = Q > 128 ? 2 : 1;
+  static constexpr int GMAX = Q > 128 ? 4 : 8;  // heads a group, at most
+  static constexpr int BOX = (Q < TQ ? Q : TQ) * 128;  // what TMA writes
+  static constexpr int BT = 0;           // B (two blocks)
+  static constexpr int CT = 2 * BLK;     // C (two blocks)
+  static constexpr int XS = 4 * BLK;     // x (the x / dY slot)
+  static constexpr int DYS = 5 * BLK;    // dY
+  static constexpr int RP = 6 * BLK;  // R's or S's three parts (the R / S
+                                      // slot; the float32 lands there first)
+  static constexpr int DG = RP + PARTS_BYTES;  // dG^T over the group (j, i)
+  static constexpr int SCS = DG + TQ * TQ * 4;  // each head's cs, GMAX x QC
+  static constexpr int SDT = SCS + GMAX * QC * 4;  // and dt
+  static constexpr int RED = SDT + GMAX * QC * 4;  // row-sum partials,
+                                                   // 2 x 8 warps x TQ
+  static constexpr int SCOL = RED + 2 * 8 * TQ * 4;  // column sums, 2 x TQ
+  static constexpr int BARS = SCOL + 2 * TQ * 4;
+  // full_bc, full_xy, empty_xy, full_r, empty_r, full_b, empty_b, dg_free,
+  // ready[GMAX]
+  static constexpr int BYTES = BARS + (8 + GMAX) * 8;
+  static_assert(BYTES <= 232448, "the gradients' shared memory");
+};
 
 struct WalkArgs {
-  CUtensorMap dy, c;  // boxes of 64 columns x 128 rows
+  CUtensorMap dy, c;  // boxes of 64 columns x the chunk's rows
   const float* dt;
   const float* a_log;
   const float* dstate;  // (batch, h, p, n) or null (zero)
@@ -198,16 +243,21 @@ struct WalkArgs {
 };
 
 struct GradArgs {
-  CUtensorMap x, dy, b, c;  // boxes of 64 columns x 128 rows
+  CUtensorMap x, dy, b, c;  // boxes of 64 columns x min(chunk, 128) rows
   const float* dt;
   const float* a_log;
   const float* states;
   const float* ws_r;
   bf16* dx;
   // per (batch, chunk, h, step): rowsum - colsum of dM M, u, v, and ddt's
-  // partial; per (batch, chunk, h): the chunk decay
+  // partial; per (batch, chunk, h): the chunk decay.  With two slots (Q =
+  // 256): the row sums and column sums apart, each and ddt's partial a slot
   float *rc, *u, *v, *ddtp, *dec;
-  float *dbp, *dcp;  // the groups' partials (batch, groups, nc Q, n)
+  float *rsum, *csum;
+  float* dxp;        // dx's float32 slots (Q = 256), (slots, batch, s, h, p)
+  float *dbp, *dcp;  // the groups' partials (batch, groups, slots, nc Q, n)
+  long long cq;      // the elements of a per-step array: batch nc h Q
+  long long dxs;     // and of a dx slot: batch s h p
   int s, h, p, n, nc, group, groups;
 };
 
@@ -215,10 +265,13 @@ struct SumArgs {
   const float* dt;
   const float* a_log;
   const float *rc, *u, *v, *ddtp, *dec, *rs8, *dbp, *dcp;
+  const float *rsum, *csum, *dxp;
+  bf16* dx;
+  long long cq, dxs;
   float* share;  // da_log's share a (batch, h, chunk)
   int* count;    // the blocks of each head done (zeroed by the launch)
   float *ddt, *da, *db, *dc;
-  int batch, s, h, n, nc, groups;
+  int batch, s, h, p, n, nc, groups;
 };
 
 // A descriptor's start-address field (bits 0-13) holds the shared-memory
@@ -351,16 +404,21 @@ __device__ __forceinline__ float exp_fast(float x) {
 // the float index of dG^T's element (j, i), float pairs swizzled by the row
 // (two-way bank conflicts at most for the accumulator layout)
 __device__ __forceinline__ int dg_at(int j, int i) {
-  return j * Q + ((((i >> 1) ^ ((j & 7) << 2))) << 1) + (i & 1);
+  return j * TQ + ((((i >> 1) ^ ((j & 7) << 2))) << 1) + (i & 1);
 }
 
 // ---------------------------------------------------------------------------
 // 1. the adjoint walk
 // ---------------------------------------------------------------------------
 
+template <int Q>
 __global__ void __launch_bounds__(THREADS, 1)
 ssd_bwd_walk(const __grid_constant__ WalkArgs a) {
-  using namespace walk;
+  using L = Walk<Q>;
+  constexpr int TR = L::TR, STAGES = L::STAGES, BLK = L::BLK, BOX = L::BOX;
+  constexpr int C_OFF = L::C_OFF, S_OFF = L::S_OFF, STAGE = L::STAGE;
+  constexpr int IMG = L::IMG, SCAN = L::SCAN, SCAN_FLOATS = L::SCAN_FLOATS;
+  constexpr int BARS = L::BARS;
   extern __shared__ __align__(1024) unsigned char sm[];
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + BARS);
   uint64_t* ready = full + STAGES;
@@ -383,6 +441,17 @@ ssd_bwd_walk(const __grid_constant__ WalkArgs a) {
     for (int e = tid; e < STAGES * (BLK / 16); e += THREADS)
       reinterpret_cast<uint4*>(sm + (e / (BLK / 16)) * STAGE + C_OFF +
                                BLK)[e % (BLK / 16)] = make_uint4(0, 0, 0, 0);
+    fence_proxy_async();
+  }
+  if constexpr (BOX < BLK) {
+    // a chunk shorter than the blocks: the rows past it stay zero in dY's
+    // and C's blocks of each stage
+    constexpr int PAD = (BLK - BOX) / 16;
+    for (int e = tid; e < STAGES * 3 * PAD; e += THREADS) {
+      const int blk = e / PAD;
+      reinterpret_cast<uint4*>(sm + (blk / 3) * STAGE + (blk % 3) * BLK +
+                               BOX)[e % PAD] = make_uint4(0, 0, 0, 0);
+    }
     fence_proxy_async();
   }
   __syncthreads();
@@ -412,7 +481,7 @@ ssd_bwd_walk(const __grid_constant__ WalkArgs a) {
         const int t0 = chunk_of(i) * Q;
         unsigned char* base = sm + st * STAGE;
         const uint32_t sbytes = i >= n1 ? static_cast<uint32_t>(pn * 4) : 0;
-        mbar_expect_tx(full + st, BLK + nb * BLK + sbytes);
+        mbar_expect_tx(full + st, BOX + nb * BOX + sbytes);
         tma_load_4d(base, &a.dy, full + st, 0, hd, t0, bi);
         for (int cb = 0; cb < nb; ++cb)
           tma_load_4d(base + C_OFF + cb * BLK, &a.c, full + st, cb * 64, 0,
@@ -425,42 +494,47 @@ ssd_bwd_walk(const __grid_constant__ WalkArgs a) {
       }
     } else if (tid >= CONSUMERS + 32) {  // the scan warp
       const float al = -expf(a.a_log[hd]);
-      auto load_dt = [&](int i, float (&v)[Q / 32]) {
+      auto load_dt = [&](int i, float (&v)[TR / 32]) {
         const int t0 = chunk_of(i) * Q;
 #pragma unroll
-        for (int m = 0; m < Q / 32; ++m) {
+        for (int m = 0; m < TR / 32; ++m) {
           const int j = lane + 32 * m;
-          v[m] = t0 + j < a.s ? a.dt[(static_cast<long long>(bi) * a.s + t0 +
-                                      j) * a.h + hd]
-                              : 0.f;
+          v[m] = j < Q && t0 + j < a.s
+                     ? a.dt[(static_cast<long long>(bi) * a.s + t0 + j) * a.h +
+                            hd]
+                     : 0.f;
         }
       };
-      float next[Q / 32];
+      float next[TR / 32];
       load_dt(0, next);
       for (int i = 0; i < items; ++i) {
         const int st = i % STAGES;
-        float cur[Q / 32];
+        float cur[TR / 32];
 #pragma unroll
-        for (int m = 0; m < Q / 32; ++m) cur[m] = next[m];
+        for (int m = 0; m < TR / 32; ++m) cur[m] = next[m];
         if (i + 1 < items) load_dt(i + 1, next);
         if (i >= STAGES) mbar_wait(empty + st, (i / STAGES - 1) & 1);
         float* f = scan_of(i);
 #pragma unroll
-        for (int m = 0; m < Q / 32; ++m) f[lane + 32 * m] = cur[m];
+        for (int m = 0; m < TR / 32; ++m) f[lane + 32 * m] = cur[m];
         __syncwarp();
         if (lane == 0) {
           float run = 0.f;
 #pragma unroll 16
           for (int j = 0; j < Q; ++j) {
             run = __fadd_rn(run, __fmul_rn(al, f[j]));
-            f[Q + j] = run;
+            f[TR + j] = run;
           }
         }
         __syncwarp();
 #pragma unroll
-        for (int m = 0; m < Q / 32; ++m)
-          f[2 * Q + lane + 32 * m] = expf(f[Q + lane + 32 * m]);
-        if (lane == 0) f[3 * Q] = expf(f[2 * Q - 1]);
+        for (int m = 0; m < TR / 32; ++m) {
+          // the rows past the chunk: cs stays at its last value (dt 0)
+          if constexpr (Q < TR)
+            if (lane + 32 * m >= Q) f[TR + lane + 32 * m] = f[TR + Q - 1];
+          f[2 * TR + lane + 32 * m] = expf(f[TR + lane + 32 * m]);
+        }
+        if (lane == 0) f[3 * TR] = expf(f[TR + Q - 1]);
         __syncwarp();
         if (lane == 0) mbar_arrive(ready + st);
       }
@@ -474,8 +548,11 @@ ssd_bwd_walk(const __grid_constant__ WalkArgs a) {
   const int pr = 16 * w + g;  // this thread's rows p pr, pr + 8
   float* img = reinterpret_cast<float*>(sm + IMG);
 
+  // k16 steps of a group of products: one at Q = 256 (with two its rolled
+  // loop spilled)
+  constexpr int WSTEPS = TR > 128 ? 1 : STEPS;
   float st[32], cacc[32];
-  uint32_t A[2][3][STEPS][4];
+  uint32_t A[2][3][WSTEPS][4];
 #pragma unroll
   for (int r = 0; r < 32; ++r) st[r] = 0.f;
 
@@ -497,13 +574,13 @@ ssd_bwd_walk(const __grid_constant__ WalkArgs a) {
 #pragma unroll
     for (int q = 0; q < 3; ++q) fence_regs(A[b][q]);
   };
-  // d (+)= A_b C over STEPS k16 steps from kk0 (C this warpgroup's columns,
-  // read MN-major); committed, not waited for
+  // d (+)= A_b C over WSTEPS k16 steps from kk0 (C this warpgroup's
+  // columns, read MN-major); committed, not waited for
   auto issue_rs = [&](float(&d)[32], int b, uint64_t mbase, int off, int kk0,
                       bool fresh) {
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < STEPS; ++kk) {
+    for (int kk = 0; kk < WSTEPS; ++kk) {
       const uint64_t db = mnmajor(mbase, off, kk0 + kk);
       if (fresh && kk == 0)
         wgmma_rs_n64_first(d, A[b][0][kk], db);
@@ -514,13 +591,13 @@ ssd_bwd_walk(const __grid_constant__ WalkArgs a) {
     }
     wgmma_commit();
   };
-  // (dY exp(cs))^T over the chunk steps of k16 steps kk0 .. kk0 + STEPS - 1
-  // into A buffer b: dY read transposed by ldmatrix from the swizzled stage
+  // (dY exp(cs))^T over the chunk steps of k16 steps kk0 .. kk0 + WSTEPS -
+  // 1 into A buffer b: dY read transposed by ldmatrix from the swizzled stage
   auto form_a = [&](int b, const unsigned char* ys, const float* wv,
                     int kk0) {
     const int mat = lane >> 3;
 #pragma unroll
-    for (int kk = 0; kk < STEPS; ++kk) {
+    for (int kk = 0; kk < WSTEPS; ++kk) {
       const int j0 = 16 * (kk0 + kk);
       const int j = j0 + 8 * (mat >> 1) + (lane & 7);
       const int ch = 2 * w + (mat & 1);
@@ -544,15 +621,40 @@ ssd_bwd_walk(const __grid_constant__ WalkArgs a) {
   // of k16 steps in turn through the two A buffers; then R = R decay + cacc
   auto update = [&](int so, const float* f, uint64_t mbase) {
     const int coff = so + C_OFF + wg * BLK;
+    constexpr int GROUPS = TR / 16 / WSTEPS;
+    if constexpr (TR == 128) {
 #pragma unroll
-    for (int grp = 0; grp < Q / 16 / STEPS; ++grp) {
-      if (grp >= 2) wgmma_wait<1>();  // the buffer's last products are done
-      form_a(grp & 1, sm + so, f + 2 * Q, grp * STEPS);
-      issue_rs(cacc, grp & 1, mbase, coff, grp * STEPS, grp == 0);
+      for (int grp = 0; grp < GROUPS; ++grp) {
+        if (grp >= 2) wgmma_wait<1>();  // the buffer's last products are done
+        form_a(grp & 1, sm + so, f + 2 * TR, grp * WSTEPS);
+        issue_rs(cacc, grp & 1, mbase, coff, grp * WSTEPS, grp == 0);
+      }
+    } else {
+      // the groups two at a time in a loop kept rolled (unrolled over 256
+      // steps it spilled), the first pair apart; the loop's addresses
+      // derived anew each trip (kept from before it, they held registers
+      // of their own)
+      form_a(0, sm + so, f + 2 * TR, 0);
+      issue_rs(cacc, 0, mbase, coff, 0, true);
+      form_a(1, sm + so, f + 2 * TR, WSTEPS);
+      issue_rs(cacc, 1, mbase, coff, WSTEPS, false);
+#pragma unroll 1
+      for (int g2 = 1; g2 < GROUPS / 2; ++g2) {
+        uint64_t mb;
+        bases(mb);
+        int so_ = so, coff_ = coff;
+        asm volatile("" : "+r"(so_), "+r"(coff_));
+        wgmma_wait<1>();
+        form_a(0, sm + so_, f + 2 * TR, 2 * g2 * WSTEPS);
+        issue_rs(cacc, 0, mb, coff_, 2 * g2 * WSTEPS, false);
+        wgmma_wait<1>();
+        form_a(1, sm + so_, f + 2 * TR, (2 * g2 + 1) * WSTEPS);
+        issue_rs(cacc, 1, mb, coff_, (2 * g2 + 1) * WSTEPS, false);
+      }
     }
     wgmma_wait<0>();
     fence_regs(cacc);
-    const float d = f[3 * Q];
+    const float d = f[3 * TR];
 #pragma unroll
     for (int r = 0; r < 32; ++r)
       st[r] = __fadd_rn(__fmul_rn(st[r], d), cacc[r]);
@@ -580,7 +682,7 @@ ssd_bwd_walk(const __grid_constant__ WalkArgs a) {
     bases(mbase);
     wait_in(i);
     const float* f = scan_of(i);
-    decay = __fmul_rn(decay, f[3 * Q]);
+    decay = __fmul_rn(decay, f[3 * TR]);
     update((i % STAGES) * STAGE, f, mbase);
     release(i);
   }
@@ -689,9 +791,15 @@ ssd_bwd_walk(const __grid_constant__ WalkArgs a) {
 // 2. the chunk gradients
 // ---------------------------------------------------------------------------
 
+template <int Q>
 __global__ void __launch_bounds__(THREADS, 1)
 ssd_bwd_grads(const __grid_constant__ GradArgs a) {
-  using namespace grads;
+  using L = Grads<Q>;
+  constexpr int QC = L::QC, PAIRS = L::PAIRS, SLOTS = L::SLOTS;
+  constexpr int GMAX = L::GMAX, BOX = L::BOX;
+  constexpr int BT = L::BT, CT = L::CT, XS = L::XS, DYS = L::DYS, RP = L::RP;
+  constexpr int DG = L::DG, SCS = L::SCS, SDT = L::SDT, RED = L::RED;
+  constexpr int SCOL = L::SCOL, BARS = L::BARS;
   extern __shared__ __align__(1024) unsigned char sm[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + BARS);
   uint64_t* full_bc = bars;
@@ -710,10 +818,16 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
   float* scol = reinterpret_cast<float*>(sm + SCOL);
   const int tid = threadIdx.x;
   const int blk = blockIdx.x;
-  const int gi = blk % a.groups, bc = blk / a.groups;
+  const int gi = blk % a.groups, bp = blk / a.groups;
+  const int pi = bp % PAIRS, bc = bp / PAIRS;
   const int ci = bc % a.nc, bi = bc / a.nc;
   const int h0 = gi * a.group, gh = min(a.group, a.h - h0);
   const int t0 = ci * Q;
+  // the pair's row tile (rows j: x, B) and key tile (rows i: dY, C), their
+  // first steps in the chunk, and the slot of its partials
+  const int tj = pi == 2 ? TQ : 0, ti = pi == 0 ? 0 : TQ;
+  const bool diag = tj == ti;
+  const int slot = (ti - tj) / TQ;
   const long long pn = static_cast<long long>(a.p) * a.n;
 
   if (tid == 0) {
@@ -736,7 +850,16 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
                                BLK)[e % (BLK / 16)] = make_uint4(0, 0, 0, 0);
     fence_proxy_async();
   }
-  for (int e = tid; e < Q * Q / 4; e += THREADS)
+  if constexpr (BOX < BLK) {
+    // a chunk shorter than the tile: the rows past it stay zero in B's, C's,
+    // x's and dY's blocks
+    constexpr int PAD = (BLK - BOX) / 16;
+    for (int e = tid; e < 6 * PAD; e += THREADS)
+      reinterpret_cast<uint4*>(sm + (e / PAD) * BLK + BOX)[e % PAD] =
+          make_uint4(0, 0, 0, 0);
+    fence_proxy_async();
+  }
+  for (int e = tid; e < TQ * TQ / 4; e += THREADS)
     reinterpret_cast<float4*>(dgm)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
 
@@ -744,10 +867,12 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
     const int lane = tid & 31;
     if (tid == CONSUMERS) {  // the producer warp's first lane: the loads
       const int nb = (a.n + 63) / 64;
-      mbar_expect_tx(full_bc, 2 * nb * BLK);
+      mbar_expect_tx(full_bc, 2 * nb * BOX);
       for (int cb = 0; cb < nb; ++cb) {
-        tma_load_4d(sm + BT + cb * BLK, &a.b, full_bc, cb * 64, 0, t0, bi);
-        tma_load_4d(sm + CT + cb * BLK, &a.c, full_bc, cb * 64, 0, t0, bi);
+        tma_load_4d(sm + BT + cb * BLK, &a.b, full_bc, cb * 64, 0, t0 + tj,
+                    bi);
+        tma_load_4d(sm + CT + cb * BLK, &a.c, full_bc, cb * 64, 0, t0 + ti,
+                    bi);
       }
       // walks J (x, dY; R) and K (x; R) over the group's heads in slot A
       // (the x / dY and R / S slots), then I (dY; S) through slots A and B
@@ -764,9 +889,11 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
         if (m < 0 || (m & 1) == 0) {  // slot A, its fa-th fill
           const int fa = m < 0 ? it : 2 * gh + (m >> 1);
           if (fa > 0) mbar_wait(empty_xy, (fa - 1) & 1);
-          mbar_expect_tx(full_xy, ph == 0 ? 2 * BLK : BLK);
-          if (ph < 2) tma_load_4d(sm + XS, &a.x, full_xy, 0, hd, t0, bi);
-          if (ph != 1) tma_load_4d(sm + DYS, &a.dy, full_xy, 0, hd, t0, bi);
+          mbar_expect_tx(full_xy, ph == 0 ? 2 * BOX : BOX);
+          if (ph < 2)
+            tma_load_4d(sm + XS, &a.x, full_xy, 0, hd, t0 + tj, bi);
+          if (ph != 1)
+            tma_load_4d(sm + DYS, &a.dy, full_xy, 0, hd, t0 + ti, bi);
           if (fa > 0) mbar_wait(empty_r, (fa - 1) & 1);
           mbar_expect_tx(full_r, fbytes);
           bulk_load(sm + RP, fsrc, fbytes, full_r);
@@ -776,8 +903,8 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
             mbar_wait(dg_free, 0);
           else
             mbar_wait(empty_b, (fb - 1) & 1);
-          mbar_expect_tx(full_b, BLK + fbytes);
-          tma_load_4d(sm + DG, &a.dy, full_b, 0, hd, t0, bi);
+          mbar_expect_tx(full_b, BOX + fbytes);
+          tma_load_4d(sm + DG, &a.dy, full_b, 0, hd, t0 + ti, bi);
           bulk_load(sm + DG + BLK, fsrc, fbytes, full_b);
         }
       }
@@ -785,14 +912,15 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
       for (int hh = 0; hh < gh; ++hh) {
         const int hd = h0 + hh;
         const float al = -expf(a.a_log[hd]);
-        float* fdt = sdt + hh * Q;
-        float* fcs = scs + hh * Q;
+        float* fdt = sdt + hh * QC;
+        float* fcs = scs + hh * QC;
 #pragma unroll
-        for (int m = 0; m < Q / 32; ++m) {
+        for (int m = 0; m < QC / 32; ++m) {
           const int j = lane + 32 * m;
-          fdt[j] = t0 + j < a.s ? a.dt[(static_cast<long long>(bi) * a.s + t0 +
-                                        j) * a.h + hd]
-                                : 0.f;
+          fdt[j] = j < Q && t0 + j < a.s
+                       ? a.dt[(static_cast<long long>(bi) * a.s + t0 + j) *
+                                  a.h + hd]
+                       : 0.f;
         }
         __syncwarp();
         if (lane == 0) {
@@ -802,10 +930,18 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
             run = __fadd_rn(run, __fmul_rn(al, fdt[j]));
             fcs[j] = run;
           }
-          a.dec[(static_cast<long long>(bi) * a.nc + ci) * a.h + hd] =
-              expf(run);
+          if (pi == 0)
+            a.dec[(static_cast<long long>(bi) * a.nc + ci) * a.h + hd] =
+                expf(run);
         }
         __syncwarp();
+        if constexpr (Q < QC) {
+          // the rows past the chunk: cs stays at its last value (dt 0)
+#pragma unroll
+          for (int m = 0; m < QC / 32; ++m)
+            if (lane + 32 * m >= Q) fcs[lane + 32 * m] = fcs[Q - 1];
+          __syncwarp();
+        }
         if (lane == 0) mbar_arrive(ready + hh);
       }
     }
@@ -867,7 +1003,7 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
     uint64_t kbase, mbase;
     bases(kbase, mbase);
 #pragma unroll
-    for (int grp = 0; grp < Q / 16 / GSTEPS; ++grp) {
+    for (int grp = 0; grp < TQ / 16 / GSTEPS; ++grp) {
       const int b = grp & 1;
       if (grp >= 2) wgmma_wait<1>();
 #pragma unroll
@@ -910,14 +1046,16 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
     fence_regs(d0);
     fence_regs(d1);
   };
-  // the group's dB or dC partial rows (float32, columns below N)
-  auto write_rows = [&](float* out, float(&d0)[32], float(&d1)[32]) {
+  // the group's dB or dC partial rows (float32, columns below N), of the
+  // tile whose rows begin `toff` steps into the chunk, in the pair's slot
+  auto write_rows = [&](float* out, float(&d0)[32], float(&d1)[32],
+                        int toff) {
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      const int t = t0 + r0 + 8 * hf;
-      if (t >= a.s) continue;
-      float* row = out + ((static_cast<long long>(bi) * a.groups + gi) *
-                              a.nc * Q + t) * a.n;
+      const int t = t0 + toff + r0 + 8 * hf;
+      if (t >= a.s || (Q < TQ && r0 + 8 * hf >= Q)) continue;
+      float* row = out + (((static_cast<long long>(bi) * a.groups + gi) *
+                               SLOTS + slot) * a.nc * Q + t) * a.n;
 #pragma unroll
       for (int u = 0; u < 16; ++u) {
         const int col = 8 * u + 2 * qd;
@@ -932,18 +1070,26 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
   struct Rows {
     float cs[2], dt[2], e[2], w[2], ecs[2];
   };
-  auto rows_of = [&](int hh) {
+  // (of the tile whose rows begin `toff` steps into the chunk; off the
+  // diagonal pairs the R and S terms' weights e, w and exp(cs) are zero)
+  auto rows_of = [&](int hh, int toff) {
     Rows v;
-    const float* cs = scs + hh * Q;
-    const float last = cs[Q - 1];
+    const float* cs = scs + hh * QC;
+    const float last = cs[QC - 1];
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      const int r = r0 + 8 * hf;
+      const int r = toff + r0 + 8 * hf;
       v.cs[hf] = cs[r];
-      v.dt[hf] = sdt[hh * Q + r];
+      v.dt[hf] = sdt[hh * QC + r];
       v.e[hf] = expf(__fsub_rn(last, v.cs[hf]));
       v.w[hf] = __fmul_rn(v.dt[hf], v.e[hf]);
       v.ecs[hf] = expf(v.cs[hf]);
+      if constexpr (PAIRS > 1) {
+        const float on = diag ? 1.f : 0.f;
+        v.e[hf] *= on;
+        v.w[hf] *= on;
+        v.ecs[hf] *= on;
+      }
     }
     return v;
   };
@@ -989,6 +1135,8 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
   auto scalar_at = [&](int hd, int r) {  // (batch, chunk, h, step)
     return ((static_cast<long long>(bi) * a.nc + ci) * a.h + hd) * Q + r;
   };
+  // the offset of the pair's slot of the per-step arrays
+  const long long slot_off = slot * a.cq;
 
   mbar_wait(full_bc, 0);
 
@@ -997,14 +1145,14 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
     const int hd = h0 + hh, wg = wgroup();
     mbar_wait(ready + hh, 0);
     mbar_wait(full_xy, hh & 1);
-    const Rows rv = rows_of(hh);
+    const Rows rv = rows_of(hh, tj);
     // this thread's row j and column offset, made anew for each head (the
     // empty asm hides that they do not change, so that the compiler keeps
     // none of the loop's addresses in registers of their own)
     int jr = r0, ic = 2 * qd;
     asm volatile("" : "+r"(jr), "+r"(ic));
-    const float* cs = scs + hh * Q;
-    float* rd = red + (hh & 1) * 8 * Q + (tid >> 5) * Q;
+    const float* cs = scs + hh * QC + ti;  // the keys'
+    float* rd = red + (hh & 1) * 8 * TQ + (tid >> 5) * TQ;
     uint64_t kbase, mbase;
     bases(kbase, mbase);
     float y[32], gq[16], dq[16];
@@ -1014,8 +1162,8 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
     // as the next step's operands are formed
     auto quarter = [&](int qq, bool first) {
       wgmma_fence();
-      mma_ss32<Q / 16>(gq, kbase, BT + wg * HALF, BLK, CT + qq * 32 * 128,
-                       BLK);
+      mma_ss32<TQ / 16>(gq, kbase, BT + wg * HALF, BLK, CT + qq * 32 * 128,
+                        BLK);
       mma_ss32<MAX_P / 16>(dq, kbase, XS + wg * HALF, BLK,
                            DYS + qq * 32 * 128, BLK);
       wgmma_commit();
@@ -1036,7 +1184,8 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int hf = e >> 1, i = i0 + (e & 1);
-            const bool causal = i >= jr + 8 * hf;
+            // (a pair off the diagonal: every key after every row)
+            const bool causal = (PAIRS > 1 && !diag) || i >= jr + 8 * hf;
             // every exp is taken (of 0 above the diagonal) and the mask
             // multiplies: a select around it compiles to a branch
             const float lv =
@@ -1084,35 +1233,41 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
     // The first quarter apart (its first product only writes y), the others
     // in a loop kept rolled: unrolled, the scheduler hoisted work of all
     // four ahead and spilled.
-    const int q0 = 2 * wg;
+    const int q0 = PAIRS > 1 && !diag ? 0 : 2 * wg;
     if (g == 0)
       for (int i0 = ic; i0 < 32 * q0; i0 += 8)
         *reinterpret_cast<float2*>(rd + i0) = make_float2(0.f, 0.f);
     quarter(q0, true);
 #pragma unroll 1
-    for (int qq = q0 + 1; qq < Q / 32; ++qq) quarter(qq, false);
+    for (int qq = q0 + 1; qq < TQ / 32; ++qq) quarter(qq, false);
     wgmma_wait<0>();
     fence_regs(y);
     release(empty_xy);
     // the column sums of dM M (per row j) and dM G L, and the row sums (per
     // column i: the eight warps' partials in order)
-    float* sc = scol + (hh & 1) * Q;
+    float* sc = scol + (hh & 1) * TQ;
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       col[hf] = quad_sum(col[hf]);
       dd[hf] = quad_sum(dd[hf]);
       if (qd == 0) {
         sc[jr + 8 * hf] = col[hf];
-        a.ddtp[scalar_at(hd, jr + 8 * hf)] = dd[hf];
+        if (Q >= TQ || jr + 8 * hf < Q)
+          a.ddtp[slot_off + scalar_at(hd, tj + jr + 8 * hf)] = dd[hf];
       }
     }
     named_sync(SYNC, CONSUMERS);
-    if (tid < Q) {
-      const float* rb = red + (hh & 1) * 8 * Q;
+    if (tid < (Q < TQ ? Q : TQ)) {
+      const float* rb = red + (hh & 1) * 8 * TQ;
       float rt = 0.f;
 #pragma unroll
-      for (int wv = 0; wv < 8; ++wv) rt = __fadd_rn(rt, rb[wv * Q + tid]);
-      a.rc[scalar_at(hd, tid)] = __fsub_rn(rt, sc[tid]);
+      for (int wv = 0; wv < 8; ++wv) rt = __fadd_rn(rt, rb[wv * TQ + tid]);
+      if constexpr (SLOTS > 1) {
+        a.rsum[slot_off + scalar_at(hd, ti + tid)] = rt;
+        a.csum[slot_off + scalar_at(hd, tj + tid)] = sc[tid];
+      } else {
+        a.rc[scalar_at(hd, tid)] = __fsub_rn(rt, sc[tid]);
+      }
     }
     // B R^T (R's parts as the B operand), then dx = M^T dY + w B R^T
     mbar_wait(full_r, hh & 1);
@@ -1126,18 +1281,23 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
     release(empty_r);
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      const int t = t0 + jr + 8 * hf;
-      if (t >= a.s) continue;
-      bf16* out =
-          a.dx + ((static_cast<long long>(bi) * a.s + t) * a.h + hd) * a.p;
+      const int t = t0 + tj + jr + 8 * hf;
+      if (t >= a.s || (Q < TQ && jr + 8 * hf >= Q)) continue;
+      const long long o = ((static_cast<long long>(bi) * a.s + t) * a.h + hd) *
+                          a.p;
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
         const int col2 = 8 * u + ic, r = 4 * u + 2 * hf;
-        if (col2 < a.p)
-          *reinterpret_cast<__nv_bfloat162*>(out + col2) =
-              __floats2bfloat162_rn(
-                  __fadd_rn(y[r], __fmul_rn(rv.w[hf], br[r])),
-                  __fadd_rn(y[r + 1], __fmul_rn(rv.w[hf], br[r + 1])));
+        if (col2 < a.p) {
+          const float d0 = __fadd_rn(y[r], __fmul_rn(rv.w[hf], br[r]));
+          const float d1 = __fadd_rn(y[r + 1], __fmul_rn(rv.w[hf], br[r + 1]));
+          if constexpr (SLOTS > 1)  // float32, in the pair's slot
+            *reinterpret_cast<float2*>(a.dxp + slot * a.dxs + o + col2) =
+                make_float2(d0, d1);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(a.dx + o + col2) =
+                __floats2bfloat162_rn(d0, d1);
+        }
       }
     }
   }
@@ -1148,7 +1308,7 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
     dg_product(db0, db1, false, CT);
     for (int hh = 0; hh < gh; ++hh) {
       const int hd = h0 + hh, it = gh + hh, wg = wgroup();
-      const Rows rv = rows_of(hh);
+      const Rows rv = rows_of(hh, tj);
       mbar_wait(full_xy, it & 1);
       mbar_wait(full_r, it & 1);
       to_parts(true, RP);
@@ -1187,14 +1347,14 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const float q = quad_sum(qv[hf]);
-        if (qd == 0) {
-          const long long o = scalar_at(hd, jr + 8 * hf);
+        if (qd == 0 && diag && (Q >= TQ || jr + 8 * hf < Q)) {
+          const long long o = scalar_at(hd, tj + jr + 8 * hf);
           a.v[o] = __fmul_rn(rv.w[hf], q);
           a.ddtp[o] = __fadd_rn(a.ddtp[o], __fmul_rn(rv.e[hf], q));
         }
       }
     }
-    write_rows(a.dbp, db0, db1);
+    write_rows(a.dbp, db0, db1, tj);
   }
 
   // I: rows i.  dC = dG_grp B, then exp(cs) . (dY S) per head; u.  After
@@ -1204,10 +1364,18 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
     named_sync(SYNC, CONSUMERS);  // every thread's dG^T is in
     float dc0[32], dc1[32];
     dg_product(dc0, dc1, true, BT);
+    if constexpr (BOX < BLK) {
+      // slot B's dY block lands over dG: zero the rows past the chunk once
+      // every consumer is done with dG
+      named_sync(SYNC, CONSUMERS);
+      for (int e = tid; e < (BLK - BOX) / 16; e += CONSUMERS)
+        reinterpret_cast<uint4*>(sm + DG + BOX)[e] = make_uint4(0, 0, 0, 0);
+      fence_proxy_async();
+    }
     release(dg_free);
     for (int hh = 0; hh < gh; ++hh) {
       const int hd = h0 + hh, wg = wgroup();
-      const Rows rv = rows_of(hh);
+      const Rows rv = rows_of(hh, ti);
       const bool in_b = hh & 1;
       if (in_b) {
         mbar_wait(full_b, (hh >> 1) & 1);
@@ -1243,7 +1411,8 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           const float uu = __fmul_rn(rv.ecs[hf], quad_sum(uv[hf]));
-          if (qd == 0) a.u[scalar_at(hd, ir + 8 * hf)] = uu;
+          if (qd == 0 && diag && (Q >= TQ || ir + 8 * hf < Q))
+            a.u[scalar_at(hd, ti + ir + 8 * hf)] = uu;
         }
       }
       // dC += exp(cs) . (dY S), one 64-column half of n at a time
@@ -1268,7 +1437,7 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
         release(empty_r);
       }
     }
-    write_rows(a.dcp, dc0, dc1);
+    write_rows(a.dcp, dc0, dc1, ti);
   }
 }
 
@@ -1276,43 +1445,76 @@ ssd_bwd_grads(const __grid_constant__ GradArgs a) {
 // 3. the ordered sums
 // ---------------------------------------------------------------------------
 
-// threads of a block of the sum launch: 16 warps
-constexpr int SUM_THREADS = 512;
-constexpr int SUM_WARPS = SUM_THREADS / 32;
+// threads of a block of the sum launch: 16 warps (8 at Q = 256, whose
+// chains' arrays would pass the 48 KB of static shared memory)
+template <int Q>
+__host__ __device__ constexpr int sum_threads() {
+  return Q > 128 ? 256 : 512;
+}
 
 // The first blocks, `per_head` a head: a warp per (batch row, chunk) chain,
 // its lanes staging d cs, l and v in shared memory, its first lane taking
 // sum v, the reverse cumsum of d cs and da_log's share in order, its lanes
 // ddt; the head's last block to finish (an integer counter) sums da_log's
 // shares in order over batch rows and chunks.  The blocks after them: db,
-// dc (batch, s, n) = the groups' partials in group order, four consecutive
-// values a thread.
-__global__ void __launch_bounds__(SUM_THREADS)
-ssd_bwd_sum(const SumArgs a, int per_head) {
+// dc (batch, s, n) = the groups' partials in group order (each group's
+// slots in order), four consecutive values a thread; with two slots (Q =
+// 256), then dx (batch, s, h, p) = its slots in order, in bf16.
+template <int Q>
+__global__ void __launch_bounds__(sum_threads<Q>())
+ssd_bwd_sum(const SumArgs a, int per_head, long long elem_quads) {
+  constexpr int SUM_THREADS = sum_threads<Q>();
+  constexpr int SUM_WARPS = SUM_THREADS / 32;
+  constexpr bool SLOTS2 = Q > 128;
   // one array each, so that the first lane's loads may run ahead of its
   // stores
   __shared__ float s_dcs[SUM_WARPS][Q], s_l[SUM_WARPS][Q], s_v[SUM_WARPS][Q],
       s_dl[SUM_WARPS][Q];
   __shared__ int s_last;
   if (static_cast<int>(blockIdx.x) >= a.h * per_head) {
-    const long long idx =
+    long long idx =
         4 * (static_cast<long long>(blockIdx.x - a.h * per_head) *
                  blockDim.x +
              threadIdx.x);
     const long long sn = static_cast<long long>(a.s) * a.n;
-    if (idx >= a.batch * sn) return;
+    if (idx >= 4 * elem_quads) return;
+    if (idx >= a.batch * sn) {
+      if constexpr (SLOTS2) {  // dx from its slots
+        idx -= a.batch * sn;
+        const long long hp = static_cast<long long>(a.h) * a.p;
+        const int t = static_cast<int>((idx / hp) % a.s);
+        float4 v = *reinterpret_cast<const float4*>(a.dxp + idx);
+        if (t % Q < 128) {  // the first tile's rows: the pair off the diagonal
+          const float4 o = *reinterpret_cast<const float4*>(a.dxp + a.dxs +
+                                                            idx);
+          v = make_float4(__fadd_rn(v.x, o.x), __fadd_rn(v.y, o.y),
+                          __fadd_rn(v.z, o.z), __fadd_rn(v.w, o.w));
+        }
+        __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(a.dx + idx);
+        out[0] = __floats2bfloat162_rn(v.x, v.y);
+        out[1] = __floats2bfloat162_rn(v.z, v.w);
+      }
+      return;
+    }
     const long long bi = idx / sn, rest = idx - bi * sn;
     const long long gstride = static_cast<long long>(a.nc) * Q * a.n;
+    // with two slots: dB's rows of a chunk's first tile and dC's of its
+    // second have a second partial (the pair off the diagonal)
+    const int r = static_cast<int>((rest / a.n) % Q);
+    const bool b2 = SLOTS2 && r < 128, c2 = SLOTS2 && r >= 128;
     float4 sb = make_float4(0.f, 0.f, 0.f, 0.f), sc = sb;
+    auto add = [](float4& acc, const float4 v) {
+      acc = make_float4(__fadd_rn(acc.x, v.x), __fadd_rn(acc.y, v.y),
+                        __fadd_rn(acc.z, v.z), __fadd_rn(acc.w, v.w));
+    };
 #pragma unroll 4
     for (int gg = 0; gg < a.groups; ++gg) {
-      const long long o = (bi * a.groups + gg) * gstride + rest;
-      const float4 vb = *reinterpret_cast<const float4*>(a.dbp + o);
-      const float4 vc = *reinterpret_cast<const float4*>(a.dcp + o);
-      sb = make_float4(__fadd_rn(sb.x, vb.x), __fadd_rn(sb.y, vb.y),
-                       __fadd_rn(sb.z, vb.z), __fadd_rn(sb.w, vb.w));
-      sc = make_float4(__fadd_rn(sc.x, vc.x), __fadd_rn(sc.y, vc.y),
-                       __fadd_rn(sc.z, vc.z), __fadd_rn(sc.w, vc.w));
+      const long long o =
+          (bi * a.groups + gg) * (SLOTS2 ? 2 : 1) * gstride + rest;
+      add(sb, *reinterpret_cast<const float4*>(a.dbp + o));
+      if (b2) add(sb, *reinterpret_cast<const float4*>(a.dbp + o + gstride));
+      add(sc, *reinterpret_cast<const float4*>(a.dcp + o));
+      if (c2) add(sc, *reinterpret_cast<const float4*>(a.dcp + o + gstride));
     }
     *reinterpret_cast<float4*>(a.db + idx) = sb;
     *reinterpret_cast<float4*>(a.dc + idx) = sc;
@@ -1337,13 +1539,30 @@ ssd_bwd_sum(const SumArgs a, int per_head) {
     for (int m = 0; m < Q / 32; ++m) {
       const int j = lane + 32 * m, t = c * Q + j;
       const float v = a.v[base + j];
-      dcs[j] = __fsub_rn(__fadd_rn(a.rc[base + j], a.u[base + j]), v);
+      float rc, dp;
+      if constexpr (SLOTS2) {
+        // the row sums' second slot on the second tile, the column sums'
+        // and ddt's partial's on the first
+        float rs = a.rsum[base + j], cs = a.csum[base + j];
+        dp = a.ddtp[base + j];
+        if (j >= 128) {
+          rs = __fadd_rn(rs, a.rsum[a.cq + base + j]);
+        } else {
+          cs = __fadd_rn(cs, a.csum[a.cq + base + j]);
+          dp = __fadd_rn(dp, a.ddtp[a.cq + base + j]);
+        }
+        rc = __fsub_rn(rs, cs);
+      } else {
+        rc = a.rc[base + j];
+        dp = a.ddtp[base + j];
+      }
+      dcs[j] = __fsub_rn(__fadd_rn(rc, a.u[base + j]), v);
       vv[j] = v;
       lv[j] = t < a.s ? __fmul_rn(
                             al, a.dt[(static_cast<long long>(bi) * a.s + t) *
                                          a.h + hd])
                       : 0.f;
-      ddtp[m] = a.ddtp[base + j];
+      ddtp[m] = dp;
     }
     __syncwarp();
     if (lane == 0) {
@@ -1396,15 +1615,25 @@ long long round4(long long v) { return (v + 3) / 4 * 4; }
 
 // the workspace's regions, in floats (each a multiple of 16 bytes)
 struct Layout {
-  long long header, state, image, rs8, dec, scalars, share, partial, total;
+  long long header, state, image, rs8, dec, scalars, share, partial, dxp,
+      total;
 };
 
-Layout layout(int batch, int s, int h, int p, int n, int segments,
+// the chunk lengths of the instances
+constexpr int CHUNKS[] = {32, 64, 128, 256};
+
+int max_group(int q) { return q > 128 ? Grads<256>::GMAX : Grads<128>::GMAX; }
+
+// per-step arrays: rowsum - colsum, u, v, ddt's partial; with two slots the
+// row sums and column sums apart and ddt's partial, each in two, with u
+// and v: eight
+Layout layout(int q, int batch, int s, int h, int p, int n, int segments,
               int group) {
-  const long long nc = (s + Q - 1) / Q;
+  const long long nc = (s + q - 1) / q;
   const long long units = static_cast<long long>(batch) * h * segments;
   const long long chunks = static_cast<long long>(batch) * h * nc;
   const long long groups = (h + group - 1) / group;
+  const long long slots = q > 128 ? 2 : 1;
   Layout l{};
   l.header = header_ints(units + h);
   l.state = l.header;
@@ -1412,9 +1641,10 @@ Layout layout(int batch, int s, int h, int p, int n, int segments,
   l.rs8 = l.image + chunks * (IMG_BYTES / 4);
   l.dec = l.rs8 + chunks * 8;
   l.scalars = l.dec + round4(chunks);
-  l.share = l.scalars + 4 * chunks * Q;
+  l.share = l.scalars + (slots > 1 ? 8 : 4) * chunks * q;
   l.partial = l.share + round4(chunks);
-  l.total = l.partial + 2 * batch * groups * nc * Q * n;
+  l.dxp = l.partial + 2 * batch * groups * slots * nc * q * n;
+  l.total = l.dxp + (slots > 1 ? 2LL * batch * s * h * p : 0);
   return l;
 }
 
@@ -1423,66 +1653,141 @@ int mark(const cudaEvent_t* marks, int i, cudaStream_t stream) {
   return marks ? static_cast<int>(cudaEventRecord(marks[i], stream)) : 0;
 }
 
+template <int Q>
+int run(const WalkArgs& wa, const GradArgs& ga, const SumArgs& sa,
+        long long units, int batch, int nc, int groups, int s, int h, int p,
+        int n, long long header_bytes, void* ws, cudaStream_t stream,
+        const cudaEvent_t* marks) {
+  if (int e = mark(marks, 0, stream)) return e;
+  cudaError_t e = cudaMemsetAsync(ws, 0, header_bytes, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaFuncSetAttribute(ssd_bwd_walk<Q>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           Walk<Q>::BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ssd_bwd_walk<Q><<<static_cast<unsigned>(units), THREADS, Walk<Q>::BYTES,
+                    stream>>>(wa);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (int m = mark(marks, 1, stream)) return m;
+  e = cudaFuncSetAttribute(ssd_bwd_grads<Q>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           Grads<Q>::BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ssd_bwd_grads<Q><<<static_cast<unsigned>(static_cast<long long>(batch) *
+                                           nc * Grads<Q>::PAIRS * groups),
+                     THREADS, Grads<Q>::BYTES, stream>>>(ga);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (int m = mark(marks, 2, stream)) return m;
+  constexpr int SUM_THREADS = sum_threads<Q>();
+  constexpr int SUM_WARPS = SUM_THREADS / 32;
+  const long long quads =
+      static_cast<long long>(batch) * s * n / 4 +
+      (Q > 128 ? static_cast<long long>(batch) * s * h * p / 4 : 0);
+  const int elem_blocks =
+      static_cast<int>((quads + SUM_THREADS - 1) / SUM_THREADS);
+  const int per_head = (batch * nc + SUM_WARPS - 1) / SUM_WARPS;
+  ssd_bwd_sum<Q><<<static_cast<unsigned>(h * per_head + elem_blocks),
+                   SUM_THREADS, 0, stream>>>(sa, per_head, quads);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return mark(marks, 3, stream);
+}
+
 }  // namespace
 
-extern "C" int ssd_chunk_bwd_len() { return Q; }
+// the chunk lengths of the instances: their count, each written to out[i]
+// for i below `cap`
+extern "C" int ssd_chunk_bwd_chunks(int* out, int cap) {
+  const int count = static_cast<int>(sizeof(CHUNKS) / sizeof(CHUNKS[0]));
+  for (int i = 0; i < count && i < cap; ++i) out[i] = CHUNKS[i];
+  return count;
+}
 extern "C" int ssd_chunk_bwd_max_p() { return MAX_P; }
 extern "C" int ssd_chunk_bwd_max_n() { return MAX_N; }
-extern "C" int ssd_chunk_bwd_max_group() { return GMAX; }
-// dynamic shared memory of the gradients' and the walk's blocks
-extern "C" int ssd_chunk_bwd_smem() { return grads::BYTES; }
-extern "C" int ssd_chunk_bwd_walk_smem() { return walk::BYTES; }
+// heads a group, at most, at chunks of `q` steps
+extern "C" int ssd_chunk_bwd_max_group(int q) { return max_group(q); }
+// dynamic shared memory of the gradients' and the walk's blocks at chunks
+// of `q` steps, or 0
+extern "C" int ssd_chunk_bwd_smem(int q) {
+  switch (q) {
+    case 32: return Grads<32>::BYTES;
+    case 64: return Grads<64>::BYTES;
+    case 128: return Grads<128>::BYTES;
+    case 256: return Grads<256>::BYTES;
+  }
+  return 0;
+}
+extern "C" int ssd_chunk_bwd_walk_smem(int q) {
+  switch (q) {
+    case 32: return Walk<32>::BYTES;
+    case 64: return Walk<64>::BYTES;
+    case 128: return Walk<128>::BYTES;
+    case 256: return Walk<256>::BYTES;
+  }
+  return 0;
+}
 
 // bytes of the workspace: the walk's unit counter and status words (zeroed
 // by the launch), an inclusive (p, n) adjoint a unit, R's parts image a
-// (batch, h, chunk), <R, S>'s warp partials, the chunk decays, the four
-// per-step arrays (rowsum - colsum, u, v, ddt's partial), da_log's shares,
-// and the groups' float32 partials of dB and dC
-extern "C" long long ssd_chunk_bwd_workspace(int batch, int s, int h, int p,
-                                             int n, int segments, int group) {
-  return layout(batch, s, h, p, n, segments, group).total * 4;
+// (batch, h, chunk), <R, S>'s warp partials, the chunk decays, the per-step
+// arrays, da_log's shares, the groups' float32 partials of dB and dC and,
+// with two slots, dx's
+extern "C" long long ssd_chunk_bwd_workspace(int chunk, int batch, int s,
+                                             int h, int p, int n,
+                                             int segments, int group) {
+  return layout(chunk, batch, s, h, p, n, segments, group).total * 4;
 }
 
 // x, dy, dx: (batch, s, h, p) bf16; b, c: (batch, s, n) bf16; all 16-byte
 // aligned; dt, ddt: (batch, s, h) float32; a_log, da_log: (h,) float32;
-// states: (batch, h, ceil(s / Q), p, n) float32, each chunk's incoming state
-// as the forward kernel writes it; dstate: (batch, h, p, n) float32 or null
-// (zero); db, dc: (batch, s, n) float32; ws: ssd_chunk_bwd_workspace bytes,
-// 16-byte aligned; marks: null, or four events recorded before the first
-// launch and after each of the three.  Everything contiguous; p and n
-// multiples of 8, p <= MAX_P, n <= MAX_N, 1 <= segments <= ceil(s / Q),
-// 1 <= group <= GMAX heads a group.
+// states: (batch, h, ceil(s / chunk), p, n) float32, each chunk's incoming
+// state as the forward kernel writes it; dstate: (batch, h, p, n) float32 or
+// null (zero); db, dc: (batch, s, n) float32; ws: ssd_chunk_bwd_workspace
+// bytes, 16-byte aligned; marks: null, or four events recorded before the
+// first launch and after each of the three.  Everything contiguous; chunk
+// one of CHUNKS; p and n multiples of 8, p <= MAX_P, n <= MAX_N, 1 <=
+// segments <= ceil(s / chunk), 1 <= group <= ssd_chunk_bwd_max_group(chunk)
+// heads a group.
 extern "C" int ssd_chunk_bwd_launch(
     const void* x, const float* dt, const float* a_log, const void* b,
     const void* c, const void* dy, const float* states, const float* dstate,
     void* dx, float* ddt, float* da_log, float* db, float* dc, void* ws,
-    int batch, int s, int h, int p, int n, int segments, int group,
+    int batch, int s, int h, int p, int n, int chunk, int segments, int group,
     cudaStream_t stream, const cudaEvent_t* marks) {
-  const int nc = s > 0 ? (s + Q - 1) / Q : 0;
+  if (ssd_chunk_bwd_smem(chunk) == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nc = s > 0 ? (s + chunk - 1) / chunk : 0;
   const long long units = static_cast<long long>(batch) * h * segments;
   const int groups = group > 0 ? (h + group - 1) / group : 0;
+  const int pairs = chunk > 128 ? 3 : 1;
   if (batch <= 0 || s <= 0 || h <= 0 || p <= 0 || n <= 0 || p > MAX_P ||
       n > MAX_N || p % 8 != 0 || n % 8 != 0 || segments < 1 ||
-      segments > nc || group < 1 || group > GMAX || units >= (1LL << 31) ||
-      static_cast<long long>(batch) * nc * groups >= (1LL << 31))
+      segments > nc || group < 1 || group > max_group(chunk) ||
+      units >= (1LL << 31) ||
+      static_cast<long long>(batch) * nc * pairs * groups >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   const void* ptrs[] = {x, b, c, dy, dx, ws, states, db, dc};
   for (const void* ptr : ptrs)
     if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
       return static_cast<int>(cudaErrorMisalignedAddress);
-  const Layout l = layout(batch, s, h, p, n, segments, group);
+  const Layout l = layout(chunk, batch, s, h, p, n, segments, group);
   float* base = static_cast<float*>(ws);
   const long long chunks = static_cast<long long>(batch) * h * nc;
+  const long long cq = chunks * chunk;
+  const int tile = chunk < TQ ? chunk : TQ;
 
+  // the walk's boxes are a chunk's rows, the gradients' a tile's
   WalkArgs wa{};
-  int err = bf16_map_4d(&wa.dy, dy, p, h, s, batch, Q);
-  if (err == 0) err = bf16_map_4d(&wa.c, c, n, 1, s, batch, Q);
+  int err = bf16_map_4d(&wa.dy, dy, p, h, s, batch, chunk);
+  if (err == 0) err = bf16_map_4d(&wa.c, c, n, 1, s, batch, chunk);
   GradArgs ga{};
-  if (err == 0) err = bf16_map_4d(&ga.x, x, p, h, s, batch, Q);
-  if (err == 0) ga.dy = wa.dy;
-  if (err == 0) err = bf16_map_4d(&ga.b, b, n, 1, s, batch, Q);
+  if (err == 0) err = bf16_map_4d(&ga.x, x, p, h, s, batch, tile);
+  if (err == 0) err = bf16_map_4d(&ga.dy, dy, p, h, s, batch, tile);
+  if (err == 0) err = bf16_map_4d(&ga.b, b, n, 1, s, batch, tile);
+  if (err == 0) err = bf16_map_4d(&ga.c, c, n, 1, s, batch, tile);
   if (err != 0) return err;
-  ga.c = wa.c;
   wa.dt = ga.dt = dt;
   wa.a_log = ga.a_log = a_log;
   wa.dstate = dstate;
@@ -1495,54 +1800,54 @@ extern "C" int ssd_chunk_bwd_launch(
   wa.s = ga.s = s, wa.h = ga.h = h, wa.p = ga.p = p, wa.n = ga.n = n;
   wa.nc = ga.nc = nc, wa.segments = segments;
   ga.dx = static_cast<bf16*>(dx);
-  ga.rc = base + l.scalars;
-  ga.u = ga.rc + chunks * Q;
-  ga.v = ga.u + chunks * Q;
-  ga.ddtp = ga.v + chunks * Q;
+  ga.cq = cq;
+  ga.dxs = static_cast<long long>(batch) * s * h * p;
+  if (chunk > 128) {
+    // row sums, column sums (two slots each), u, v, ddt's partial (two)
+    ga.rsum = base + l.scalars;
+    ga.csum = ga.rsum + 2 * cq;
+    ga.u = ga.csum + 2 * cq;
+    ga.v = ga.u + cq;
+    ga.ddtp = ga.v + cq;
+    ga.dxp = base + l.dxp;
+  } else {
+    ga.rc = base + l.scalars;
+    ga.u = ga.rc + cq;
+    ga.v = ga.u + cq;
+    ga.ddtp = ga.v + cq;
+  }
   ga.dec = base + l.dec;
   ga.dbp = base + l.partial;
-  ga.dcp = ga.dbp + static_cast<long long>(batch) * groups * nc * Q * n;
+  ga.dcp = ga.dbp + static_cast<long long>(batch) * groups *
+                        (chunk > 128 ? 2 : 1) * nc * chunk * n;
   ga.group = group, ga.groups = groups;
   SumArgs sa{};
   sa.dt = dt;
   sa.a_log = a_log;
   sa.rc = ga.rc, sa.u = ga.u, sa.v = ga.v, sa.ddtp = ga.ddtp;
+  sa.rsum = ga.rsum, sa.csum = ga.csum, sa.dxp = ga.dxp;
   sa.dec = ga.dec, sa.rs8 = wa.rs8, sa.dbp = ga.dbp, sa.dcp = ga.dcp;
   sa.share = base + l.share;
   sa.ddt = ddt, sa.da = da_log, sa.db = db, sa.dc = dc;
+  sa.dx = static_cast<bf16*>(dx);
+  sa.cq = cq, sa.dxs = ga.dxs;
   sa.count = static_cast<int*>(ws) + 1 + units;
-  sa.batch = batch, sa.s = s, sa.h = h, sa.n = n, sa.nc = nc;
+  sa.batch = batch, sa.s = s, sa.h = h, sa.p = p, sa.n = n, sa.nc = nc;
   sa.groups = groups;
 
-  if (int e = mark(marks, 0, stream)) return e;
-  cudaError_t e = cudaMemsetAsync(ws, 0, l.header * 4, stream);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(ssd_bwd_walk,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           walk::BYTES);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  ssd_bwd_walk<<<static_cast<unsigned>(units), THREADS, walk::BYTES,
-                 stream>>>(wa);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (int m = mark(marks, 1, stream)) return m;
-  e = cudaFuncSetAttribute(ssd_bwd_grads,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           grads::BYTES);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  ssd_bwd_grads<<<static_cast<unsigned>(static_cast<long long>(batch) * nc *
-                                        groups),
-                  THREADS, grads::BYTES, stream>>>(ga);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (int m = mark(marks, 2, stream)) return m;
-  const long long quads = static_cast<long long>(batch) * s * n / 4;
-  const int elem_blocks =
-      static_cast<int>((quads + SUM_THREADS - 1) / SUM_THREADS);
-  const int per_head = (batch * nc + SUM_WARPS - 1) / SUM_WARPS;
-  ssd_bwd_sum<<<static_cast<unsigned>(h * per_head + elem_blocks),
-                SUM_THREADS, 0, stream>>>(sa, per_head);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return mark(marks, 3, stream);
+  const long long hb = l.header * 4;
+  switch (chunk) {
+    case 32:
+      return run<32>(wa, ga, sa, units, batch, nc, groups, s, h, p, n, hb, ws,
+                     stream, marks);
+    case 64:
+      return run<64>(wa, ga, sa, units, batch, nc, groups, s, h, p, n, hb, ws,
+                     stream, marks);
+    case 128:
+      return run<128>(wa, ga, sa, units, batch, nc, groups, s, h, p, n, hb,
+                      ws, stream, marks);
+    default:
+      return run<256>(wa, ga, sa, units, batch, nc, groups, s, h, p, n, hb,
+                      ws, stream, marks);
+  }
 }

@@ -72,6 +72,25 @@
 //     buffers, one formed while the other's products run; every chain of
 //     products starts from zero, and its sum with other terms is made on
 //     the CUDA cores after the wait.
+// Chunk lengths.  One instance per Q of CHUNKS (32, 64, 128, 256), the
+// chunk length a template argument; Q = 128 is the design above.
+//   * Q = 32, 64: a chunk lands in the first Q rows of the stage's 128-row
+//     blocks (TMA boxes of Q rows; the other rows zeroed once, never
+//     written), so a chunk runs as one of 128 whose steps past Q have dt 0
+//     (cs stays at its last value, w and the decay's factor are 1): the
+//     same products, sums and state hand-off as Q = 128, a chunk's worth
+//     of work for Q steps.  A row tile wholly past the chunk stores its y
+//     (zeros) at row 2^30, where TMA writes nothing.
+//   * Q = 256: a stage holds the whole chunk (blocks of 256 rows, 160 KB),
+//     so one stage: a chunk's loads wait for the chunk before to be done.
+//     Each warpgroup takes its two 64-row tiles in turn, the causal scores
+//     walked in 64-key blocks (four), the state update over 16 k16 steps.
+//   * Every instance but the served Q = 128 one takes one k16 step a group
+//     of products (Q = 64 spilled a register with two; Q = 256's rolled
+//     loops spilled or serialized every wgmma, C7512), and Q = 256's loops
+//     over key blocks and update groups stay rolled, each trip ending with
+//     no product in flight (carried over the back edge, ptxas serialized or
+//     spilled).  No instance spills or serializes.
 // What ptxas taught (its notes in the build log; kernel_timing's times):
 //   * no product may sit on a branch, even one uniform over the block: a
 //     runtime test around each k16 step made every product a group of its
@@ -85,9 +104,10 @@
 //     loop; before that ptxas serialized every wgmma (C7511);
 //   * a select around each exp of M compiled to a branch per value, which
 //     left the exps' latencies unoverlapped.
-// Shared memory: two stages of 80 KB, the state's three parts (48 KB), the
-// scan's arrays: 217,176 bytes, one block an SM; 168 registers (the cap of
-// ten warps), no spills.  The STATES instance writes each chunk's incoming
+// Shared memory at Q <= 128: two stages of 80 KB, the state's three parts
+// (48 KB), the scan's arrays: 217,176 bytes, one block an SM; at Q = 256
+// one stage of 160 KB: 217,136 bytes.  168 registers (the cap of ten
+// warps), no spills.  The STATES instance writes each chunk's incoming
 // state from its parts in shared memory (write_states) and forms its A
 // operands one k16 step at a time: the served instance sits at the cap, and
 // any store of the states on the consumers' path spilled there (72 bytes
@@ -122,33 +142,42 @@ using bf16 = __nv_bfloat16;
 using namespace hopper;
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int Q = 128;  // chunk length
 constexpr int MAX_P = 64;
 constexpr int MAX_N = 128;
-constexpr int STAGES = 2;
 constexpr int CONSUMERS = 256;           // two warpgroups
 constexpr int THREADS = CONSUMERS + 64;  // and the producer and scan warps
 constexpr int SYNC = 1;                  // the consumers' named barrier
 constexpr int STEPS = 2;  // k16 steps of a group of products, A in registers
-// a 128-row block of 64 bf16 columns in the 128-byte swizzle, and 64 rows
-// of it
-constexpr int BLK = Q * 128;
-constexpr int HALF = 64 * 128;
-// a stage: x (one block), B and C (two blocks each)
-constexpr int B_OFF = BLK;
-constexpr int C_OFF = 3 * BLK;
-constexpr int STAGE = 5 * BLK;
-// one bf16 part of the state, (p, n) K-major: two blocks of 64 rows
-constexpr int PART = 2 * HALF;
-constexpr int PARTS = STAGES * STAGE;
-// the scan's arrays a stage: dt, cs, exp(cs), w, then the chunk decay
-constexpr int SCAN = PARTS + 3 * PART;
-constexpr int SCAN_FLOATS = 4 * Q + 4;
-constexpr int BARS = SCAN + STAGES * SCAN_FLOATS * 4;
-constexpr int BYTES = BARS + 3 * STAGES * 8 + 8;
+constexpr int HALF = 64 * 128;  // 64 rows of a block
+constexpr int PART = 2 * HALF;  // one bf16 part of the state, (p, n) K-major
+
+// The shared-memory layout of the instance for chunks of Q steps.  A stage
+// holds one chunk: x (one block), B and C (two blocks each), a block being
+// TR rows of 64 bf16 columns in the 128-byte swizzle.  TR is Q from 128 up;
+// a shorter chunk lands in the first Q rows of 128-row blocks whose other
+// rows stay zero (they neither decay nor contribute), so every instance
+// runs the Q = 128 instance's two row tiles of 64.  Q = 256 holds one stage
+// (two would take 320 KB): its loads wait for the chunk before to be done.
+template <int Q>
+struct Tc {
+  static constexpr int TR = Q > 128 ? Q : 128;
+  static constexpr int STAGES = Q > 128 ? 1 : 2;
+  static constexpr int BLK = TR * 128;
+  static constexpr int BOX = Q * 128;  // what TMA writes of a block
+  static constexpr int B_OFF = BLK;
+  static constexpr int C_OFF = 3 * BLK;
+  static constexpr int STAGE = 5 * BLK;
+  static constexpr int PARTS = STAGES * STAGE;
+  // the scan's arrays a stage: dt, cs, exp(cs), w, then the chunk decay
+  static constexpr int SCAN = PARTS + 3 * PART;
+  static constexpr int SCAN_FLOATS = 4 * TR + 4;
+  static constexpr int BARS = SCAN + STAGES * SCAN_FLOATS * 4;
+  static constexpr int BYTES = BARS + 3 * STAGES * 8 + 8;
+  static_assert(BYTES <= 232448, "shared memory");
+};
 
 struct Args {
-  CUtensorMap x, b, c;  // boxes of 64 columns x 128 rows
+  CUtensorMap x, b, c;  // boxes of 64 columns x the chunk's rows
   CUtensorMap yo;       // y, boxes of 64 columns x 64 rows
   const float* dt;
   const float* a_log;
@@ -203,15 +232,26 @@ __device__ __forceinline__ void st_release(int* p, int v) {
   asm volatile("st.release.gpu.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
-// STATES: also write each chunk's incoming state (the training path); the
-// served path is the instance without, its code unchanged
-template <bool STATES>
+// Q: the chunk length; STATES: also write each chunk's incoming state (the
+// training path); the served path is the instance without, its code
+// unchanged
+template <int Q, bool STATES>
 __global__ void __launch_bounds__(THREADS, 1)
 ssd_tc(const __grid_constant__ Args a) {
+  using L = Tc<Q>;
+  constexpr int TR = L::TR, STAGES = L::STAGES, BLK = L::BLK, BOX = L::BOX;
+  constexpr int B_OFF = L::B_OFF, C_OFF = L::C_OFF, STAGE = L::STAGE;
+  constexpr int PARTS = L::PARTS, SCAN = L::SCAN;
+  constexpr int SCAN_FLOATS = L::SCAN_FLOATS, BARS = L::BARS;
+  // row tiles of 64 a warpgroup takes in turn (warpgroup wg: 64 wg, then
+  // 64 (wg + 2)), and the chunk's 64-key blocks
+  constexpr int ROW_TILES = TR / 128, KEY_BLOCKS = TR / 64;
   // k16 steps of a group of products, A in registers: the STATES instance
   // takes one, which frees the registers its chunk states' write needs (with
-  // two it spilled); the served instance's code is unchanged
-  constexpr int KSTEPS = STATES ? 1 : STEPS;
+  // two it spilled), and so do the other chunk lengths (with two, Q = 64
+  // spilled one register and Q = 256's rolled loops spilled or serialized);
+  // the served Q = 128 instance's code is unchanged
+  constexpr int KSTEPS = STATES || Q != 128 ? 1 : STEPS;
   extern __shared__ __align__(1024) unsigned char sm[];
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + BARS);
   uint64_t* ready = full + STAGES;
@@ -236,6 +276,17 @@ ssd_tc(const __grid_constant__ Args a) {
       reinterpret_cast<uint4*>(sm + st * STAGE +
                                (r < BLK / 16 ? B_OFF : C_OFF) +
                                BLK)[r % (BLK / 16)] = make_uint4(0, 0, 0, 0);
+    }
+    fence_proxy_async();
+  }
+  if constexpr (BOX < BLK) {
+    // a chunk shorter than the blocks: the rows past it stay zero in each
+    // of a stage's five blocks
+    constexpr int PAD = (BLK - BOX) / 16;
+    for (int e = tid; e < STAGES * 5 * PAD; e += THREADS) {
+      const int blk = e / PAD;
+      reinterpret_cast<uint4*>(sm + blk * BLK + BOX)[e % PAD] =
+          make_uint4(0, 0, 0, 0);
     }
     fence_proxy_async();
   }
@@ -264,7 +315,7 @@ ssd_tc(const __grid_constant__ Args a) {
         const bool with_c = i >= n1;
         const int t0 = chunk_of(i) * Q;
         unsigned char* base = sm + st * STAGE;
-        mbar_expect_tx(full + st, BLK + (with_c ? 2 : 1) * nb * BLK);
+        mbar_expect_tx(full + st, BOX + (with_c ? 2 : 1) * nb * BOX);
         tma_load_4d(base, &a.x, full + st, 0, hd, t0, bi);
         for (int cb = 0; cb < nb; ++cb) {
           tma_load_4d(base + B_OFF + cb * BLK, &a.b, full + st, cb * 64, 0,
@@ -276,48 +327,54 @@ ssd_tc(const __grid_constant__ Args a) {
       }
     } else if (tid >= CONSUMERS + 32) {  // the scan warp
       const float al = -expf(a.a_log[hd]);
-      // the chunk's dt (zero past S), loaded one item ahead so that the
-      // loads run under the item before's cumsum
-      auto load_dt = [&](int i, float (&v)[Q / 32]) {
+      // the chunk's dt (zero past S and past the chunk's Q rows of the
+      // blocks), loaded one item ahead so that the loads run under the item
+      // before's cumsum
+      constexpr int DTS = Q / 32;  // values a lane
+      auto load_dt = [&](int i, float (&v)[DTS]) {
         const int t0 = chunk_of(i) * Q;
 #pragma unroll
-        for (int m = 0; m < Q / 32; ++m) {
+        for (int m = 0; m < DTS; ++m) {
           const int j = lane + 32 * m;
           v[m] = t0 + j < a.s ? a.dt[(static_cast<long long>(bi) * a.s + t0 +
                                       j) * a.h + hd]
                               : 0.f;
         }
       };
-      float next[Q / 32];
+      float next[DTS];
       load_dt(0, next);
       for (int i = 0; i < items; ++i) {
         const int st = i % STAGES;
-        float cur[Q / 32];
+        float cur[DTS];
 #pragma unroll
-        for (int m = 0; m < Q / 32; ++m) cur[m] = next[m];
+        for (int m = 0; m < DTS; ++m) cur[m] = next[m];
         if (i + 1 < items) load_dt(i + 1, next);
         if (i >= STAGES) mbar_wait(empty + st, (i / STAGES - 1) & 1);
         float* f = scan_of(i);
 #pragma unroll
-        for (int m = 0; m < Q / 32; ++m) f[lane + 32 * m] = cur[m];
+        for (int m = 0; m < TR / 32; ++m)
+          f[lane + 32 * m] = m < DTS ? cur[m < DTS ? m : 0] : 0.f;
         __syncwarp();
         if (lane == 0) {
           float run = 0.f;
 #pragma unroll 16
           for (int j = 0; j < Q; ++j) {
             run = __fadd_rn(run, __fmul_rn(al, f[j]));
-            f[Q + j] = run;
+            f[TR + j] = run;
           }
         }
         __syncwarp();
-        const float last = f[2 * Q - 1];
+        const float last = f[TR + Q - 1];
 #pragma unroll
-        for (int m = 0; m < Q / 32; ++m) {
+        for (int m = 0; m < TR / 32; ++m) {
           const int j = lane + 32 * m;
-          f[2 * Q + j] = expf(f[Q + j]);
-          f[3 * Q + j] = __fmul_rn(f[j], expf(__fsub_rn(last, f[Q + j])));
+          // the rows past the chunk: cs stays at its last value (dt 0)
+          if constexpr (Q < TR)
+            if (j >= Q) f[TR + j] = last;
+          f[2 * TR + j] = expf(f[TR + j]);
+          f[3 * TR + j] = __fmul_rn(f[j], expf(__fsub_rn(last, f[TR + j])));
         }
-        if (lane == 0) f[4 * Q] = expf(last);
+        if (lane == 0) f[4 * TR] = expf(last);
         __syncwarp();
         if (lane == 0) mbar_arrive(ready + st);
       }
@@ -330,7 +387,9 @@ ssd_tc(const __grid_constant__ Args a) {
   const int wg = __shfl_sync(FULL, tid >> 7, 0);
   const int w = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, qd = lane & 3;
   const int pr = 16 * w + g;  // this thread's state rows pr, pr + 8
-  const int ir = 64 * wg + pr;  // and chunk rows ir, ir + 8
+  // and its row tile and chunk rows ir, ir + 8 (Q = 256: the warpgroup's
+  // two row tiles in turn)
+  int rt = wg, ir = 64 * wg + pr;
   const long long pn = static_cast<long long>(a.p) * a.n;
   unsigned char* parts = sm + PARTS;
 
@@ -446,12 +505,13 @@ ssd_tc(const __grid_constant__ Args a) {
   // select around each exp made the compiler branch around it, one value
   // at a time, and the exps' latencies no longer overlapped; so every exp
   // is taken (of 0 above the diagonal, where exp(cs_i - cs_j) would
-  // overflow) and the causal mask multiplies.  Warpgroup 0's rows see no
-  // key of block 1: its M there is 0 and no exp is taken.
+  // overflow) and the causal mask multiplies.  A row tile's rows see no key
+  // of a later block (warpgroup 0's none of block 1): M there is 0 and no
+  // exp is taken.
   auto form_m = [&](int b, const float* f, int cb, int kk0) {
-    const float* cs = f + Q;
+    const float* cs = f + TR;
     const float c0 = cs[ir], c1 = cs[ir + 8];
-    const bool seen = 64 * cb <= 64 * wg + 63;
+    const bool seen = 64 * cb <= 64 * rt + 63;
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
       float m[8] = {};
@@ -486,15 +546,36 @@ ssd_tc(const __grid_constant__ Args a) {
   // cacc
   auto update = [&](int so, const float* f, uint64_t mbase) {
     const int boff = so + B_OFF + wg * BLK;
+    constexpr int GROUPS = TR / 16 / KSTEPS;
+    if constexpr (TR == 128) {
 #pragma unroll
-    for (int grp = 0; grp < Q / 16 / KSTEPS; ++grp) {
-      if (grp >= 2) wgmma_wait<1>();  // the buffer's last products are done
-      form_xw(grp & 1, sm + so, f + 3 * Q, grp * KSTEPS);
-      issue_rs(cacc, grp & 1, mbase, boff, grp * KSTEPS, grp == 0);
+      for (int grp = 0; grp < GROUPS; ++grp) {
+        if (grp >= 2) wgmma_wait<1>();  // the buffer's last products are done
+        form_xw(grp & 1, sm + so, f + 3 * TR, grp * KSTEPS);
+        issue_rs(cacc, grp & 1, mbase, boff, grp * KSTEPS, grp == 0);
+      }
+    } else {
+      // the groups two at a time in a loop kept rolled (unrolled over 256
+      // steps it spilled), the first pair apart, each trip ending with no
+      // product in flight (as in key_block)
+      form_xw(0, sm + so, f + 3 * TR, 0);
+      issue_rs(cacc, 0, mbase, boff, 0, true);
+      form_xw(1, sm + so, f + 3 * TR, KSTEPS);
+      issue_rs(cacc, 1, mbase, boff, KSTEPS, false);
+      wgmma_wait<0>();
+#pragma unroll 1
+      for (int g2 = 1; g2 < GROUPS / 2; ++g2) {
+        form_xw(0, sm + so, f + 3 * TR, 2 * g2 * KSTEPS);
+        issue_rs(cacc, 0, mbase, boff, 2 * g2 * KSTEPS, false);
+        wgmma_wait<1>();
+        form_xw(1, sm + so, f + 3 * TR, (2 * g2 + 1) * KSTEPS);
+        issue_rs(cacc, 1, mbase, boff, (2 * g2 + 1) * KSTEPS, false);
+        wgmma_wait<0>();
+      }
     }
     wgmma_wait<0>();
     fence_regs(cacc);
-    const float d = f[4 * Q];
+    const float d = f[4 * TR];
 #pragma unroll
     for (int r = 0; r < 32; ++r)
       st[r] = __fadd_rn(__fmul_rn(st[r], d), cacc[r]);
@@ -594,7 +675,7 @@ ssd_tc(const __grid_constant__ Args a) {
     bases(kbase, mbase);
     wait_in(i);
     const float* f = scan_of(i);
-    decay = __fmul_rn(decay, f[4 * Q]);
+    decay = __fmul_rn(decay, f[4 * TR]);
     update((i % STAGES) * STAGE, f, mbase);
     release(i);
   }
@@ -648,16 +729,14 @@ ssd_tc(const __grid_constant__ Args a) {
   for (int i = n1; i < items; ++i) {
     const int t0 = chunk_of(i) * Q;
     const int so = (i % STAGES) * STAGE;  // the stage's offset
-    const int crow = so + C_OFF + wg * HALF;  // this warpgroup's rows of C
     const float* f = scan_of(i);
     uint64_t kbase, mbase;
     bases(kbase, mbase);
     wait_in(i);
 
-    // y = M x over keys 0-63, then 64-127, each G = C B^T made first; each
-    // group of M's A operands made while the group before runs
-#pragma unroll
-    for (int cb = 0; cb < 2; ++cb) {
+    // y = M x over the keys of one 64-key block, G = C B^T made first;
+    // each group of M's A operands made while the group before runs
+    auto key_block = [&](int crow, int cb, bool first) {
       issue_ss(kbase, crow, so + B_OFF + cb * HALF, BLK, 1);
       wgmma_wait<0>();
       fence_regs(gacc);
@@ -666,44 +745,76 @@ ssd_tc(const __grid_constant__ Args a) {
         if (grp >= 2) wgmma_wait<1>();  // the buffer's last products are done
         form_m(grp & 1, f, cb, grp * KSTEPS);
         issue_rs(y, grp & 1, mbase, so, 4 * cb + grp * KSTEPS,
-                 cb == 0 && grp == 0);
+                 first && grp == 0);
       }
-    }
-    // y_off = C state_in^T, the incoming state in its three parts; y +=
-    // exp(cs_i) y_off
-    issue_ss(kbase, crow, PARTS, HALF, 3);
-    wgmma_wait<0>();
-    fence_regs(y);
-    fence_regs(gacc);
-    {
-      const float e0 = f[2 * Q + ir], e1 = f[2 * Q + ir + 8];
+      // a trip of a rolled loop ends with no product in flight (carried
+      // over the loop's back edge, ptxas serialized every wgmma, C7512,
+      // or spilled)
+      if constexpr (KEY_BLOCKS > 2) wgmma_wait<0>();
+    };
+    auto row_tile = [&]() {
+      const int crow = so + C_OFF + rt * HALF;  // the row tile's rows of C
+      if constexpr (KEY_BLOCKS == 2) {
 #pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        y[4 * t] = __fadd_rn(__fmul_rn(gacc[4 * t], e0), y[4 * t]);
-        y[4 * t + 1] = __fadd_rn(__fmul_rn(gacc[4 * t + 1], e0), y[4 * t + 1]);
-        y[4 * t + 2] = __fadd_rn(__fmul_rn(gacc[4 * t + 2], e1), y[4 * t + 2]);
-        y[4 * t + 3] = __fadd_rn(__fmul_rn(gacc[4 * t + 3], e1), y[4 * t + 3]);
+        for (int cb = 0; cb < 2; ++cb) key_block(crow, cb, cb == 0);
+      } else {
+        // (a loop kept rolled past the first block: unrolled it spilled)
+        key_block(crow, 0, true);
+#pragma unroll 1
+        for (int cb = 1; cb < KEY_BLOCKS; ++cb) key_block(crow, cb, false);
       }
-    }
-    {
-      // y in bf16 to device memory by TMA, staged over this warpgroup's
-      // rows of C (read by no other product of this chunk) in the layout
-      // the store reads; rows past S and columns past P are not written
-      unsigned char* ys = sm + crow;
+      // y_off = C state_in^T, the incoming state in its three parts; y +=
+      // exp(cs_i) y_off
+      issue_ss(kbase, crow, PARTS, HALF, 3);
+      wgmma_wait<0>();
+      fence_regs(y);
+      fence_regs(gacc);
+      {
+        const float e0 = f[2 * TR + ir], e1 = f[2 * TR + ir + 8];
 #pragma unroll
-      for (int t = 0; t < 8; ++t)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int r = pr + 8 * hf;
-          *reinterpret_cast<__nv_bfloat162*>(ys + r * 128 +
-                                             ((t ^ (r & 7)) << 4) + 4 * qd) =
-              __floats2bfloat162_rn(y[4 * t + 2 * hf], y[4 * t + 2 * hf + 1]);
+        for (int t = 0; t < 8; ++t) {
+          y[4 * t] = __fadd_rn(__fmul_rn(gacc[4 * t], e0), y[4 * t]);
+          y[4 * t + 1] =
+              __fadd_rn(__fmul_rn(gacc[4 * t + 1], e0), y[4 * t + 1]);
+          y[4 * t + 2] =
+              __fadd_rn(__fmul_rn(gacc[4 * t + 2], e1), y[4 * t + 2]);
+          y[4 * t + 3] =
+              __fadd_rn(__fmul_rn(gacc[4 * t + 3], e1), y[4 * t + 3]);
         }
-      fence_proxy_async();
-      named_sync(SYNC + 1 + wg, 128);
-      if ((tid & 127) == 0) {
-        tma_store_4d(&a.yo, ys, 0, hd, t0 + 64 * wg, bi);
-        bulk_commit();
+      }
+      {
+        // y in bf16 to device memory by TMA, staged over the row tile's
+        // rows of C (read by no other product of this chunk) in the layout
+        // the store reads; rows past S and columns past P are not written.
+        // A row tile wholly past a chunk shorter than the blocks (its y is
+        // zero) stores at row 2^30, past any S, where TMA writes nothing.
+        unsigned char* ys = sm + crow;
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int r = pr + 8 * hf;
+            *reinterpret_cast<__nv_bfloat162*>(ys + r * 128 +
+                                               ((t ^ (r & 7)) << 4) + 4 * qd) =
+                __floats2bfloat162_rn(y[4 * t + 2 * hf], y[4 * t + 2 * hf + 1]);
+          }
+        fence_proxy_async();
+        named_sync(SYNC + 1 + wg, 128);
+        if ((tid & 127) == 0) {
+          tma_store_4d(&a.yo, ys, 0, hd,
+                       Q >= 128 || 64 * rt < Q ? t0 + 64 * rt : 1 << 30, bi);
+          bulk_commit();
+        }
+      }
+    };
+    if constexpr (ROW_TILES == 1) {
+      row_tile();
+    } else {
+#pragma unroll 1
+      for (int r2 = 0; r2 < ROW_TILES; ++r2) {
+        rt = wg + 2 * r2;
+        ir = 64 * rt + pr;
+        row_tile();
       }
     }
     read_parts();
@@ -724,20 +835,47 @@ ssd_tc(const __grid_constant__ Args a) {
 
 long long header_ints(long long units) { return (1 + units + 3) / 4 * 4; }
 
+// the chunk lengths of the instances
+constexpr int CHUNKS[] = {32, 64, 128, 256};
+
+template <int Q, bool STATES>
+int launch(const Args& a, long long units, cudaStream_t stream) {
+  constexpr int BYTES = Tc<Q>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      ssd_tc<Q, STATES>, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ssd_tc<Q, STATES>
+      <<<static_cast<unsigned>(units), THREADS, BYTES, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int Q>
+int launch_q(const Args& a, long long units, bool states,
+             cudaStream_t stream) {
+  return states ? launch<Q, true>(a, units, stream)
+                : launch<Q, false>(a, units, stream);
+}
+
 }  // namespace
 
-extern "C" int ssd_chunk_tc_len() { return Q; }
+// the chunk lengths of the instances: their count, each written to out[i]
+// for i below `cap`
+extern "C" int ssd_chunk_tc_chunks(int* out, int cap) {
+  const int count = static_cast<int>(sizeof(CHUNKS) / sizeof(CHUNKS[0]));
+  for (int i = 0; i < count && i < cap; ++i) out[i] = CHUNKS[i];
+  return count;
+}
 extern "C" int ssd_chunk_tc_max_p() { return MAX_P; }
 extern "C" int ssd_chunk_tc_max_n() { return MAX_N; }
-extern "C" int ssd_chunk_tc_smem() { return BYTES; }
-
-template <bool STATES>
-int launch(const Args& a, long long units, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      ssd_tc<STATES>, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  ssd_tc<STATES><<<static_cast<unsigned>(units), THREADS, BYTES, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+// dynamic shared memory of the instance for chunks of `q` steps, or 0
+extern "C" int ssd_chunk_tc_smem(int q) {
+  switch (q) {
+    case 32: return Tc<32>::BYTES;
+    case 64: return Tc<64>::BYTES;
+    case 128: return Tc<128>::BYTES;
+    case 256: return Tc<256>::BYTES;
+  }
+  return 0;
 }
 
 // bytes of the workspace a call with `units` = batch * h * segments takes:
@@ -750,16 +888,19 @@ extern "C" long long ssd_chunk_tc_workspace(long long units, int p, int n) {
 // x, y: (batch, s, h, p); b, c: (batch, s, n), all bf16 and 16-byte
 // aligned; dt: (batch, s, h) and a_log: (h,) float32; final_state: (batch,
 // h, p, n) float32; ws: ssd_chunk_tc_workspace(batch * h * segments, p, n)
-// bytes, 16-byte aligned; states: null, or (batch, h, ceil(s / Q), p, n)
-// float32 for each chunk's incoming state.  Everything contiguous; p and n
-// multiples of 8, p <= MAX_P, n <= MAX_N, 1 <= segments <= ceil(s / Q).
+// bytes, 16-byte aligned; states: null, or (batch, h, ceil(s / chunk), p, n)
+// float32 for each chunk's incoming state.  Everything contiguous; chunk one
+// of CHUNKS; p and n multiples of 8, p <= MAX_P, n <= MAX_N, 1 <= segments
+// <= ceil(s / chunk).
 extern "C" int ssd_chunk_tc_launch(const void* x, const float* dt,
                                    const float* a_log, const void* b,
                                    const void* c, void* y, float* final_state,
                                    void* ws, float* states, int batch, int s,
-                                   int h, int p, int n, int segments,
+                                   int h, int p, int n, int chunk, int segments,
                                    cudaStream_t stream) {
-  const int nc = s > 0 ? (s + Q - 1) / Q : 0;
+  if (ssd_chunk_tc_smem(chunk) == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nc = s > 0 ? (s + chunk - 1) / chunk : 0;
   const long long units = static_cast<long long>(batch) * h * segments;
   if (batch <= 0 || s <= 0 || h <= 0 || p <= 0 || n <= 0 || p > MAX_P ||
       n > MAX_N || p % 8 != 0 || n % 8 != 0 || segments < 1 ||
@@ -770,10 +911,12 @@ extern "C" int ssd_chunk_tc_launch(const void* x, const float* dt,
     if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
       return static_cast<int>(cudaErrorMisalignedAddress);
   Args a{};
-  int err = bf16_map_4d(&a.x, x, p, h, s, batch, Q);
-  if (err == 0) err = bf16_map_4d(&a.b, b, n, 1, s, batch, Q);
-  if (err == 0) err = bf16_map_4d(&a.c, c, n, 1, s, batch, Q);
-  if (err == 0) err = bf16_map_4d(&a.yo, y, p, h, s, batch, 64);
+  // boxes of 64 columns by the chunk's rows; y's by 64 rows (or the chunk)
+  int err = bf16_map_4d(&a.x, x, p, h, s, batch, chunk);
+  if (err == 0) err = bf16_map_4d(&a.b, b, n, 1, s, batch, chunk);
+  if (err == 0) err = bf16_map_4d(&a.c, c, n, 1, s, batch, chunk);
+  if (err == 0)
+    err = bf16_map_4d(&a.yo, y, p, h, s, batch, chunk < 64 ? chunk : 64);
   if (err != 0) return err;
   a.dt = dt;
   a.a_log = a_log;
@@ -785,6 +928,11 @@ extern "C" int ssd_chunk_tc_launch(const void* x, const float* dt,
   a.s = s, a.h = h, a.p = p, a.n = n, a.nc = nc, a.segments = segments;
   const cudaError_t e = cudaMemsetAsync(ws, 0, header_ints(units) * 4, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return states != nullptr ? launch<true>(a, units, stream)
-                           : launch<false>(a, units, stream);
+  const bool with = states != nullptr;
+  switch (chunk) {
+    case 32: return launch_q<32>(a, units, with, stream);
+    case 64: return launch_q<64>(a, units, with, stream);
+    case 128: return launch_q<128>(a, units, with, stream);
+    default: return launch_q<256>(a, units, with, stream);
+  }
 }

@@ -26,10 +26,11 @@ tensor-core kernel is a kernel of its own (`kernel_bwd.ssd_chunk_bwd_kernel`,
 
 What they compute: `ref.ssd_chunk_ref` (the SSD output y) and
 `ref.ssd_final_state` (the recurrent state after the last step) in one
-call, up to the order of the float32 sums, over chunks of `CHUNK` steps
-(the tail chunk masked).  `ref.ssd_chunk_segmented` runs the tensor-core
-kernel's decomposition and roundings on the CPU, `ref.ssd_chunk_blocked`
-the CUDA-core kernel's.  Any S is taken; P and N up to `MAX_P` and `MAX_N`.
+call, up to the order of the float32 sums, over chunks of ``chunk`` steps,
+one of `CHUNKS` (the tail chunk masked).  `ref.ssd_chunk_segmented` runs
+the tensor-core kernel's decomposition and roundings on the CPU,
+`ref.ssd_chunk_blocked` the CUDA-core kernel's.  Any S is taken; P and N
+up to `MAX_P` and `MAX_N`.
 
 Bound on the H100: memory.  One layer's prefill of mamba2-1.3b at S = 4096
 moves 72.4 MB (x and y in bf16, b, c, dt and the final state) against 12.9
@@ -48,10 +49,10 @@ from .._build import load_library
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_chunk.cu"
 _SOURCE_TC = _SOURCE.with_name("ssd_chunk_tc.cu")
 
-# the kernels' chunk length and largest head dim and state size (``Q``,
-# ``MAX_P`` and ``MAX_N`` in both CUDA sources, which the libraries report
-# back when they are loaded)
-CHUNK = 128
+# the chunk lengths the kernels have an instance for, and their largest head
+# dim and state size (``CHUNKS``, ``MAX_P`` and ``MAX_N`` in the CUDA
+# sources, which the libraries report back when they are loaded)
+CHUNKS = (32, 64, 128, 256)
 MAX_P = 64
 MAX_N = 128
 
@@ -64,6 +65,16 @@ SMS = 132
 LAUNCHES = {"ssd_chunk": 0, "ssd_chunk_tc": 0}
 
 
+def built_chunks(lib, prefix: str) -> tuple:
+    """The chunk lengths a loaded library has instances for, as it reports
+    them (``<prefix>_chunks``)."""
+    fn = getattr(lib, f"{prefix}_chunks")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 8)()
+    return tuple(out[:min(fn(out, 8), 8)])
+
+
 def _load(source, prefix: str, n_ptrs: int, n_ints: int):
     lib = load_library(source)
     launch = getattr(lib, f"{prefix}_launch")
@@ -71,42 +82,55 @@ def _load(source, prefix: str, n_ptrs: int, n_ints: int):
         launch.argtypes = [ctypes.c_void_p] * n_ptrs + [
             ctypes.c_int] * n_ints + [ctypes.c_void_p]
         launch.restype = ctypes.c_int
-        sizes = [getattr(lib, f"{prefix}_{x}") for x in ("len", "max_p",
-                                                          "max_n")]
+        sizes = [getattr(lib, f"{prefix}_{x}") for x in ("max_p", "max_n")]
         for fn in sizes:
             fn.argtypes = []
             fn.restype = ctypes.c_int
-        built = tuple(fn() for fn in sizes)
-        if built != (CHUNK, MAX_P, MAX_N):
-            raise RuntimeError(f"{source.name} has (chunk, max P, max N) = "
-                               f"{built}, the wrapper {(CHUNK, MAX_P, MAX_N)}")
+        built = (built_chunks(lib, prefix),) + tuple(fn() for fn in sizes)
+        if built != (CHUNKS, MAX_P, MAX_N):
+            raise RuntimeError(
+                f"{source.name} has (chunks, max P, max N) = {built}, the "
+                f"wrapper {(CHUNKS, MAX_P, MAX_N)}")
     return lib
+
+
+def check_chunk(chunk: int) -> int:
+    """``chunk`` if the CUDA kernels have an instance for it (`CHUNKS`), else
+    ``ValueError``.  The reference takes any chunk length that divides S;
+    the card takes these four."""
+    if chunk not in CHUNKS:
+        raise ValueError(f"the CUDA kernels scan chunks of {CHUNKS} steps, "
+                         f"not {chunk}")
+    return int(chunk)
 
 
 def _lib():
-    return _load(_SOURCE, "ssd_chunk", 9, 6)
+    return _load(_SOURCE, "ssd_chunk", 9, 7)
 
 
 def _lib_tc():
-    lib = _load(_SOURCE_TC, "ssd_chunk_tc", 9, 6)
+    lib = _load(_SOURCE_TC, "ssd_chunk_tc", 9, 7)
     lib.ssd_chunk_tc_workspace.argtypes = [ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_int]
     lib.ssd_chunk_tc_workspace.restype = ctypes.c_longlong
+    lib.ssd_chunk_tc_smem.argtypes = [ctypes.c_int]
+    lib.ssd_chunk_tc_smem.restype = ctypes.c_int
     return lib
 
 
-def segment_count(bsz: int, h: int, s: int) -> int:
+def segment_count(bsz: int, h: int, s: int, chunk: int = 128) -> int:
     """Segments a head for the tensor-core kernel at batch ``bsz``, ``h``
-    heads and ``s`` steps: as many as one wave of blocks holds (a block
-    takes an SM: 217 KB of shared memory), at most one a chunk, at least
-    one.  So 1 where the sequence is one chunk or the B * H units alone
-    fill the card's `SMS`, and 2 at mamba2-1.3b's B 1, H 64 for any S past
-    one chunk.  A second wave waits for the first, and every segment but a
-    head's last runs a pass over its chunks of its own, so the fewest
+    heads, ``s`` steps and chunks of ``chunk``: as many as one wave of
+    blocks holds (a block takes an SM: 217 KB of shared memory at every
+    chunk length), at most one a chunk, at least one.  So 1 where the
+    sequence is one chunk or the B * H units alone fill the card's `SMS`,
+    and 2 at mamba2-1.3b's B 1, H 64 for any S past one chunk.  A second
+    wave waits for the first, and every segment but a head's last runs a
+    pass over its chunks of its own, so the fewest
     segments that fill the card once take the least time (`chip_smoke.py`'s
     ``kernel_timing`` line for ``ssd_chunk_tc`` times 1, 2 and 4 segments
     at B 1, H 64, S 4,096)."""
-    n_chunks = -(-s // CHUNK)
+    n_chunks = -(-s // chunk)
     return max(1, min(n_chunks, SMS // (bsz * h)))
 
 
@@ -117,19 +141,22 @@ def uses_tensor_cores(dtype, p: int, n: int) -> bool:
     return dtype == torch.bfloat16 and p % 8 == 0 and n % 8 == 0
 
 
-def ssd_chunk_kernel(x, dt, a_log, b, c, *, segments: int | None = None,
+def ssd_chunk_kernel(x, dt, a_log, b, c, *, chunk: int = 128,
+                     segments: int | None = None,
                      return_states: bool = False):
     """x (B, S, H, P), b and c (B, S, N), all float32 or all bf16; dt
     (B, S, H) and a_log (H,) float32; contiguous CUDA tensors on one
-    device.  Returns (y (B, S, H, P) in x's dtype, final state (B, H, P, N)
-    float32).  Launches the tensor-core kernel for bf16 with P and N
-    multiples of 8, the CUDA-core kernel otherwise (`uses_tensor_cores`),
+    device; ``chunk`` one of `CHUNKS`.  Returns (y (B, S, H, P) in x's
+    dtype, final state (B, H, P, N) float32).  Launches the tensor-core
+    kernel for bf16 with P and N multiples of 8, the CUDA-core kernel
+    otherwise (`uses_tensor_cores`),
     on the current stream; raises on any tensor it does not take or on a
     failed launch.  ``segments`` sets the tensor-core kernel's segments a
     head (at most one a chunk), for tests and timing; by default
     `segment_count` of the shape.  ``return_states`` (the tensor-core
     kernel only) also returns each chunk's incoming state, (B, H, chunks, P,
     N) float32, as a third value."""
+    chunk = check_chunk(chunk)
     ok = (x.dim() == 4 and b.dim() == 3 and c.shape == b.shape
           and b.shape[:2] == x.shape[:2] and dt.shape == x.shape[:3]
           and a_log.shape == x.shape[2:3]
@@ -153,7 +180,7 @@ def ssd_chunk_kernel(x, dt, a_log, b, c, *, segments: int | None = None,
         raise ValueError("only the tensor-core kernel writes the chunk "
                          "states: bf16 x, b and c with P and N multiples of 8")
     y = torch.empty_like(x)
-    n_chunks = -(-s // CHUNK)
+    n_chunks = -(-s // chunk)
     chunk_in = torch.empty((bsz, h, n_chunks, p, n), dtype=torch.float32,
                            device=x.device) if return_states else None
     if x.numel() == 0 or n == 0:
@@ -168,7 +195,7 @@ def ssd_chunk_kernel(x, dt, a_log, b, c, *, segments: int | None = None,
             c.data_ptr(), y.data_ptr(), state.data_ptr())
     if tc:
         lib = _lib_tc()
-        seg = segment_count(bsz, h, s) if segments is None else max(
+        seg = segment_count(bsz, h, s, chunk) if segments is None else max(
             1, min(int(segments), n_chunks))
         # the unit counter and status words, then an inclusive state a unit
         ws = torch.empty(lib.ssd_chunk_tc_workspace(bsz * h * seg, p, n),
@@ -184,13 +211,13 @@ def ssd_chunk_kernel(x, dt, a_log, b, c, *, segments: int | None = None,
             err = lib.ssd_chunk_tc_launch(
                 *ptrs, ws.data_ptr(),
                 None if chunk_in is None else chunk_in.data_ptr(), bsz, s, h,
-                p, n, seg, stream)
+                p, n, chunk, seg, stream)
         else:
             scratch = ((states.data_ptr(), decay.data_ptr())
                        if n_chunks > 1 else (None, None))
             err = _lib().ssd_chunk_launch(
                 *ptrs, *scratch, int(x.dtype == torch.bfloat16), bsz, s, h,
-                p, n, stream)
+                p, n, chunk, stream)
     name = "ssd_chunk_tc" if tc else "ssd_chunk"
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import CHUNK, ssd_chunk_kernel, uses_tensor_cores
+from .kernel import check_chunk, ssd_chunk_kernel, uses_tensor_cores
 from .kernel_bwd import ssd_chunk_bwd_kernel
 from .ref import ssd_chunk_bwd_plain, ssd_chunk_ref, ssd_final_state
 
@@ -42,6 +42,7 @@ class SSDChunk(torch.autograd.Function):
         ctx.chunk = chunk
         if x.is_cuda:
             y, state, states = ssd_chunk_kernel(x, dt, a_log, b, c,
+                                                chunk=chunk,
                                                 return_states=True)
             ctx.save_for_backward(x, dt, a_log, b, c, states)
         else:
@@ -57,7 +58,7 @@ class SSDChunk(torch.autograd.Function):
         if x.is_cuda:
             dstate = None if dstate is None else dstate.float().contiguous()
             grads = ssd_chunk_bwd_kernel(x, dt, a_log, b, c, dy.contiguous(),
-                                         dstate, states[0])
+                                         dstate, states[0], chunk=ctx.chunk)
         else:
             grads = ssd_chunk_bwd_plain(x, dt, a_log, b, c, dy, dstate,
                                         chunk=ctx.chunk)
@@ -69,7 +70,10 @@ class SSDChunk(torch.autograd.Function):
 def ssd_chunk(x, dt, a_log, b, c, *, chunk: int = 128):
     """x: (B, S, H, P); dt: (B, S, H); a_log: (H,); b, c: (B, S, N) ->
     (y (B, S, H, P) in x's dtype, final state (B, H, P, N) float32);
-    differentiable in all five inputs.  x, b and c go to the kernel in
+    differentiable in all five inputs.  On the card ``chunk`` must be one
+    of `kernel.CHUNKS` (`kernel.check_chunk` raises ``ValueError`` for any
+    other); on the CPU any chunk length is taken, as the reference takes
+    any.  x, b and c go to the kernel in
     their dtype when all three are bf16, else in float32; on the CPU a
     float64 x computes in float64."""
     ct = torch.float64 if not x.is_cuda and x.dtype == torch.float64 \
@@ -80,9 +84,7 @@ def ssd_chunk(x, dt, a_log, b, c, *, chunk: int = 128):
         t.requires_grad for t in (x, dt, a_log, b, c))
     out_dtype = x.dtype
     if x.is_cuda:
-        if chunk != CHUNK:
-            raise ValueError(f"the CUDA kernel scans chunks of {CHUNK} "
-                             f"steps, not {chunk}")
+        check_chunk(chunk)
         dtype = torch.bfloat16 if x.dtype == b.dtype == c.dtype == \
             torch.bfloat16 else torch.float32
         if grad and not uses_tensor_cores(dtype, x.shape[-1], b.shape[-1]):
@@ -94,7 +96,7 @@ def ssd_chunk(x, dt, a_log, b, c, *, chunk: int = 128):
     if grad:
         y, state = SSDChunk.apply(x, dt, a_log, b, c, chunk)
     elif x.is_cuda:
-        y, state = ssd_chunk_kernel(x, dt, a_log, b, c)
+        y, state = ssd_chunk_kernel(x, dt, a_log, b, c, chunk=chunk)
     else:
         return (ssd_chunk_ref(x, dt, a_log, b, c, chunk=chunk),
                 ssd_final_state(x, dt, a_log, b, chunk=chunk))

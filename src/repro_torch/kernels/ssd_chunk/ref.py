@@ -446,9 +446,15 @@ def ssd_chunk_bwd_segmented(x, dt, a_log, b, c, dy, dstate=None, *,
     three bf16 parts, w_j and exp(cs_i) applied to their products before
     the rest is added; dG summed over the group's heads in head order,
     then dB = dG_grp^T C + w . (x R) and dC = dG_grp B + exp(cs) . (dY S),
-    each head's term added in head order; q_j = B_j . (x R)_j.  3, the
-    sums: dB and dC over the groups in order; d cs by `_dcs`, its reverse
-    cumsum one add a step from the chunk's last step, begun from ``sum v +
+    each head's term added in head order; q_j = B_j . (x R)_j.  A 256-step
+    chunk's gradients go by its tiles of 128 rows: the pairs (rows j, keys
+    i) = (0, 0), (0, 1) and (1, 1), each as a chunk of 128 with the causal
+    mask taken over the chunk and the R and S terms on the diagonal pairs
+    only; the pair off the diagonal's dx, dB, ddt's partial and column sums
+    (rows of the first tile) and dC and row sums (rows of the second) go in
+    a second slot, added after the first.  3, the sums: dB and dC over
+    the groups in order; d cs by `_dcs`, its reverse cumsum one add a step
+    from the chunk's last step, begun from ``sum v +
     exp(cs_Q) <R, S>``; ddt; da_log's share a (batch row, chunk, head),
     summed over batch rows, then chunks, in order."""
     _check(x, dt, a_log, b, c)
@@ -468,8 +474,6 @@ def ssd_chunk_bwd_segmented(x, dt, a_log, b, c, dy, dstate=None, *,
     n_seg = max(1, min(int(segments), nc))
     bounds = [k * nc // n_seg for k in range(n_seg + 1)]
     group = max(1, int(group))
-    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
-                                   device=x.device))
 
     def parts(eq, weights, other):
         return sum(torch.einsum(eq, part, other)
@@ -499,55 +503,87 @@ def ssd_chunk_bwd_segmented(x, dt, a_log, b, c, dy, dstate=None, *,
             r = r_step(r, ci)
     rs = (adj * states).sum((-1, -2)).permute(0, 2, 1)         # (b,c,h)
 
-    # 2. the gradients, a chunk and a group of heads at a time
+    # 2. the gradients, a chunk, tile pair and group of heads at a time: a
+    # chunk up to 128 steps is one tile; a 256-step chunk two tiles of 128
+    # rows, whose pairs (rows j, keys i) = (0, 0), (0, 1), (1, 1) put their
+    # partials in slot ti - tj, the R and S terms on the diagonal only
     groups = [range(g0, min(h, g0 + group)) for g0 in range(0, h, group)]
-    dx = x_c.new_zeros(x_c.shape)
-    row_t, col_t, u, v, ddtp = (dt_c.new_zeros(dt_c.shape) for _ in range(5))
-    dbp = b_c.new_zeros((bsz, len(groups), nc, chunk, n))
-    dcp = b_c.new_zeros((bsz, len(groups), nc, chunk, n))
+    tile = min(chunk, 128)
+    n_t = chunk // tile
+    tile_pairs = [(tj, ti) for tj in range(n_t) for ti in range(tj, n_t)]
+    slots = 2 if n_t > 1 else 1
+    pos = torch.arange(chunk, device=x.device)
+    dxp = x_c.new_zeros((slots,) + x_c.shape)
+    rsum, csum, ddtp = (dt_c.new_zeros((slots,) + dt_c.shape)
+                        for _ in range(3))
+    u, v = (dt_c.new_zeros(dt_c.shape) for _ in range(2))
+    dbp = b_c.new_zeros((bsz, len(groups), slots, nc, chunk, n))
+    dcp = b_c.new_zeros((bsz, len(groups), slots, nc, chunk, n))
     for ci in range(nc):
-        xq, dyq, bq, cq = x_c[:, ci], dy_c[:, ci], b_c[:, ci], c_c[:, ci]
-        csq, dtq, wq = cs[:, ci], dt_c[:, ci], w[:, ci]        # (b,h,q)
         big_r, big_s = adj[:, :, ci], states[:, :, ci]         # (b,h,p,n)
-        g = torch.einsum("bin,bjn->bij", cq, bq)
-        seg = torch.where(causal, csq[..., :, None] - csq[..., None, :], 0.0)
-        big_l = torch.where(causal, torch.exp(seg), 0.0)
-        gl = g[:, None] * big_l
-        m = gl * dtq[..., None, :]
-        dm = torch.einsum("bihp,bjhp->bhij", dyq, xq) * causal
-        dg = dm * big_l * dtq[..., None, :]
-        t = dm * m
-        row_t[:, ci], col_t[:, ci] = t.sum(-1), t.sum(-2)
-        # J: rows j
-        br = parts("bhpn,bjn->bjhp", big_r, bq)
-        dx[:, ci] = parts("bhij,bihp->bjhp", m, dyq) \
-            + br * wq.permute(0, 2, 1)[..., None]
-        # K: rows j; q_j = B_j . (x R)_j
-        xr = parts("bhpn,bjhp->bhjn", big_r, xq)
-        qv = (bq[:, None] * xr).sum(-1)                        # (b,h,j)
-        v[:, ci] = wq * qv
-        ddtp[:, ci] = (dm * gl).sum(-2) + e[:, ci] * qv
-        # I: rows i
-        ys = parts("bhpn,bin->bihp", big_s, cq)
-        u[:, ci] = ecs[:, ci] * (dyq * ys).sum(-1).permute(0, 2, 1)
-        ds = parts("bhpn,bihp->bhin", big_s, dyq)
-        for gi, heads in enumerate(groups):
-            dg_grp = torch.zeros_like(g)
-            for hh in heads:
-                dg_grp = dg_grp + dg[:, hh]
-            db_acc = parts("bij,bin->bjn", dg_grp, cq)
-            dc_acc = parts("bij,bjn->bin", dg_grp, bq)
-            for hh in heads:
-                db_acc = db_acc + wq[:, hh, :, None] * xr[:, hh]
-                dc_acc = dc_acc + ecs[:, ci, hh, :, None] * ds[:, hh]
-            dbp[:, gi, ci], dcp[:, gi, ci] = db_acc, dc_acc
+        for tj, ti in tile_pairs:
+            jr = slice(tj * tile, (tj + 1) * tile)
+            ir = slice(ti * tile, (ti + 1) * tile)
+            slot, diag = ti - tj, ti == tj
+            xq, bq = x_c[:, ci, jr], b_c[:, ci, jr]            # rows j
+            dyq, cq = dy_c[:, ci, ir], c_c[:, ci, ir]          # keys i
+            cs_j, cs_i = cs[:, ci, :, jr], cs[:, ci, :, ir]    # (b,h,q)
+            dtq, wq, eq = dt_c[:, ci, :, jr], w[:, ci, :, jr], e[:, ci, :, jr]
+            ecs_i = ecs[:, ci, :, ir]
+            causal = pos[jr][None, :] <= pos[ir][:, None]
+            g = torch.einsum("bin,bjn->bij", cq, bq)
+            seg = torch.where(causal, cs_i[..., :, None] - cs_j[..., None, :],
+                              0.0)
+            big_l = torch.where(causal, torch.exp(seg), 0.0)
+            gl = g[:, None] * big_l
+            m = gl * dtq[..., None, :]
+            dm = torch.einsum("bihp,bjhp->bhij", dyq, xq) * causal
+            dg = dm * big_l * dtq[..., None, :]
+            t = dm * m
+            rsum[slot, :, ci, :, ir] = t.sum(-1)
+            csum[slot, :, ci, :, jr] = t.sum(-2)
+            dd = (dm * gl).sum(-2)
+            # J: rows j
+            dxs = parts("bhij,bihp->bjhp", m, dyq)
+            if diag:
+                br = parts("bhpn,bjn->bjhp", big_r, bq)
+                dxs = dxs + br * wq.permute(0, 2, 1)[..., None]
+                # K: rows j; q_j = B_j . (x R)_j
+                xr = parts("bhpn,bjhp->bhjn", big_r, xq)
+                qv = (bq[:, None] * xr).sum(-1)                # (b,h,j)
+                v[:, ci, :, jr] = wq * qv
+                dd = dd + eq * qv
+                # I: rows i
+                ys = parts("bhpn,bin->bihp", big_s, cq)
+                u[:, ci, :, ir] = ecs_i * (dyq * ys).sum(-1).permute(0, 2, 1)
+                ds = parts("bhpn,bihp->bhin", big_s, dyq)
+            dxp[slot, :, ci, jr] = dxs
+            ddtp[slot, :, ci, :, jr] = dd
+            for gi, heads in enumerate(groups):
+                dg_grp = torch.zeros_like(g)
+                for hh in heads:
+                    dg_grp = dg_grp + dg[:, hh]
+                db_acc = parts("bij,bin->bjn", dg_grp, cq)
+                dc_acc = parts("bij,bjn->bin", dg_grp, bq)
+                if diag:
+                    for hh in heads:
+                        db_acc = db_acc + wq[:, hh, :, None] * xr[:, hh]
+                        dc_acc = dc_acc + ecs_i[:, hh, :, None] * ds[:, hh]
+                dbp[:, gi, slot, ci, jr], dcp[:, gi, slot, ci, ir] = (db_acc,
+                                                                      dc_acc)
 
-    # 3. the ordered sums
-    db = torch.zeros_like(dbp[:, 0])
-    dc = torch.zeros_like(dcp[:, 0])
+    # 3. the ordered sums (a second slot adds where the pair off the
+    # diagonal wrote, zeros elsewhere)
+    db = torch.zeros_like(dbp[:, 0, 0])
+    dc = torch.zeros_like(dcp[:, 0, 0])
     for gi in range(len(groups)):
-        db = db + dbp[:, gi]
-        dc = dc + dcp[:, gi]
+        for sl in range(slots):
+            db = db + dbp[:, gi, sl]
+            dc = dc + dcp[:, gi, sl]
+    row_t, col_t, ddt_part, dx = rsum[0], csum[0], ddtp[0], dxp[0]
+    for sl in range(1, slots):
+        row_t, col_t = row_t + rsum[sl], col_t + csum[sl]
+        ddt_part, dx = ddt_part + ddtp[sl], dx + dxp[sl]
     dcs = _dcs(row_t, col_t, u, v)
     vsum = v[..., 0]
     for j in range(1, chunk):
@@ -559,7 +595,7 @@ def ssd_chunk_bwd_segmented(x, dt, a_log, b, c, dy, dstate=None, *,
         run = run + dcs[..., j]
         dl[..., j] = run
         share = share + run * l[..., j]
-    ddt = ddtp + al[:, None] * dl
+    ddt = ddt_part + al[:, None] * dl
     da_log = torch.zeros_like(al)
     for bi in range(bsz):
         for ci in range(nc):

@@ -78,3 +78,21 @@ def test_ssd_backward_source_hashes_the_mma_header():
 
     assert {p.name for p in _build.included_files(SKB._SOURCE)} == {
         "ssd_chunk_bwd.cu", "_hopper.cuh", "_mma.cuh"}
+
+
+@pytest.mark.parametrize("name", ["ssd_chunk.cu", "ssd_chunk_tc.cu",
+                                  "ssd_chunk_bwd.cu"])
+def test_ssd_sources_declare_the_wrapper_chunk_lengths(name):
+    """Each SSD source has an instance for every chunk length the wrappers
+    take (`kernel.CHUNKS`), the set its library reports back at load
+    (``<prefix>_chunks``); the sources are hashed with the headers they
+    include, so a new instance rebuilds the library."""
+    import re
+
+    src = SK._SOURCE.with_name(name)
+    text = src.read_text()
+    (decl,) = re.findall(r"constexpr int CHUNKS\[\] = \{([^}]*)\}", text)
+    assert tuple(int(v) for v in decl.split(",")) == SK.CHUNKS
+    for q in SK.CHUNKS:
+        assert f"case {q}:" in text, (name, q)
+    assert src.resolve() in _build.included_files(src)

@@ -751,6 +751,93 @@ def test_cuda_ssd_bwd_kernel_equals_plain(card):
 
 
 @pytest.mark.cuda
+def test_cuda_ssd_instances_report_their_chunks_and_compile_clean(
+        card, tmp_path):
+    """Every SSD library reports the chunk lengths `kernel.CHUNKS` at load,
+    and ptxas builds every instance of the three sources (a template per
+    chunk length) with no spill and no serialized wgmma (notes C7511,
+    C7512, C7515, C7520)."""
+    import re
+    import subprocess
+
+    from repro_torch.kernels import _build
+
+    for lib, prefix in ((SK._lib(), "ssd_chunk"), (SK._lib_tc(),
+                                                     "ssd_chunk_tc"),
+                        (SKB._lib_bwd(), "ssd_chunk_bwd")):
+        assert SK.built_chunks(lib, prefix) == SK.CHUNKS
+    for src in (SK._SOURCE, SK._SOURCE_TC, SKB._SOURCE):
+        done = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+             str(tmp_path / f"{src.stem}.so"), str(src)],
+            capture_output=True, text=True, check=True)
+        log = done.stdout + done.stderr
+        assert not re.search(r"\(C75(11|12|15|20)\)", log), src.name
+        seen = set()
+        for block in log.split("Compiling entry function")[1:]:
+            m = re.search(r"ILi(\d+)E", block.splitlines()[0])
+            if m:
+                seen.add(int(m[1]))
+                assert " 0 bytes spill stores, 0 bytes spill loads" in block, (
+                    src.name, block.splitlines()[0])
+        assert seen == set(SK.CHUNKS), src.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [32, 64, 256])
+def test_cuda_ssd_kernels_at_other_chunks_equal_plain(card, q):
+    """At chunk length q: the tensor-core forward (and its chunk states'
+    instance, bit-equal to the served one), the CUDA-core forward and the
+    backward against their plain versions at that length on a sequence
+    shorter than a chunk, one chunk and two chunks with a ragged tail, the
+    smoke and full widths, 1 and 2 segments; ``SSD_TOL`` for the forward,
+    chip_smoke's ``SSD_BWD_TOL`` for the backward; two calls bit-equal."""
+    gen = torch.Generator(device=card).manual_seed(q)
+    atol, rtol = 3e-5, 3e-4
+    tolerance = ssd_bwd_tol()
+    for b, s, h, p, n in [(2, q - 3, 4, 16, 16), (1, q, 8, 64, 128),
+                          (2, 2 * q + 5, 4, 64, 128)]:
+        args = ssd_inputs(gen, card, b, s, h, p, n, True)
+        f32 = SK.ssd_chunk_kernel(*args, chunk=q)
+        torch.cuda.synchronize()
+        assert torch.allclose(f32[0], ssd_chunk_ref(*args, chunk=q),
+                              atol=atol, rtol=rtol), (q, s)
+        x, dt, a_log, bm, cm = (t.to(torch.bfloat16) if i in (0, 3, 4) else t
+                                for i, t in enumerate(args))
+        dy = torch.randn(b, s, h, p, generator=gen,
+                         device=card).to(torch.bfloat16)
+        dstate = torch.randn(b, h, p, n, generator=gen, device=card)
+        want = ssd_chunk_ref(x, dt, a_log, bm, cm, chunk=q).float()
+        want_state = ssd_final_state(x, dt, a_log, bm, chunk=q)
+        want_bwd = ssd_chunk_bwd_plain(*(
+            t.double() for t in (x, dt, a_log, bm, cm, dy)),
+            dstate.double(), chunk=q)
+        for seg in (1, 2):
+            y, state = SK.ssd_chunk_kernel(x, dt, a_log, bm, cm, chunk=q,
+                                           segments=seg)
+            y2, state2, states = SK.ssd_chunk_kernel(
+                x, dt, a_log, bm, cm, chunk=q, segments=seg,
+                return_states=True)
+            got = SKB.ssd_chunk_bwd_kernel(x, dt, a_log, bm, cm, dy, dstate,
+                                           states, chunk=q, segments=seg)
+            again = SKB.ssd_chunk_bwd_kernel(x, dt, a_log, bm, cm, dy,
+                                             dstate, states, chunk=q,
+                                             segments=seg)
+            torch.cuda.synchronize()
+            case = (q, b, s, h, p, n, seg)
+            assert torch.equal(y, y2) and torch.equal(state, state2), case
+            assert torch.allclose(y.float(), want, atol=atol,
+                                  rtol=rtol + 2.0 ** -7), case
+            assert torch.allclose(state, want_state, atol=atol,
+                                  rtol=rtol), case
+            assert all(torch.equal(u, v) for u, v in zip(got, again)), case
+            for (name, tol), g, w in zip(tolerance.items(), got, want_bwd):
+                diff = float((g.double() - w).norm())
+                assert diff <= tol * max(float(w.norm()), 1e-30), (case,
+                                                                   name)
+
+
+@pytest.mark.cuda
 def test_cuda_mamba_model_equals_cpu(card):
     """mamba2-1.3b's smoke model: prefill (two chunks, a ragged tail) and
     three decode steps on the card against the CPU; the card's prefill

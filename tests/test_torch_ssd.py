@@ -248,7 +248,7 @@ def test_segment_count_rule(bsz, h, s, want):
     a chunk: one where the sequence is one chunk or B * H alone fills the
     card's SMs; two at mamba2-1.3b's 64 heads at S 4,096 and 16,384."""
     got = pkernel.segment_count(bsz, h, s)
-    n_chunks = -(-s // pkernel.CHUNK)
+    n_chunks = -(-s // 128)
     assert got == want
     assert 1 <= got <= n_chunks
     assert got == 1 or bsz * h * got <= pkernel.SMS
